@@ -1,0 +1,131 @@
+"""The engine's device computations (counterpart of
+``tpu9/serving/graphs.py``): the decode window, one chunked-prefill step,
+the scratch → pool block splice, the pool → scratch prefix gather and the
+fused admission group.
+
+The JAX package jit-compiles each of these into one XLA graph and donates
+the pool and scratch buffers; here they run eagerly and write the pool and
+scratch in place. A decode window is a Python loop of k steps whose sampled
+tokens stay on the device as one [k, B] tensor, so the host syncs once per
+window. (Capturing them as CUDA graphs is later perf work.)
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..models.transformer import decoder_forward
+from ..ops.rotary import rope_table
+from ..ops.sampling import sample_logits
+
+Params = dict[str, Any]
+
+
+class GraphFactory:
+    """The engine's computations for one (model, engine-config) pair.
+    ``chunk`` is the validated chunked-prefill length."""
+
+    def __init__(self, cfg, ecfg, chunk: int, device):
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.chunk = chunk
+        self.device = device
+        # computed once per engine (the JAX graphs constant-fold it)
+        self.rope = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
+                               device)
+
+    # -- decode window -------------------------------------------------------
+
+    def build_decode(self, k: int = 1):
+        cfg, ecfg, rope = self.cfg, self.ecfg, self.rope
+
+        @torch.no_grad()
+        def decode(params, kv_cache, last_token, cache_len, active,
+                   generator):
+            """k decode steps for the whole batch. Returns the new
+            (last_token [B,1], kv_cache, cache_len [B], toks [k, B]); the
+            pool in ``kv_cache`` is written in place."""
+            toks = []
+            step_len = active.to(torch.int32)
+            for _ in range(k):
+                positions = cache_len[:, None]      # next position per slot
+                logits, kv_cache = decoder_forward(
+                    params, last_token, cfg, positions=positions,
+                    kv_cache=kv_cache, cache_len=cache_len + 1, decode=True,
+                    rope=rope)
+                next_tok = sample_logits(logits[:, -1], generator,
+                                         temperature=ecfg.temperature,
+                                         top_k=ecfg.top_k, top_p=ecfg.top_p)
+                last_token = next_tok[:, None].to(torch.int32)
+                # only live slots advance; idle lanes stay parked at 0
+                cache_len = cache_len + step_len
+                toks.append(last_token[:, 0])
+            return last_token, kv_cache, cache_len, torch.stack(toks)
+
+        return decode
+
+    # -- paged chunked prefill -----------------------------------------------
+
+    @torch.no_grad()
+    def traced_chunk_step(self, params, scratch, tok_row, offset: int,
+                          last_idx: int):
+        """Prefill one C-token chunk into the scratch at ``offset`` and
+        return the logits at ``last_idx`` (shared by the single-chunk and
+        fused-group admission paths)."""
+        c = self.chunk
+        positions = offset + torch.arange(c, device=self.device)[None, :]
+        logits, scratch = decoder_forward(
+            params, tok_row[None, :], self.cfg, positions=positions,
+            kv_cache=scratch, cache_len=offset + c, rope=self.rope)
+        return logits[0, last_idx], scratch
+
+    @torch.no_grad()
+    def traced_splice(self, pool, scratch_k, scratch_v, offset: int, phys):
+        """Block copy: scratch positions [offset, offset+C) → pool blocks
+        phys[0..C/BS). In place: the JAX splice graph donated the pool."""
+        bs = self.ecfg.kv_block_size
+        for j in range(self.chunk // bs):
+            start = offset + j * bs
+            blk = int(phys[j])
+            pool["k"][:, blk] = scratch_k[:, 0, start:start + bs]
+            pool["v"][:, blk] = scratch_v[:, 0, start:start + bs]
+        return pool
+
+    def gather_fn(self):
+        """Densify one slot's table row into the scratch (prefix reuse: the
+        cached blocks become the prefix chunk prefill attends). The row's
+        final, always-trash column is sliced off so the scratch keeps its
+        [L, 1, S, KH, D] shape. Writes the scratch in place."""
+        s = self.ecfg.max_seq_len
+
+        @torch.no_grad()
+        def gather(pool, row, scratch):
+            idx = torch.from_numpy(np.asarray(row, dtype=np.int64)).to(
+                self.device)
+            for name in ("k", "v"):
+                g = pool[name][:, idx]                    # [L, MB, BS, KH, D]
+                l_, mb, bs, kh, d = g.shape
+                scratch[name][:, 0] = g.reshape(l_, mb * bs, kh, d)[:, :s]
+            return scratch
+
+        return gather
+
+    def chunk_group_fn(self, g: int):
+        """Fused admission: ``g`` chunks, each prefilled into the scratch
+        and spliced into the pool. toks [g, C] on the device; offsets,
+        last_idxs [g] and phys [g, C/BS] on the host. Returns (pool,
+        scratch, the final chunk's last-token logits)."""
+        def group(params, pool, scratch, toks, offsets, last_idxs, phys):
+            last = None
+            for i in range(g):
+                last, scratch = self.traced_chunk_step(
+                    params, scratch, toks[i], int(offsets[i]),
+                    int(last_idxs[i]))
+                pool = self.traced_splice(pool, scratch["k"], scratch["v"],
+                                          int(offsets[i]), phys[i])
+            return pool, scratch, last
+
+        return group

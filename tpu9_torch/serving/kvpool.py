@@ -1,0 +1,108 @@
+"""Paged KV-pool management (counterpart of ``tpu9/serving/kvpool.py``,
+without the host-DRAM tier and kvwire): pool sizing, the trash-block
+discipline, slot → physical-block bookkeeping, worst-case reservations and
+the host block table."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .paged_kv import BlockAllocator, PrefixCache, blocks_for
+
+Params = dict[str, Any]
+
+
+class KvPool:
+    """One engine's paged KV pool: the device tensors (built once by
+    :meth:`init_arrays`), the block allocator and prefix cache, and the
+    per-slot physical-block state the serve loop mutates."""
+
+    def __init__(self, cfg, ecfg, device):
+        b, s = ecfg.max_batch, ecfg.max_seq_len
+        bs = ecfg.kv_block_size
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.device = device
+        base_blocks = ecfg.kv_pool_blocks or b * s // bs    # dense parity
+        # +1: one dedicated TRASH block absorbs the writes of inactive decode
+        # lanes and of the padded tail of a non-block-aligned final chunk
+        self.n_blocks = base_blocks + 1
+        # table width: +1 ALWAYS-TRASH column, so a decode write at position
+        # S (cache full) lands in trash instead of the last real block
+        self.mb = s // bs + 1
+        self.allocator = BlockAllocator(self.n_blocks, bs)
+        self.trash_block = self.allocator.alloc(1)[0]
+        # inactive lanes write through their table rows every step; a fresh
+        # all-zero table relies on the trash block being physical block 0
+        if self.trash_block != 0:
+            raise AssertionError(f"trash block is {self.trash_block}, not 0")
+        # the trash block is held forever: reservations must not count on it
+        self.allocator.reserve_capacity = self.n_blocks - 1
+        self.prefix_cache = PrefixCache(self.allocator,
+                                        ecfg.prefix_cache_blocks)
+        self.slot_blocks: list[list[int]] = [[] for _ in range(b)]
+        self.slot_reserved = [0] * b
+        self.table_np = np.zeros((b, self.mb), dtype=np.int32)
+        self.kv_allocs = 0           # lifetime block allocations
+
+    def init_arrays(self) -> Params:
+        """The pool's device state: k/v [L, N, BS, KH, D] and the table."""
+        cfg, ecfg = self.cfg, self.ecfg
+        shape = (cfg.n_layers, self.n_blocks, ecfg.kv_block_size,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "table": self.device_table()}
+
+    def alloc_blocks(self, n: int) -> list[int]:
+        """Allocate physical blocks; evicts prefix-cache holdings if the
+        free list runs short. Reservations make failure impossible."""
+        if n <= 0:
+            return []
+        got = self.allocator.alloc(n)
+        if got is None:
+            self.prefix_cache.evict_for_space(n)
+            got = self.allocator.alloc(n)
+        if got is None:
+            raise RuntimeError(
+                f"KV pool exhausted: need {n}, free "
+                f"{self.allocator.free_count} (reservation bug)")
+        self.kv_allocs += n
+        return got
+
+    def device_table(self) -> torch.Tensor:
+        return torch.from_numpy(self.table_np.copy()).to(self.device)
+
+    def push_table(self, slot: int) -> torch.Tensor:
+        """Refresh one slot's table row from its block list (trash-padded)
+        and return the new device table for the engine to install."""
+        row = np.full((self.mb,), self.trash_block, dtype=np.int32)
+        blocks = self.slot_blocks[slot]
+        row[:len(blocks)] = blocks
+        self.table_np[slot] = row
+        return self.device_table()
+
+    def ensure_slot_blocks(self, slot: int, n_tokens: int) -> bool:
+        """Grow the slot's physical block list to cover ``n_tokens``
+        positions. True when the table changed (install
+        :meth:`push_table`'s value)."""
+        need = blocks_for(n_tokens, self.ecfg.kv_block_size)
+        have = len(self.slot_blocks[slot])
+        if need <= have:
+            return False
+        self.slot_blocks[slot].extend(self.alloc_blocks(need - have))
+        return True
+
+    def release_slot(self, slot: int) -> torch.Tensor:
+        """Retirement: physical blocks back to the pool (prefix-cache refs
+        keep shared prefix blocks alive), worst-case reservation released.
+        Returns the refreshed device table."""
+        self.allocator.release(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+        table = self.push_table(slot)
+        self.allocator.unreserve(self.slot_reserved[slot])
+        self.slot_reserved[slot] = 0
+        return table
