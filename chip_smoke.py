@@ -7,22 +7,30 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. card: the GPU's name and power limit (``nvidia-smi``), torch and CUDA
    versions;
-2. build: compiles every CUDA kernel of the main path from
-   ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, in parallel);
+2. build: compiles every CUDA kernel of the main paths from
+   ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, in parallel;
+   one source holds both paged-decode kernels, bf16 and int8);
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
    main path gives it, with table entries past every prefix pointing at
-   NaN-filled pool blocks; times the kernel, the twin and one library call
-   with CUDA events;
-4. engine: ``load_engine("llama3-8b", device="cuda")`` at full width in
-   bf16 (random weights from a seed), ``warmup()``, six concurrent
-   ``generate`` requests (two share a 512-token prefix), a repeated greedy
-   prompt, and a check of the generated tokens against a plain no-cache
-   forward. The kernel launch counts are zeroed just before this phase and
-   must equal ``n_layers x decode steps`` just after.
+   poisoned pool blocks (NaN for bf16; payload 127 with NaN scales for
+   int8); times the kernel, the twin and one library call with CUDA
+   events; prints the bounds of the TPU kernels not ported yet, from
+   their shapes;
+4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
+   (random weights from a seed), ``warmup()``, six concurrent ``generate``
+   requests (two share a 512-token prefix), a repeated greedy prompt, and
+   a check of the generated tokens against a plain no-cache forward;
+5. engine, int8: the same with ``load_engine("llama3-8b-int8",
+   kv_quant="int8")``: int8 weights and an int8 paged pool auto-sized to
+   the bf16 pool's bytes.
 
-With ``--profile`` a fifth phase profiles one decode window and one fused
-admission group with ``torch.profiler`` (wall and device-busy time, top
-kernels; full tables under ``build/profile/``).
+The kernel launch counts are zeroed just before each engine phase's
+requests and read just after: the phase's own kernel must have launched
+``n_layers x decode steps`` times and the other one never.
+
+With ``--profile``, one decode window and one fused admission group of
+each engine are profiled with ``torch.profiler`` (wall and device-busy
+time, top kernels; full tables under ``build/profile/``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device and the rest of
@@ -33,6 +41,7 @@ result.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import subprocess
 import sys
@@ -43,6 +52,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 L2_FLUSH_BYTES = 256 << 20         # larger than the 50 MB L2
@@ -92,7 +102,7 @@ def time_ms(fn, iters: int = 60) -> float:
     """Median device time of one call, CUDA events around each launch, with
     the L2 cache flushed before every launch (a decode step finds each
     layer's pool cold)."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     times = []
@@ -109,10 +119,14 @@ def time_ms(fn, iters: int = 60) -> float:
 
 
 def paged_case(batch: int, q_heads: int, kv_heads: int, head_dim: int,
-               block_s: int, max_blocks: int, lens: list[int], seed: int):
+               block_s: int, max_blocks: int, lens: list[int], seed: int,
+               quant: bool = False):
     """Decode operands on the card: each sequence gets ceil(len/BS) distinct
-    pool blocks, and every table entry past its prefix names a pool block
-    filled with NaN."""
+    pool blocks, and every table entry past its prefix names a poisoned
+    pool block: NaN-filled for bf16. An int8 payload cannot be NaN, so an
+    int8 pool (``quant``) poisons those blocks through NaN scales (and
+    payload 127): any read past a prefix still shows as a non-finite
+    output."""
     rng = np.random.default_rng(seed)
     need = [-(-n // block_s) for n in lens]
     n_poison = 4
@@ -125,34 +139,72 @@ def paged_case(batch: int, q_heads: int, kv_heads: int, head_dim: int,
         table[b, :nb] = perm[used:used + nb]
         table[b, nb:] = rng.choice(poison, size=max_blocks - nb)
         used += nb
-    dev = "cuda"
+    dev = DEVICE
     q = torch.from_numpy(rng.standard_normal((batch, 1, q_heads, head_dim),
                                              dtype=np.float32)).to(dev, torch.bfloat16)
     shape = (n_blocks, block_s, kv_heads, head_dim)
     k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
     v = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
-    k[poison] = float("nan")
-    v[poison] = float("nan")
-    return dict(q=q, k=k, v=v, table=torch.from_numpy(table).to(dev),
+    case = dict(q=q, table=torch.from_numpy(table).to(dev),
                 lens=torch.tensor(lens, dtype=torch.int32, device=dev),
                 poison=torch.from_numpy(poison).to(dev))
+    if quant:
+        from tpu9_torch.ops.quant import quantize_kv
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        k[poison] = 127
+        v[poison] = 127
+        ks[poison] = float("nan")
+        vs[poison] = float("nan")
+        case.update(ks=ks, vs=vs)
+    else:
+        k[poison] = float("nan")
+        v[poison] = float("nan")
+    return dict(case, k=k, v=v)
+
+
+def roofline_ms(n_bytes: int, flops: int) -> tuple[float, str]:
+    """The least time for moving ``n_bytes`` and doing ``flops`` bf16
+    operations on the card, and which of the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def paged_bound(case, lens: list[int]) -> tuple[float, str]:
     """Least time for the work this case's data needs: each valid k/v row
-    read once, q read and the output written once, the valid table entries
-    and lengths read once; 4 flops per (query head, dim, position)."""
+    (and, for an int8 pool, its f32 scale) read once, q read and the
+    output written once, the valid table entries and lengths read once; 4
+    flops per (query head, dim, position)."""
     q = case["q"]
     _, _, q_heads, head_dim = q.shape
     _, block_s, kv_heads, _ = case["k"].shape
     positions = sum(lens)
-    n_bytes = (positions * kv_heads * head_dim * 2 * 2
+    per_vec = head_dim * case["k"].element_size() + (4 if "ks" in case else 0)
+    n_bytes = (positions * kv_heads * per_vec * 2
                + 2 * q.numel() * 2
                + sum(-(-n // block_s) for n in lens) * 4 + len(lens) * 4)
-    flops = 4 * positions * q_heads * head_dim
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline_ms(n_bytes, 4 * positions * q_heads * head_dim)
+
+
+def print_unported_bounds() -> None:
+    """The bounds of the two TPU kernels that have no CUDA port yet, from
+    llama3-8b shapes (QH 32, KH 8, D 128, bf16): ``flash_attention`` over a
+    causal 2048-token prefill (q, k, v read once, out written once; 4 flops
+    per (head, dim) of each of the T(T+1)/2 pairs at or below the
+    diagonal), and ``ragged_decode_attention`` at B=8 over a contiguous
+    [8, 2048] cache, with every sequence 2048 long and with phase 3's
+    lengths."""
+    qh, kh, d, t = 32, 8, 128, 2048
+    flash = roofline_ms(2 * (2 * t * qh * d) + 2 * (2 * t * kh * d),
+                        4 * qh * d * t * (t + 1) // 2)
+    print(f"bound flash_attention (tpu9/ops/attention.py:119), causal "
+          f"prefill T=S={t}: {flash[0]:.5f} ms ({flash[1]})")
+    for lens in ([t] * 8, [1, 127, 128, 129, 1000, 2048, 513, 1777]):
+        pos = sum(lens)
+        ragged = roofline_ms(2 * (2 * pos * kh * d) + 2 * (2 * 8 * qh * d)
+                             + 4 * 8, 4 * pos * qh * d)
+        print(f"bound ragged_decode_attention (tpu9/ops/paged_attention.py:93)"
+              f", B=8 S={t} lengths {lens}: {ragged[0]:.5f} ms ({ragged[1]})")
 
 
 def sdpa_over_dense(case, k_dense, v_dense):
@@ -163,68 +215,102 @@ def sdpa_over_dense(case, k_dense, v_dense):
     k = k_dense.transpose(1, 2).contiguous()           # [B, KH, S, D]
     v = v_dense.transpose(1, 2).contiguous()
     s = k.shape[2]
-    mask = (torch.arange(s, device="cuda")[None, :]
+    mask = (torch.arange(s, device=DEVICE)[None, :]
             < case["lens"][:, None].long())[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
 
-def phase_paged_kernel(label: str, head_dim: int) -> dict:
-    from tpu9_torch.ops.paged_attention import (gather_paged,
-                                                paged_decode_attention,
-                                                xla_paged_decode_attention)
+KERNELS = {
+    # name: (TPU kernel it replaces, pool)
+    "paged_decode_attention": ("tpu9/ops/paged_attention.py:176", "bf16"),
+    "paged_decode_attention_quant": ("tpu9/ops/paged_attention.py:276",
+                                     "int8"),
+}
+
+
+def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
+    """One kernel at one shape: launched once, checked finite over the
+    poisoned blocks and against its twin, then timed beside the twin, one
+    library call and its bound."""
+    from tpu9_torch.ops import paged_attention as pa
+    quant = KERNELS[name][1] == "int8"
+    wrapper = getattr(pa, name)
     lens = [1, 127, 128, 129, 1000, 2048, 513, 1777]
     case = paged_case(batch=8, q_heads=32, kv_heads=8, head_dim=head_dim,
                       block_s=128, max_blocks=2048 // 128 + 1, lens=lens,
-                      seed=head_dim)
+                      seed=head_dim, quant=quant)
     q, k, v, table, clen = (case[n] for n in ("q", "k", "v", "table", "lens"))
-    before = paged_decode_attention.launches
-    got = paged_decode_attention(q, k, v, table, clen)
+    scales = (case["ks"], case["vs"]) if quant else ()
+
+    def kernel():
+        return wrapper(q, k, v, *scales, table, clen)
+
+    before = wrapper.launches
+    got = kernel()
     torch.cuda.synchronize()
-    check(paged_decode_attention.launches == before + 1,
-          "paged_decode_attention did not launch its kernel")
-    # the twin densifies every table entry, so it runs on a copy of the
-    # pool whose NaN blocks are zeroed (they are masked either way)
-    k_clean, v_clean = k.clone(), v.clone()
-    k_clean[case["poison"]] = 0
-    v_clean[case["poison"]] = 0
-    want = xla_paged_decode_attention(q, k_clean, v_clean, table, clen)
+    check(wrapper.launches == before + 1, f"{name} did not launch its kernel")
+    # the twin densifies every table entry, so it runs on a copy whose
+    # poisoned blocks are zeroed (they are masked either way). For the int8
+    # pool it runs on q.float(): it then dequantizes to f32 as the kernel
+    # does (with a bf16 q it would round the dequantized cache to bf16),
+    # and its f32 result is rounded to bf16 once, as the kernel's is
+    clean = {n: case[n].clone() for n in ("k", "v", "ks", "vs") if n in case}
+    for t in clean.values():
+        t[case["poison"]] = 0
+    if quant:
+        def twin():
+            return pa.xla_paged_decode_attention(
+                q.float(), clean["k"], clean["v"], table, clen, clean["ks"],
+                clean["vs"])
+        dense = [pa.gather_paged(clean[n], table, clean[s])
+                 for n, s in (("k", "ks"), ("v", "vs"))]
+    else:
+        def twin():
+            return pa.xla_paged_decode_attention(q, clean["k"], clean["v"],
+                                                 table, clen)
+        dense = [pa.gather_paged(clean[n], table) for n in ("k", "v")]
+    want = twin().to(torch.bfloat16).float()
     check(bool(torch.isfinite(got).all()),
-          f"{label}: kernel output not finite (read a block past a prefix?)")
-    err = (got.float() - want.float()).abs()
+          f"{name} {label}: kernel output not finite (read a block past a "
+          f"prefix?)")
+    err = (got.float() - want).abs()
     # both round an f32 result to bf16; results that differ only in f32
     # summation order round at most one bf16 ulp apart (2^-7 relative),
     # and outputs near zero keep an absolute slack of 1e-4
-    limit = 2.0 ** -7 * want.float().abs() + 1e-4
+    limit = 2.0 ** -7 * want.abs() + 1e-4
     max_err = float(err.max())
-    print(f"kernel paged_decode_attention [{label}]: max_abs_err {max_err:.3e} "
-          f"(tolerance |err| <= 2^-7*|twin| + 1e-4: one bf16 ulp of rounding "
-          f"an f32 result whose summation order differs)")
-    check(bool((err <= limit).all()), f"{label}: kernel disagrees with its twin "
-          f"(max abs err {max_err})")
+    print(f"kernel {name} [{label}]: max_abs_err {max_err:.3e} (tolerance "
+          f"|err| <= 2^-7*|twin| + 1e-4: one bf16 ulp of rounding an f32 "
+          f"result whose summation order differs)")
+    check(bool((err <= limit).all()), f"{name} {label}: kernel disagrees "
+          f"with its twin (max abs err {max_err})")
 
-    ms = time_ms(lambda: paged_decode_attention(q, k, v, table, clen))
-    plain_ms = time_ms(lambda: xla_paged_decode_attention(q, k_clean, v_clean,
-                                                          table, clen))
-    library_ms = time_ms(sdpa_over_dense(case, gather_paged(k_clean, table),
-                                         gather_paged(v_clean, table)))
+    ms = time_ms(kernel)
+    plain_ms = time_ms(twin)
+    library_ms = time_ms(sdpa_over_dense(case, *dense))
     bound_ms, bound_by = paged_bound(case, lens)
-    print(f"kernel paged_decode_attention [{label}]: {ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it), plain "
-          f"twin {plain_ms:.4f} ms, sdpa over dense cache {library_ms:.4f} ms")
-    return {"name": "paged_decode_attention", "route": "cuda",
+    print(f"kernel {name} [{label}]: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {bound_ms / ms:.1%} of it), plain twin "
+          f"{plain_ms:.4f} ms, sdpa over the dense "
+          f"{'dequantized ' if quant else ''}cache {library_ms:.4f} ms")
+    return {"name": name, "route": "cuda",
             "source": "tpu9_torch/csrc/paged_decode_attention.cu",
-            "replaces": "tpu9/ops/paged_attention.py:176",
-            "shape": label, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "replaces": KERNELS[name][0], "shape": label,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
-# -- phase 4: the engine at full width ----------------------------------------
+# -- phases 4 and 5: the engines at full width --------------------------------
 
-PRESET = "llama3-8b"
-DEVICE = "cuda"
 MAX_NEW = 64
+ENGINES = {
+    # label: (preset, extra load_engine knobs, the kernel of its decode path)
+    "bf16": ("llama3-8b", {}, "paged_decode_attention"),
+    "int8": ("llama3-8b-int8", {"kv_quant": "int8"},
+             "paged_decode_attention_quant"),
+}
 
 
 def make_prompts(vocab: int, seed: int) -> list[list[int]]:
@@ -267,13 +353,17 @@ async def _serve(engine, prompts: list[list[int]], max_new: int):
 
 
 def reference_check(engine, prompt: list[int], generated: list[int],
-                    n_check: int = 8) -> float:
+                    n_check: int = 8) -> tuple[float, int]:
     """Hold the engine's greedy tokens (chunked prefill + paged decode
-    through the kernel) against a plain no-cache forward over prompt +
-    generated. Both paths round in bf16 at different places, so a token
-    passes when it is the reference argmax or its reference logit is within
-    1% of the reference logit range of the maximum. Returns the worst
-    relative gap."""
+    through the kernel) against a plain no-cache forward, over the same
+    weights, of prompt + generated. Both paths round in bf16 at different
+    places, and an int8 pool adds the noise of its quantized KV, which the
+    reference's dense bf16 KV does not have: so a token passes when it is
+    the reference argmax or its reference logit is within 1% of the
+    reference logit range of the maximum. Tokens are judged up to and
+    including the first one that is not the reference argmax (a fork), as
+    ``tests/test_quant_serving.py`` judges forks. Returns the worst
+    relative gap and the index of the fork (-1 for none)."""
     from tpu9_torch.models.transformer import decoder_forward
     seq = prompt + generated[:n_check]
     tokens = torch.tensor([seq], dtype=torch.int64, device=engine.device)
@@ -287,29 +377,53 @@ def reference_check(engine, prompt: list[int], generated: list[int],
         worst = max(worst, rel)
         check(rel <= 0.01, f"token {i}: engine chose {generated[i]}, reference "
               f"argmax {int(row.argmax())} (gap {gap:.4f}, {rel:.2%} of range)")
-    return worst
+        if generated[i] != int(row.argmax()):
+            return worst, i
+    return worst, -1
 
 
-def phase_engine(card: str) -> dict:
-    from tpu9_torch.ops.paged_attention import paged_decode_attention
+def phase_engine(card: str, kind: str):
+    """Serve the six prompts, the repeat and the reference prompt through
+    the ``kind`` engine of ``ENGINES``; returns (its kernel's launches,
+    the engine)."""
+    from tpu9_torch.ops import paged_attention as pa
+    from tpu9_torch.ops.quant import quantized_bytes
+    from tpu9_torch.serving.paged_kv import kv_block_bytes
     from tpu9_torch.serving.presets import load_engine
 
+    preset, knobs, kernel = ENGINES[kind]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = load_engine(PRESET, device=DEVICE, max_batch=8, max_seq_len=2048,
-                         seed=0)
+    engine = load_engine(preset, device=DEVICE, max_batch=8, max_seq_len=2048,
+                         seed=0, **knobs)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    cfg = engine.cfg
-    print(f"engine: {PRESET} {cfg.dtype} dim {cfg.dim} layers {cfg.n_layers} heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} vocab {cfg.vocab_size}; block "
-          f"{engine.ecfg.kv_block_size} chunk {engine.ecfg.prefill_chunk} pool "
-          f"{engine.pool.n_blocks} blocks; load {t_load:.2f} s, warmup "
-          f"{t_warm:.2f} s")
+    cfg, ecfg = engine.cfg, engine.ecfg
+    quant = bool(knobs)
+    if quant:
+        check(engine.params["layers"][0]["wq"]["q"].dtype == torch.int8,
+              "the int8 preset did not build int8 weights")
+        check(engine.kv_cache["k"].dtype == torch.int8, "the pool is not int8")
+        # equal-bytes auto sizing: the bf16 pool's blocks x bf16 block bytes
+        # // int8 block bytes, + the trash block
+        dense = ecfg.max_batch * ecfg.max_seq_len // ecfg.kv_block_size
+        want = (dense * kv_block_bytes(cfg, ecfg.kv_block_size, False)
+                // kv_block_bytes(cfg, ecfg.kv_block_size, True) + 1)
+        check(engine.pool.n_blocks == want, f"int8 pool has "
+              f"{engine.pool.n_blocks} blocks, equal-bytes sizing gives {want}")
+    pool_gb = sum(t.numel() * t.element_size() for n, t in
+                  engine.kv_cache.items() if n != "table") / 1e9
+    print(f"engine {kind}: {preset} {cfg.dtype} dim {cfg.dim} layers "
+          f"{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} vocab "
+          f"{cfg.vocab_size}; weights {quantized_bytes(engine.params) / 1e9:.2f}"
+          f" GB; block {ecfg.kv_block_size} chunk "
+          f"{ecfg.prefill_chunk} pool {engine.pool.n_blocks} blocks "
+          f"({engine.kv_cache['k'].dtype}, {pool_gb:.2f} GB); load "
+          f"{t_load:.2f} s, warmup {t_warm:.2f} s")
     prompts = make_prompts(cfg.vocab_size, seed=1)
     repeat = prompts[5]
     ref_prompt = prompts[2][:127]       # 127 tokens: the plain no-cache path
@@ -318,13 +432,14 @@ def phase_engine(card: str) -> dict:
         await engine.start()
         try:
             steps0 = engine.stats()["decode_steps"]
-            paged_decode_attention.launches = 0
+            for name in KERNELS:
+                getattr(pa, name).launches = 0
             outs, t_submit, t_firsts, t_end = await _serve(engine, prompts,
                                                            MAX_NEW)
             rep_a = await engine.generate(repeat, max_new_tokens=32)
             rep_b = await engine.generate(repeat, max_new_tokens=32)
             ref_out = await engine.generate(ref_prompt, max_new_tokens=8)
-            launches = paged_decode_attention.launches
+            launches = {name: getattr(pa, name).launches for name in KERNELS}
             steps = engine.stats()["decode_steps"] - steps0
             stats = engine.stats()
         finally:
@@ -343,31 +458,39 @@ def phase_engine(card: str) -> dict:
         check(all(0 <= t < cfg.vocab_size for t in out), "token id out of range")
     check(rep_a == rep_b, f"repeated greedy prompt differs: {rep_a} vs {rep_b}")
     check(stats["prefix_cache"]["hits"] >= 1, "prefix reuse never ran")
-    check(launches > 0, "the paged decode kernel never launched")
-    check(launches == cfg.n_layers * steps,
-          f"kernel launches {launches} != n_layers {cfg.n_layers} x decode "
-          f"steps {steps}")
-    worst = reference_check(engine, ref_prompt, ref_out)
+    check(stats["kv_quant"] == knobs.get("kv_quant", ""),
+          f"stats report kv_quant {stats['kv_quant']!r}")
+    check(launches[kernel] > 0, f"{kernel} never launched")
+    check(launches[kernel] == cfg.n_layers * steps,
+          f"{kernel} launches {launches[kernel]} != n_layers {cfg.n_layers} "
+          f"x decode steps {steps}")
+    for other, n in launches.items():
+        check(other == kernel or n == 0,
+              f"{other} launched {n} times on the {kind} engine's path")
+    worst, fork = reference_check(engine, ref_prompt, ref_out)
 
     ttft = sorted(t - t_submit for t in t_firsts)
     n_tokens = sum(len(o) for o in outs)
     decode_tokens = n_tokens - len(outs)
     decode_tps = decode_tokens / (t_end - min(t_firsts))
-    print(f"engine: {len(prompts)} requests, prompt lengths "
+    print(f"engine {kind}: {len(prompts)} requests, prompt lengths "
           f"{[len(p) for p in prompts]}, {MAX_NEW} new tokens each")
-    print(f"engine: ttft p50 {np.median(ttft):.4f} s, max {ttft[-1]:.4f} s; "
-          f"decode {decode_tps:.1f} tokens/s ({decode_tokens} tokens after the "
-          f"first of each request, from the first first-token to the end); "
-          f"all {n_tokens} tokens in {t_end - t_submit:.3f} s")
-    print(f"engine: peak memory {peak_gb:.2f} GB; prefix cache "
+    print(f"engine {kind}: ttft p50 {np.median(ttft):.4f} s, max "
+          f"{ttft[-1]:.4f} s; decode {decode_tps:.1f} tokens/s "
+          f"({decode_tokens} tokens after the first of each request, from the "
+          f"first first-token to the end); all {n_tokens} tokens in "
+          f"{t_end - t_submit:.3f} s ({card})")
+    print(f"engine {kind}: peak memory {peak_gb:.2f} GB; prefix cache "
           f"{stats['prefix_cache']}; repeat identical; reference worst gap "
-          f"{worst:.3%} of logit range")
-    print(f"engine: paged_decode_attention launches {launches} = "
-          f"{cfg.n_layers} layers x {steps} decode steps ({card})")
-    return {"paged_decode_attention": launches}, engine
+          f"{worst:.3%} of logit range, "
+          f"{'no fork in 8 tokens' if fork < 0 else f'first fork at token {fork}'}")
+    print(f"engine {kind}: {kernel} launches {launches[kernel]} = "
+          f"{cfg.n_layers} layers x {steps} decode steps; other kernels "
+          f"{ {k: n for k, n in launches.items() if k != kernel} } ({card})")
+    return launches[kernel], engine
 
 
-# -- optional phase 5 (--profile): where the engine's time goes ---------------
+# -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
     """Host clock over three calls of ``fn`` (each ended by a synchronize),
@@ -410,7 +533,7 @@ def _profile(fn, label: str, per: int, out_dir: Path) -> None:
           f"{1 - busy_ms / wall_ms:.1%}); top device ms: {top}")
 
 
-def phase_profile(engine, card: str) -> None:
+def phase_profile(engine, card: str, kind: str) -> None:
     """A decode window of 8 steps with all 8 lanes live at the engine
     phase's prompt lengths (each lane on its own pool blocks), and one fused
     admission group of 4 chunks, each profiled. Per-kernel tables go to
@@ -432,7 +555,7 @@ def phase_profile(engine, card: str) -> None:
     k = 8
     window = e.graphs.build_decode(k)
     _profile(lambda: window(e.params, kv, last, cache_len, active, e._gen),
-             f"decode_step_B{b}", k, out_dir)
+             f"{kind}_decode_step_B{b}", k, out_dir)
     g, c = 4, e.graphs.chunk
     group = e.graphs.chunk_group_fn(g)
     toks = torch.randint(0, e.cfg.vocab_size, (g, c), device=e.device,
@@ -442,8 +565,9 @@ def phase_profile(engine, card: str) -> None:
     phys = np.full((g, c // e.ecfg.kv_block_size), e.pool.trash_block,
                    dtype=np.int32)
     _profile(lambda: group(e.params, e._pool_dict(), e._scratch, toks, offs,
-                           lasts, phys), f"prefill_chunk_{c}", g, out_dir)
-    print(f"profile: per decode step (B={b}, lengths {lens}) and per "
+                           lasts, phys), f"{kind}_prefill_chunk_{c}", g,
+             out_dir)
+    print(f"profile {kind}: per decode step (B={b}, lengths {lens}) and per "
           f"{c}-token prefill chunk ({card})")
 
 
@@ -461,16 +585,27 @@ def main() -> int:
         return 1
     try:
         card = phase_card()
+        # one source holds both paged-decode kernels
         phase_build(["paged_decode_attention"])
         # one row per kernel, at the main path's shapes; the llama-1b
         # head_dim is checked and printed beside it
-        rows = [phase_paged_kernel("llama3-8b decode B=8 QH=32 KH=8 D=128 "
-                                   "BS=128 MB=17", 128)]
-        phase_paged_kernel("llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17",
-                           64)
-        launches, engine = phase_engine(card)
-        if "--profile" in sys.argv[1:]:
-            phase_profile(engine, card)
+        rows = []
+        for name in KERNELS:
+            rows.append(phase_paged_kernel(
+                name, "llama3-8b decode B=8 QH=32 KH=8 D=128 BS=128 MB=17",
+                128))
+            phase_paged_kernel(
+                name, "llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17", 64)
+        print_unported_bounds()
+        launches = {}
+        for kind in ENGINES:
+            launches[ENGINES[kind][2]], engine = phase_engine(card, kind)
+            if "--profile" in sys.argv[1:]:
+                phase_profile(engine, card, kind)
+            # free the engine before the next one loads
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -7,6 +7,12 @@ so prefix reuse runs) through chunked prefill, fused admission groups and
 paged decode windows. Greedy token streams must be identical: at f32 the
 two decoders agree to ~1e-5 in the logits (``test_torch_model.py``), far
 inside the margins greedy decoding turns on.
+
+The int8 engines (a JAX int8 weight tree carried over by the bridge, an
+int8 KV pool) are held to the same streams; a fork, should the two sums'
+order ever tip a near-tie, is judged as the JAX suite judges one
+(``tests/test_quant_serving.py``): the port's token must lie within 0.35 of
+the argmax of a full-context JAX forward.
 """
 
 import asyncio
@@ -19,13 +25,16 @@ import pytest
 import torch
 
 from tpu9.models import init_decoder as jax_init_decoder
+from tpu9.models import decoder_forward as jax_forward
 from tpu9.models.llama import LLAMA_PRESETS as JAX_PRESETS
+from tpu9.ops.quant import quantize_decoder as jax_quantize_decoder
 from tpu9.serving.engine import EngineConfig as JaxEngineConfig
 from tpu9.serving.engine import InferenceEngine as JaxEngine
 from tpu9.serving.presets import load_engine as jax_load_engine
 from tpu9_torch.bridge import params_from_jax
 from tpu9_torch.models.llama import LLAMA_PRESETS
 from tpu9_torch.ops import paged_attention as tpaged
+from tpu9_torch.ops import quant as tquant
 from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
 from tpu9_torch.serving.presets import load_engine
 
@@ -133,8 +142,151 @@ def test_load_engine_pages_by_the_reference_rule(buckets, block, seq):
         assert getattr(got, name) == getattr(want, name), name
 
 
+SMALL = dict(max_batch=2, max_seq_len=64, prefill_buckets=(16,),
+             decode_steps=(1, 4), kv_block_size=16)
+
+
 def test_int8_serving_raises_until_its_slice():
-    with pytest.raises(NotImplementedError, match="A7"):
-        load_engine("llama-tiny-int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        load_engine("llama-tiny", device="cpu", kv_quant="int8")
+    """Its slice is in: the int8 presets serve (int8 weights by the suffix
+    or by ``quantize=``, the int8 pool by ``kv_quant=``), while the parts
+    still queued, the dense engine (A11) and MoE (A10), raise naming their
+    items."""
+    for name, kw in (("llama-tiny-int8", {}),
+                     ("llama-tiny", dict(quantize="int8"))):
+        engine = load_engine(name, device="cpu", kv_quant="int8", **SMALL,
+                             **kw)
+        assert engine.params["layers"][0]["wq"]["q"].dtype == torch.int8
+        assert engine.kv_cache["k"].dtype == torch.int8
+        assert engine.stats()["kv_quant"] == "int8"
+        out = asyncio.run(_serve(engine, [[3, 1, 4, 1, 5]], 6))[0]
+        assert len(out[0]) == 6
+    with pytest.raises(NotImplementedError, match="A11"):
+        load_engine("llama-tiny-int8", device="cpu", paged=False, **SMALL)
+    moe = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], n_experts=4)
+    with pytest.raises(NotImplementedError, match="A10"):
+        tquant.init_quantized_decoder(moe, torch.Generator(), "cpu")
+
+
+@pytest.fixture(scope="module")
+def int8_engines():
+    """The JAX engine on a JAX int8 tree with an int8 pool, and the port's
+    on the same tree carried over by the bridge."""
+    jcfg = dataclasses.replace(JAX_PRESETS["llama-tiny"], dtype=jnp.float32)
+    tcfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"],
+                               dtype=torch.float32)
+    jparams = jax_quantize_decoder(
+        jax_init_decoder(jax.random.PRNGKey(0), jcfg))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
+    return (jparams, jcfg,
+            JaxEngine(jparams, jcfg, JaxEngineConfig(**ENGINE,
+                                                     kv_quant="int8")),
+            InferenceEngine(tparams, tcfg,
+                            EngineConfig(**ENGINE, kv_quant="int8"),
+                            device="cpu"))
+
+
+def test_int8_greedy_streams_match_jax_engine(int8_engines):
+    jparams, jcfg, jeng, teng = int8_engines
+    prompts = _prompts()
+    tpaged.paged_decode_attention_quant.launches = 0
+    want = asyncio.run(_serve(jeng, prompts, 8))
+    got = asyncio.run(_serve(teng, prompts, 8))
+    for prompt, w, g in zip(prompts + [prompts[0]], want[0] + [want[1]],
+                            got[0] + [got[1]]):
+        assert len(g) == len(w) == 8
+        for i, (a, b) in enumerate(zip(w, g)):
+            if a != b:
+                logits = jax_forward(
+                    jparams, jnp.asarray([prompt + g[:i]], jnp.int32),
+                    jcfg)[0, -1]
+                assert float(jnp.max(logits) - logits[b]) < 0.35, (i, a, b)
+                break
+    stats = teng.stats()
+    assert stats["kv_quant"] == "int8" == jeng.stats()["kv_quant"]
+    assert stats["prefix_cache"]["hits"] >= 2
+    assert teng.allocator.n_blocks == jeng.allocator.n_blocks
+    assert stats["kv_blocks_used"] == jeng.stats()["kv_blocks_used"]
+    # the CPU engine takes the int8 kernel's plain twin: no launch counted
+    assert tpaged.paged_decode_attention_quant.launches == 0
+
+
+def test_prefix_reuse_on_the_int8_pool_repeats_a_cold_admission():
+    engine = load_engine("llama-tiny-int8", device="cpu", kv_quant="int8",
+                         max_batch=2, max_seq_len=128, prefill_buckets=(16,),
+                         decode_steps=(1, 4), kv_block_size=16,
+                         prefix_cache_blocks=4)
+    prompt = list(range(1, 40)) + [77]
+
+    async def go():
+        await engine.start()
+        try:
+            cold = await engine.generate(prompt, max_new_tokens=6)
+            warm = await engine.generate(prompt, max_new_tokens=6)
+        finally:
+            await engine.stop()
+        return cold, warm
+
+    cold, warm = asyncio.run(go())
+    assert cold == warm and len(cold) == 6
+    assert engine.prefix_cache.hits >= 1
+
+
+@pytest.mark.parametrize("case", ["dense_ecfg", "unaligned", "fp8",
+                                  "engine_cfg", "quantize_fp8"])
+def test_kv_quant_errors_match_jax(case):
+    """Each misuse raises the same exception type with the same message in
+    both packages."""
+    tiny_t = LLAMA_PRESETS["llama-tiny"]
+    tiny_j = JAX_PRESETS["llama-tiny"]
+    ecfg = dict(kv_block_size=32, max_seq_len=256, max_batch=2,
+                prefill_buckets=(32,), prefill_chunk=32)
+
+    def port():
+        if case == "dense_ecfg":
+            InferenceEngine({}, tiny_t, EngineConfig(kv_block_size=0,
+                                                     kv_quant="int8"),
+                            device="cpu")
+        elif case == "unaligned":
+            load_engine("llama-tiny", device="cpu", max_batch=2,
+                        max_seq_len=250, prefill_buckets=(33,),
+                        kv_quant="int8")
+        elif case == "fp8":
+            load_engine("llama-tiny", device="cpu", max_batch=2,
+                        kv_quant="fp8")
+        elif case == "engine_cfg":
+            load_engine("llama-tiny", device="cpu", kv_quant="int8",
+                        engine_cfg=EngineConfig(**ecfg))
+        else:
+            load_engine("llama-tiny", device="cpu", quantize="fp8")
+
+    def reference():
+        if case == "dense_ecfg":
+            JaxEngine({}, tiny_j, JaxEngineConfig(kv_block_size=0,
+                                                  kv_quant="int8"))
+        elif case == "unaligned":
+            jax_load_engine("llama-tiny", max_batch=2, max_seq_len=250,
+                            prefill_buckets=(33,), kv_quant="int8")
+        elif case == "fp8":
+            jax_load_engine("llama-tiny", max_batch=2, kv_quant="fp8")
+        elif case == "engine_cfg":
+            jax_load_engine("llama-tiny", kv_quant="int8",
+                            engine_cfg=JaxEngineConfig(**ecfg))
+        else:
+            jax_load_engine("llama-tiny", quantize="fp8")
+
+    with pytest.raises(ValueError) as want:
+        reference()
+    with pytest.raises(ValueError) as got:
+        port()
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_stats_report_the_pool_format(kv_quant):
+    engine = load_engine("llama-tiny", device="cpu", kv_quant=kv_quant,
+                         **SMALL)
+    assert engine.stats()["kv_quant"] == kv_quant
+    assert engine.kv_quant == bool(kv_quant)
+    assert set(engine._pool_dict()) == (
+        {"k", "v", "k_scale", "v_scale"} if kv_quant else {"k", "v"})

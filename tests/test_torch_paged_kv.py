@@ -3,7 +3,9 @@ same scripted traces, ``tpu9_torch.serving.paged_kv`` (block allocator,
 prefix cache), ``tpu9_torch.serving.kvpool`` (pool and table) and
 ``tpu9_torch.serving.schedule`` (window sizes) make the same decisions as
 their ``tpu9.serving`` counterparts. These are exact: no arithmetic is
-involved, so every block id, eviction and window size must be equal.
+involved, so every block id, eviction and window size must be equal. The
+int8 pool's device side (the quantizing splice and the dequantizing
+prefix gather) is held bit-exact against the JAX graphs.
 """
 
 import asyncio
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from tpu9.models.llama import LLAMA_PRESETS as JAX_PRESETS
+from tpu9.serving import graphs as jgraphs
 from tpu9.serving import kvpool as jkvpool
 from tpu9.serving import paged_kv as jpaged_kv
 from tpu9.serving import schedule as jschedule
@@ -27,6 +30,7 @@ from tpu9_torch.serving import kvpool as tkvpool
 from tpu9_torch.serving import paged_kv as tpaged_kv
 from tpu9_torch.serving import schedule as tschedule
 from tpu9_torch.serving.engine import EngineConfig
+from tpu9_torch.serving.graphs import GraphFactory
 
 torch.set_num_threads(2)
 
@@ -131,17 +135,102 @@ def test_block_sizing_matches():
         assert tpaged_kv.blocks_for(n, 128) == jpaged_kv.blocks_for(n, 128)
 
 
-def _pools(**kw):
+@pytest.mark.parametrize("preset", ["llama-tiny", "llama-1b", "llama3-8b"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_block_bytes_match_for_both_pool_types(preset, quantized):
+    jcfg, tcfg = JAX_PRESETS[preset], LLAMA_PRESETS[preset]
+    for bs in (8, 128, 256):
+        assert tpaged_kv.kv_block_bytes(tcfg, bs, quantized) == \
+            jpaged_kv.kv_block_bytes(jcfg, bs, quantized)
+    if preset == "llama3-8b":
+        # the flagship int8 pool holds 1.94x the blocks of a bf16 one
+        ratio = (tpaged_kv.kv_block_bytes(tcfg, 128, False)
+                 / tpaged_kv.kv_block_bytes(tcfg, 128, True))
+        assert ratio > 1.9
+
+
+def _pools(kv_quant=False, **kw):
     base = dict(max_batch=3, max_seq_len=32, kv_block_size=BS,
                 prefix_cache_blocks=6)
     base.update(kw)
     jcfg = dataclasses.replace(JAX_PRESETS["llama-tiny"], dtype=jnp.float32)
     tcfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"],
                                dtype=torch.float32)
-    jpool = jkvpool.KvPool(jcfg, JaxEngineConfig(**base), False,
+    jpool = jkvpool.KvPool(jcfg, JaxEngineConfig(**base), kv_quant,
                            SingleDevicePolicy())
-    tpool = tkvpool.KvPool(tcfg, EngineConfig(**base), torch.device("cpu"))
+    tpool = tkvpool.KvPool(tcfg, EngineConfig(**base), torch.device("cpu"),
+                           kv_quant)
     return jpool, tpool
+
+
+@pytest.mark.parametrize("pool_blocks", [0, 12])
+def test_int8_pool_sizing_and_planes_match(pool_blocks):
+    """Auto sizing spends the bf16 pool's bytes on int8 blocks; an explicit
+    size is taken as given. Both packages count the same blocks and lay
+    out the same planes."""
+    jpool, tpool = _pools(kv_quant=True, kv_pool_blocks=pool_blocks)
+    assert (tpool.n_blocks, tpool.mb, tpool.trash_block) == \
+        (jpool.n_blocks, jpool.mb, jpool.trash_block)
+    if pool_blocks == 0:
+        _, bf16 = _pools(kv_pool_blocks=0)
+        assert tpool.n_blocks - 1 > 1.5 * (bf16.n_blocks - 1)
+    arrays = tpool.init_arrays()
+    want = jpool.array_shapes()
+    assert set(arrays) == set(want)
+    for name, t in arrays.items():
+        shape, dt = want[name]
+        assert tuple(t.shape) == tuple(shape), name
+        assert str(t.dtype).removeprefix("torch.") == jnp.dtype(dt).name, name
+
+
+def test_int8_splice_and_prefix_gather_match_jax_graphs():
+    """One chunk of a scratch quantized into int8 pool blocks (payload and
+    scale planes), then the slot's row densified back into the scratch
+    with dequantization: both equal the JAX graphs' bit for bit."""
+    c, s = 2 * BS, 32
+    base = dict(max_batch=2, max_seq_len=s, kv_block_size=BS,
+                prefill_chunk=c, kv_quant="int8")
+    jcfg = dataclasses.replace(JAX_PRESETS["llama-tiny"], dtype=jnp.float32)
+    tcfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"],
+                               dtype=torch.float32)
+    jg = jgraphs.GraphFactory(jcfg, JaxEngineConfig(**base),
+                              SingleDevicePolicy(), c, kv_quant=True)
+    tg = GraphFactory(tcfg, EngineConfig(**base), c, torch.device("cpu"))
+    rng = np.random.default_rng(7)
+    n_blocks = 6
+    shape = (tcfg.n_layers, n_blocks, BS, tcfg.n_kv_heads, tcfg.head_dim)
+    zeros = {"k": np.zeros(shape, np.int8), "v": np.zeros(shape, np.int8),
+             "k_scale": np.zeros(shape[:-1], np.float32),
+             "v_scale": np.zeros(shape[:-1], np.float32)}
+    scr_shape = (tcfg.n_layers, 1, s, tcfg.n_kv_heads, tcfg.head_dim)
+    scratch = {n: rng.standard_normal(scr_shape).astype(np.float32)
+               for n in ("k", "v")}
+    scratch["k"][:, :, 3] = 0.0                   # a zero vector
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in zeros.items()}
+    jpool = {n: jnp.asarray(a) for n, a in zeros.items()}
+    for offset, phys in ((0, [4, 1]), (c, [2, 5])):
+        tg.traced_splice(tpool, torch.from_numpy(scratch["k"]),
+                         torch.from_numpy(scratch["v"]), offset,
+                         np.array(phys, np.int32))
+        jpool = jg.traced_splice(jpool, jnp.asarray(scratch["k"]),
+                                 jnp.asarray(scratch["v"]), offset,
+                                 jnp.asarray(phys, jnp.int32))
+    for name in zeros:
+        assert tpool[name].dtype == (torch.int8 if name in "kv"
+                                     else torch.float32)
+        np.testing.assert_array_equal(tpool[name].numpy(),
+                                      np.asarray(jpool[name]))
+    row = np.zeros((s // BS + 1,), np.int32)      # trash past the prefix
+    row[:4] = [4, 1, 2, 5]
+    got = tg.gather_fn()(tpool, row, {
+        n: torch.zeros(scr_shape) for n in ("k", "v")})
+    want = jg.gather_fn()(jpool, jnp.asarray(row))
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]))
+        # the spliced prefix comes back within the int8 bound
+        err = np.abs(got[name].numpy() - scratch[name])[:, :, :2 * c]
+        assert float(err.max()) <= float(np.abs(scratch[name]).max()) / 127
 
 
 @pytest.mark.parametrize("pool_blocks", [0, 12])

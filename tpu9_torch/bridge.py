@@ -1,7 +1,8 @@
 """Parity bridge: a param tree in the JAX package's layout (numpy arrays, or
 anything ``np.asarray`` accepts) to the port's torch tree with the same
 paths. The port imports no JAX, so bf16 is recognised by its dtype name and
-moved as raw 16-bit words."""
+moved as raw 16-bit words. An int8 ``{q, scale}`` entry is a dict like any
+other: its int8 values and f32 scales move bit for bit."""
 
 from __future__ import annotations
 

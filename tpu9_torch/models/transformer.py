@@ -2,8 +2,9 @@
 ``tpu9/models/transformer.py``).
 
 Params are a plain dict with the JAX package's paths and layouts (every
-projection stored [in, out], so the forward is ``x @ w``); a JAX param tree
-converts with :func:`tpu9_torch.bridge.params_from_jax`. ``decoder_forward``
+projection stored [in, out], so the forward is ``x @ w``, or an int8
+``{q, scale}`` entry, see ``ops/quant.py``); a JAX param tree converts with
+:func:`tpu9_torch.bridge.params_from_jax`. ``decoder_forward``
 runs the no-cache forward, chunked prefill into a dense scratch and paged
 decode. KV writes go into the cache tensors in place where the JAX graphs
 donated the buffer.
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from ..ops.attention import (attention, chunk_prefill_attention,
                              paged_attention_dispatch)
 from ..ops.norms import rms_norm
+from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -125,9 +127,9 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
                 cache_len: Optional[torch.Tensor], decode: bool):
     b, t, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    q = (h @ layer["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ layer["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = maybe_matmul(h, layer["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = maybe_matmul(h, layer["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = maybe_matmul(h, layer["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, sin, cos)
     k = apply_rope(k, positions, sin, cos)
 
@@ -136,10 +138,9 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
     elif decode and "table" in kv_cache:
         # paged decode: write this token's k/v into the slot's physical
         # pool block, then block-table paged attention over the prefix.
-        # The pool [N_BLOCKS, BS, KH, D] is shared by every sequence.
-        if "k_scale" in kv_cache:
-            raise NotImplementedError(
-                "int8 KV pool: ROADMAP queue A7 and kernel B2")
+        # The pool [N_BLOCKS, BS, KH, D] is shared by every sequence. An
+        # int8 pool ("k_scale" present) quantizes the write per (token,
+        # head) vector and the kernel dequantizes after its loads.
         table = kv_cache["table"]                        # [B, MB]
         k_pool = kv_cache["k"][layer_idx]                # [N, BS, KH, D]
         v_pool = kv_cache["v"][layer_idx]
@@ -149,9 +150,18 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         bi = table[rows, pos // bs].long()
         oi = pos % bs
         # in place: the JAX decode graph donated the pool to this write
-        k_pool[bi, oi] = k[:, 0]
-        v_pool[bi, oi] = v[:, 0]
-        out = paged_attention_dispatch(q, k_pool, v_pool, table, cache_len)
+        if "k_scale" in kv_cache:
+            k_sc = kv_cache["k_scale"][layer_idx]        # [N, BS, KH]
+            v_sc = kv_cache["v_scale"][layer_idx]
+            k_pool[bi, oi], k_sc[bi, oi] = quantize_kv(k[:, 0])
+            v_pool[bi, oi], v_sc[bi, oi] = quantize_kv(v[:, 0])
+            out = paged_attention_dispatch(q, k_pool, v_pool, table,
+                                           cache_len, k_sc, v_sc)
+        else:
+            k_pool[bi, oi] = k[:, 0]
+            v_pool[bi, oi] = v[:, 0]
+            out = paged_attention_dispatch(q, k_pool, v_pool, table,
+                                           cache_len)
     elif "table" in kv_cache:
         raise NotImplementedError(
             "paged multi-token verify (speculative decoding): ROADMAP queue A6")
@@ -174,13 +184,14 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
             "dense prefill: ROADMAP queue A11 and kernel B3")
 
     out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + out @ layer["wo"]
+    return x + maybe_matmul(out, layer["wo"])
 
 
 def _mlp_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig):
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
-    gated = _act(h @ layer["w_gate"], cfg.act) * (h @ layer["w_up"])
-    return x + gated @ layer["w_down"]
+    gated = (_act(maybe_matmul(h, layer["w_gate"]), cfg.act)
+             * maybe_matmul(h, layer["w_up"]))
+    return x + maybe_matmul(gated, layer["w_down"])
 
 
 @torch.no_grad()
@@ -194,9 +205,9 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     - eval:           ``decoder_forward(params, tokens, cfg)`` → logits [B,T,V]
     - chunked prefill: ``kv_cache`` a dense [L,B,S,...] scratch, ``positions``
       [B,C] and any ``cache_len`` → (logits, kv_cache)
-    - paged decode:   ``decode=True``, ``kv_cache`` a pool with ``"table"``,
-      tokens [B,1], positions [B,1], cache_len [B] → (logits [B,1,V],
-      kv_cache)
+    - paged decode:   ``decode=True``, ``kv_cache`` a pool with ``"table"``
+      (and ``"k_scale"``/``"v_scale"`` planes for an int8 pool), tokens
+      [B,1], positions [B,1], cache_len [B] → (logits [B,1,V], kv_cache)
 
     The returned cache is ``kv_cache`` itself, written in place. ``rope`` is
     an optional precomputed ``rope_table(cfg.max_seq_len, ...)`` pair.
@@ -231,7 +242,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     if cfg.tie_embeddings:
         logits = (x @ params["embed"].T.to(cfg.dtype)).float()
     else:
-        logits = (x @ params["lm_head"]).float()
+        logits = maybe_matmul(x, params["lm_head"]).float()
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if kv_cache is not None:

@@ -1,6 +1,6 @@
 """Attention (counterpart of ``tpu9/ops/attention.py``): the plain paths
 as PyTorch (logits, mask and softmax in f32, as the JAX code does) and the
-paged-decode dispatch to the CUDA kernel.
+paged-decode dispatch to the CUDA kernels (bf16 or int8 pool).
 
 The blocked flash-attention TPU kernel of the JAX package is not ported yet
 (ROADMAP queue B3): ``attention`` raises on a CUDA tensor for the shapes the
@@ -9,6 +9,8 @@ JAX package would send to it, and takes the plain path elsewhere, as the JAX
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -93,8 +95,18 @@ def chunk_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def paged_attention_dispatch(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, block_table: torch.Tensor,
-                             cache_len: torch.Tensor) -> torch.Tensor:
+                             cache_len: torch.Tensor,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Block-table paged decode: the CUDA kernel for a CUDA tensor (it
-    raises for a shape it cannot take), the plain twin for a CPU tensor."""
-    from .paged_attention import paged_decode_attention
+    raises for a shape it cannot take), the plain twin for a CPU tensor.
+    ``k_scale``/``v_scale`` [N, BS, KH] mark an int8 pool, which goes to
+    the int8 kernel: it dequantizes in registers after each load, so device
+    memory moves only the int8 payload and the per-vector scales."""
+    from .paged_attention import (paged_decode_attention,
+                                  paged_decode_attention_quant)
+    if k_scale is not None:
+        return paged_decode_attention_quant(q, k_pool, v_pool, k_scale,
+                                            v_scale, block_table, cache_len)
     return paged_decode_attention(q, k_pool, v_pool, block_table, cache_len)

@@ -1,20 +1,25 @@
 """Block-table paged decode attention (counterpart of
 ``tpu9/ops/paged_attention.py``).
 
-``paged_decode_attention`` is the wrapper of the hand-written CUDA kernel
-``tpu9_torch/csrc/paged_decode_attention.cu``, the port of the TPU kernel of
-the same name. On a CUDA tensor it launches the kernel or raises; on a CPU
-tensor it computes the kernel's plain twin, ``xla_paged_decode_attention``
-(gather the table rows densely, then a masked softmax), which is also the
-kernel's oracle in the tests and in ``chip_smoke.py``.
+``paged_decode_attention`` (bf16 pool) and ``paged_decode_attention_quant``
+(int8 pool with f32 per-vector scales) wrap the two instances of the
+hand-written CUDA kernel ``tpu9_torch/csrc/paged_decode_attention.cu``, the
+port of the TPU kernels of the same names. On a CUDA tensor each launches
+its kernel or raises; on a CPU tensor it computes the kernel's plain twin,
+``xla_paged_decode_attention`` (gather the table rows densely, dequantize
+an int8 pool, then a masked softmax), which is also the kernels' oracle in
+the tests and in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
+
+from .quant import dequantize_kv
 
 KERNEL = "paged_decode_attention"
 HEAD_DIMS = (64, 128)
@@ -22,33 +27,55 @@ GROUPS = (1, 2, 4, 8)
 MAX_BLOCK_S = 1024
 
 
-def gather_paged(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+def gather_paged(pool: torch.Tensor, block_table: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None,
+                 dtype=None) -> torch.Tensor:
     """Densify a paged cache: pool [N,BS,KH,D] + table [B,MB] →
-    [B, MB*BS, KH, D]. Every table entry is read, garbage included."""
+    [B, MB*BS, KH, D]. Every table entry is read, garbage included.
+    ``scale`` [N,BS,KH] marks an int8 pool: the scale planes are gathered
+    by the same table and the result is dequantized to ``dtype`` (bf16 by
+    default)."""
     b, mb = block_table.shape
     _, bs, kh, d = pool.shape
-    return pool[block_table.reshape(-1).long()].reshape(b, mb * bs, kh, d)
+    flat = block_table.reshape(-1).long()
+    dense = pool[flat].reshape(b, mb * bs, kh, d)
+    if scale is not None:
+        sc = scale[flat].reshape(b, mb * bs, kh)
+        dense = dequantize_kv(dense, sc, dtype or torch.bfloat16)
+    return dense
 
 
 def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, block_table: torch.Tensor,
-                               cache_len: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain twin: densify, then the masked-softmax decode
-    graph. q [B,1,QH,D] → [B,1,QH,D] in q's dtype."""
+                               cache_len: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The kernels' plain twin: densify (dequantizing an int8 pool to q's
+    dtype right after the gather), then the masked-softmax decode graph.
+    q [B,1,QH,D] → [B,1,QH,D] in q's dtype."""
     from .attention import xla_decode_attention
-    return xla_decode_attention(q, gather_paged(k_pool, block_table),
-                                gather_paged(v_pool, block_table), cache_len)
+    k = gather_paged(k_pool, block_table, k_scale, q.dtype)
+    v = gather_paged(v_pool, block_table, v_scale, q.dtype)
+    return xla_decode_attention(q, k, v, cache_len)
 
 
-def kernel_supports(q: torch.Tensor, k_pool: torch.Tensor) -> str:
+def kernel_supports(q: torch.Tensor, k_pool: torch.Tensor,
+                    k_scale: Optional[torch.Tensor] = None) -> str:
     """Empty when the CUDA kernel takes these shapes and types, else why
-    not."""
+    not. ``k_scale`` marks the int8 instance."""
     _, t, q_heads, head_dim = q.shape
     _, block_s, kv_heads, _ = k_pool.shape
     if t != 1:
         return f"one query token per sequence, got {t}"
-    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16:
-        return f"bf16 q and pool, got {q.dtype} and {k_pool.dtype}"
+    pool_dtype, pool = ((torch.bfloat16, "bf16") if k_scale is None
+                        else (torch.int8, "int8"))
+    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype:
+        return f"bf16 q and {pool} pool, got {q.dtype} and {k_pool.dtype}"
+    if k_scale is not None and (k_scale.dtype != torch.float32
+                                or k_scale.shape != k_pool.shape[:-1]):
+        return (f"f32 scales of shape {tuple(k_pool.shape[:-1])}, got "
+                f"{k_scale.dtype} {tuple(k_scale.shape)}")
     if head_dim not in HEAD_DIMS:
         return f"head_dim in {HEAD_DIMS}, got {head_dim}"
     if q_heads % kv_heads or q_heads // kv_heads not in GROUPS:
@@ -58,18 +85,26 @@ def kernel_supports(q: torch.Tensor, k_pool: torch.Tensor) -> str:
     return ""
 
 
-def _launch(q, k_pool, v_pool, block_table, cache_len) -> torch.Tensor:
-    why = kernel_supports(q, k_pool)
+def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
+            v_scale=None) -> torch.Tensor:
+    """Validate the operands, then launch the bf16 instance, or the int8
+    one when ``k_scale``/``v_scale`` are given."""
+    name = "paged_decode_attention" + ("" if k_scale is None else "_quant")
+    why = kernel_supports(q, k_pool, k_scale)
     if why:
-        raise ValueError(f"paged_decode_attention kernel needs {why}")
+        raise ValueError(f"{name} kernel needs {why}")
     batch, _, q_heads, head_dim = q.shape
     _, block_s, kv_heads, _ = k_pool.shape
     if not (k_pool.shape == v_pool.shape and v_pool.dtype == k_pool.dtype):
         raise ValueError("k_pool and v_pool differ in shape or dtype")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if scales and not (v_scale is not None and v_scale.shape == k_scale.shape
+                       and v_scale.dtype == k_scale.dtype):
+        raise ValueError("k_scale and v_scale differ in shape or dtype")
     if block_table.shape[0] != batch or cache_len.shape != (batch,):
         raise ValueError(f"table {tuple(block_table.shape)} / cache_len "
                          f"{tuple(cache_len.shape)} do not match batch {batch}")
-    tensors = (q, k_pool, v_pool, block_table, cache_len)
+    tensors = (q, k_pool, v_pool, *scales, block_table, cache_len)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all operands must be on one CUDA device")
     if block_table.dtype != torch.int32 or cache_len.dtype != torch.int32:
@@ -78,24 +113,26 @@ def _launch(q, k_pool, v_pool, block_table, cache_len) -> torch.Tensor:
         raise ValueError("operands must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("q and pools must be 16-byte aligned")
-    fn = _kernel_fn()
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-            batch, q_heads, kv_heads, head_dim, block_s, block_table.shape[1],
-            head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    shape = (batch, q_heads, kv_heads, head_dim, block_s, block_table.shape[1],
+             head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, *scales, block_table,
+                                   cache_len, out)]
+    rc = _kernel_fn(k_scale is not None)(*ptrs, *shape)
     if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: "
-                           f"cudaError {rc}")
-    paged_decode_attention.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return out
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(quant: bool):
+    """The bf16 (``quant=False``) or int8 entry point of the library."""
     from ._build import load
-    fn = load(KERNEL).tpu9_paged_decode_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    lib = load(KERNEL)
+    fn = (lib.tpu9_paged_decode_attention_int8 if quant
+          else lib.tpu9_paged_decode_attention_bf16)
+    n_ptrs = 8 if quant else 6
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -119,7 +156,36 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"no paged decode path for device {q.device}")
-    return _launch(q, k_pool, v_pool, block_table, cache_len)
+    out = _launch(q, k_pool, v_pool, block_table, cache_len)
+    paged_decode_attention.launches += 1
+    return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 cache_len: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_decode_attention` over an int8 pool: k/v_pool
+    [N_BLOCKS, BS, KH, D] int8, k/v_scale [N_BLOCKS, BS, KH] f32 (one
+    absmax scale per (token, head) vector, ``ops.quant.quantize_kv``). The
+    kernel dequantizes in registers, in f32.
+
+    A CUDA ``q`` launches the int8 kernel
+    (``paged_decode_attention_quant.launches`` counts each launch) or
+    raises; a CPU ``q`` computes the plain twin."""
+    if q.device.type == "cpu":
+        return xla_paged_decode_attention(q, k_pool, v_pool, block_table,
+                                          cache_len, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged decode path for device {q.device}")
+    out = _launch(q, k_pool, v_pool, block_table, cache_len, k_scale,
+                  v_scale)
+    paged_decode_attention_quant.launches += 1
+    return out
+
+
+paged_decode_attention_quant.launches = 0

@@ -9,9 +9,9 @@ Decode runs in windows of k steps for the whole batch; the sampled ids of a
 window come back to the host in one copy, and one window stays in flight
 while the host fans out the previous one.
 
-This slice leaves out speculative decoding, the flight recorder, KV
-tiering, kvwire, profiling, sharding and the dense-cache mode (ROADMAP
-queue A).
+The pool is bf16, or int8 with f32 per-vector scales (``kv_quant``). This
+port leaves out speculative decoding, the flight recorder, KV tiering,
+kvwire, profiling, sharding and the dense-cache mode (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import DecoderConfig, init_kv_cache
+from ..ops.quant import validate_quant_mode
 from ..ops.sampling import sample_logits
 from ..utils.platform import default_device
 from .graphs import GraphFactory
@@ -65,6 +66,9 @@ class EngineConfig:
     # chunks per fused admission dispatch; a decode window is interleaved
     # between groups so a long admission does not starve the batch
     admit_group_chunks: int = 4
+    # "int8": the pool stores int8 k/v with f32 per-(token, head) scales,
+    # auto-sized to the bytes a bf16 pool would take; "" = model dtype
+    kv_quant: str = ""
 
 
 @dataclass
@@ -103,6 +107,12 @@ class InferenceEngine:
         self.params = params
         b, s = engine_cfg.max_batch, engine_cfg.max_seq_len
         bs = engine_cfg.kv_block_size
+        # "int8" is the one mode validate_quant_mode passes
+        self.kv_quant = bool(validate_quant_mode(engine_cfg.kv_quant,
+                                                 "kv_quant"))
+        if self.kv_quant and bs <= 0:
+            raise ValueError("kv_quant='int8' requires the paged engine "
+                             "(kv_block_size > 0)")
         if bs <= 0:
             raise NotImplementedError(
                 "dense-cache engine (kv_block_size=0): ROADMAP queue A11")
@@ -118,7 +128,7 @@ class InferenceEngine:
             raise ValueError(f"max_seq_len {s} must be a multiple of "
                              f"prefill_chunk {chunk}")
         self._chunk = chunk
-        self.pool = KvPool(cfg, engine_cfg, self.device)
+        self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant)
         self.kv_cache = self.pool.init_arrays()
         self.allocator = self.pool.allocator
         self.prefix_cache = self.pool.prefix_cache
@@ -154,7 +164,9 @@ class InferenceEngine:
     # -- paged-KV bookkeeping ------------------------------------------------
 
     def _pool_dict(self) -> dict:
-        return {"k": self.kv_cache["k"], "v": self.kv_cache["v"]}
+        keys = ("k", "v", "k_scale", "v_scale") if self.kv_quant \
+            else ("k", "v")
+        return {k: self.kv_cache[k] for k in keys}
 
     def _worst_case_tokens(self, req: _Request) -> int:
         # prompt + generation budget + in-flight overshoot slack, clamped
@@ -286,6 +298,8 @@ class InferenceEngine:
         out["kv_blocks_free"] = self.allocator.free_count
         out["kv_blocks_reserved"] = self.allocator.reserved
         out["kv_block_size"] = self.allocator.block_s
+        # the pool format ("" = model dtype), so a fleet can tell them apart
+        out["kv_quant"] = self.ecfg.kv_quant if self.kv_quant else ""
         out["prefix_cache"] = self.prefix_cache.stats()
         # reserved fraction is the honest "can I take another request"
         # signal under paging

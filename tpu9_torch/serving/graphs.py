@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import decoder_forward
+from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
 
@@ -85,20 +86,27 @@ class GraphFactory:
     @torch.no_grad()
     def traced_splice(self, pool, scratch_k, scratch_v, offset: int, phys):
         """Block copy: scratch positions [offset, offset+C) → pool blocks
-        phys[0..C/BS). In place: the JAX splice graph donated the pool."""
+        phys[0..C/BS). An int8 pool quantizes each block on the way in, its
+        per-vector scales landing in the scale planes at the same physical
+        index. In place: the JAX splice graph donated the pool."""
         bs = self.ecfg.kv_block_size
         for j in range(self.chunk // bs):
             start = offset + j * bs
             blk = int(phys[j])
-            pool["k"][:, blk] = scratch_k[:, 0, start:start + bs]
-            pool["v"][:, blk] = scratch_v[:, 0, start:start + bs]
+            for name, scratch in (("k", scratch_k), ("v", scratch_v)):
+                block = scratch[:, 0, start:start + bs]     # [L,BS,KH,D]
+                if "k_scale" in pool:
+                    block, pool[f"{name}_scale"][:, blk] = quantize_kv(block)
+                pool[name][:, blk] = block
         return pool
 
     def gather_fn(self):
         """Densify one slot's table row into the scratch (prefix reuse: the
-        cached blocks become the prefix chunk prefill attends). The row's
-        final, always-trash column is sliced off so the scratch keeps its
-        [L, 1, S, KH, D] shape. Writes the scratch in place."""
+        cached blocks become the prefix chunk prefill attends). An int8
+        pool is dequantized here, in f32, then cast to the model dtype: the
+        scratch always holds the model dtype. The row's final, always-trash
+        column is sliced off so the scratch keeps its [L, 1, S, KH, D]
+        shape. Writes the scratch in place."""
         s = self.ecfg.max_seq_len
 
         @torch.no_grad()
@@ -107,6 +115,9 @@ class GraphFactory:
                 self.device)
             for name in ("k", "v"):
                 g = pool[name][:, idx]                    # [L, MB, BS, KH, D]
+                if f"{name}_scale" in pool:
+                    g = dequantize_kv(g, pool[f"{name}_scale"][:, idx],
+                                      scratch[name].dtype)
                 l_, mb, bs, kh, d = g.shape
                 scratch[name][:, 0] = g.reshape(l_, mb * bs, kh, d)[:, :s]
             return scratch

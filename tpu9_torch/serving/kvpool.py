@@ -1,7 +1,7 @@
 """Paged KV-pool management (counterpart of ``tpu9/serving/kvpool.py``,
-without the host-DRAM tier and kvwire): pool sizing, the trash-block
-discipline, slot → physical-block bookkeeping, worst-case reservations and
-the host block table."""
+without the host-DRAM tier and kvwire): pool sizing (equal bytes for an
+int8 pool), the trash-block discipline, slot → physical-block bookkeeping,
+worst-case reservations and the host block table."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .paged_kv import BlockAllocator, PrefixCache, blocks_for
+from .paged_kv import BlockAllocator, PrefixCache, blocks_for, kv_block_bytes
 
 Params = dict[str, Any]
 
@@ -18,15 +18,25 @@ Params = dict[str, Any]
 class KvPool:
     """One engine's paged KV pool: the device tensors (built once by
     :meth:`init_arrays`), the block allocator and prefix cache, and the
-    per-slot physical-block state the serve loop mutates."""
+    per-slot physical-block state the serve loop mutates. ``kv_quant``
+    makes the pool int8 with f32 scale planes."""
 
-    def __init__(self, cfg, ecfg, device):
+    def __init__(self, cfg, ecfg, device, kv_quant: bool = False):
         b, s = ecfg.max_batch, ecfg.max_seq_len
         bs = ecfg.kv_block_size
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = device
-        base_blocks = ecfg.kv_pool_blocks or b * s // bs    # dense parity
+        self.kv_quant = kv_quant
+        if ecfg.kv_pool_blocks:
+            base_blocks = ecfg.kv_pool_blocks
+        else:
+            base_blocks = b * s // bs                       # dense parity
+            if kv_quant:
+                # equal-bytes sizing: the int8 pool spends what the bf16
+                # pool would, so it holds ~2x the blocks (admission room)
+                base_blocks = (base_blocks * kv_block_bytes(cfg, bs, False)
+                               // kv_block_bytes(cfg, bs, True))
         # +1: one dedicated TRASH block absorbs the writes of inactive decode
         # lanes and of the padded tail of a non-block-aligned final chunk
         self.n_blocks = base_blocks + 1
@@ -49,13 +59,21 @@ class KvPool:
         self.kv_allocs = 0           # lifetime block allocations
 
     def init_arrays(self) -> Params:
-        """The pool's device state: k/v [L, N, BS, KH, D] and the table."""
+        """The pool's device state: k/v [L, N, BS, KH, D] (int8 for an
+        int8 pool, with f32 k_scale/v_scale [L, N, BS, KH] indexed like the
+        payload) and the table."""
         cfg, ecfg = self.cfg, self.ecfg
         shape = (cfg.n_layers, self.n_blocks, ecfg.kv_block_size,
                  cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                "table": self.device_table()}
+        dt = torch.int8 if self.kv_quant else cfg.dtype
+        arrays = {name: torch.zeros(shape, dtype=dt, device=self.device)
+                  for name in ("k", "v")}
+        if self.kv_quant:
+            for name in ("k_scale", "v_scale"):
+                arrays[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=self.device)
+        arrays["table"] = self.device_table()
+        return arrays
 
     def alloc_blocks(self, n: int) -> list[int]:
         """Allocate physical blocks; evicts prefix-cache holdings if the

@@ -24,9 +24,15 @@ def blocks_for(n_tokens: int, block_s: int) -> int:
     return max(0, -(-n_tokens // block_s))
 
 
-def kv_block_bytes(cfg, block_s: int) -> int:
-    """Device bytes one k+v pool block holds across all layers of ``cfg``."""
-    per_vec = cfg.head_dim * cfg.dtype.itemsize
+def kv_block_bytes(cfg, block_s: int, quantized: bool = False) -> int:
+    """Device bytes one k+v pool block holds across all layers of ``cfg``:
+    the model dtype per element, or for an int8 pool one byte per element
+    plus one f32 scale per (position, head) vector
+    (``ops.quant.quantize_kv``). The pool's equal-bytes auto sizing prices
+    blocks with it."""
+    per_vec = cfg.head_dim * (1 if quantized else cfg.dtype.itemsize)
+    if quantized:
+        per_vec += 4
     return 2 * cfg.n_layers * block_s * cfg.n_kv_heads * per_vec
 
 

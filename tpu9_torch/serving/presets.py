@@ -1,11 +1,12 @@
 """Engine construction from model presets (counterpart of
-``tpu9/serving/presets.py``): the same preset names and the same rule for
-when the engine is paged, with random weights drawn on the device from a
-seed.
+``tpu9/serving/presets.py``): the same preset names, the same rule for when
+the engine is paged and the same quantization knobs, with random weights
+drawn on the device from a seed.
 
-This slice serves bf16 weights and a bf16 KV pool: int8 weights (the
-``-int8`` suffix, ``quantize=``) and the int8 pool (``kv_quant=``) raise
-``NotImplementedError`` until their ROADMAP items land.
+``<preset>-int8`` or ``quantize="int8"`` serves int8 weight-only
+projections; ``kv_quant="int8"`` stores the paged pool as int8 with
+per-vector scales, auto-sized to the bytes a bf16 pool would take. The two
+knobs are independent; together they are quantized serving end to end.
 """
 
 from __future__ import annotations
@@ -16,30 +17,34 @@ import torch
 
 from ..models.llama import LLAMA_PRESETS
 from ..models.transformer import init_decoder
+from ..ops.quant import init_quantized_decoder, validate_quant_mode
 from ..utils.platform import default_device
 from .engine import EngineConfig, InferenceEngine
 
 
 def resolve_preset(name: str, quantize: Optional[str] = None):
-    """The ``DecoderConfig`` of a preset name."""
-    if name.endswith("-int8") or quantize:
-        raise NotImplementedError(
-            "int8 weight-only serving: ROADMAP queue A7")
-    if name not in LLAMA_PRESETS:
-        raise KeyError(f"unknown model preset {name!r}; have "
+    """Return ``(DecoderConfig, quantized)`` for a preset name: a
+    ``-int8`` suffix or ``quantize="int8"`` selects int8 weights."""
+    quantize = validate_quant_mode(quantize)
+    quantized = name.endswith("-int8") or quantize == "int8"
+    base = name[:-len("-int8")] if name.endswith("-int8") else name
+    if base not in LLAMA_PRESETS:
+        raise KeyError(f"unknown model preset {base!r}; have "
                        f"{sorted(LLAMA_PRESETS)}")
-    return LLAMA_PRESETS[name]
+    return LLAMA_PRESETS[base], quantized
 
 
 def build_params(name: str, seed: int = 0, device=None,
                  quantize: Optional[str] = None):
     """Random params for a preset, drawn on ``device`` from a generator
-    seeded with ``seed``. Returns ``(params, cfg)``."""
-    cfg = resolve_preset(name, quantize)
+    seeded with ``seed``; int8 presets are drawn at int8, so no bf16 copy
+    of the model ever exists. Returns ``(params, cfg)``."""
+    cfg, quantized = resolve_preset(name, quantize)
     device = default_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return init_decoder(cfg, gen, device), cfg
+    init = init_quantized_decoder if quantized else init_decoder
+    return init(cfg, gen, device), cfg
 
 
 def load_engine(name: str, *, device=None, max_batch: int = 8,
@@ -61,16 +66,28 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
     holds, as the JAX ``load_engine`` does: the chunk is the smallest
     prefill bucket and the block is ``min(kv_block_size, chunk)``.
     ``prefix_cache_blocks=0`` disables the prefix cache (None = one
-    sequence's worth of blocks)."""
-    if kv_quant:
-        raise NotImplementedError("int8 KV pool: ROADMAP queue A7 and "
-                                  "kernel B2")
+    sequence's worth of blocks). ``quantize`` and ``kv_quant`` are the
+    int8 knobs of the module docstring."""
+    resolve_preset(name, quantize)           # a bad name or mode fails first
+    kv_quant = validate_quant_mode(kv_quant, "kv_quant")
+    if engine_cfg is not None and kv_quant \
+            and engine_cfg.kv_quant != kv_quant:
+        # an explicit engine_cfg replaces every knob: a kv_quant it does
+        # not carry would be dropped silently
+        raise ValueError(
+            "kv_quant conflicts with the explicit engine_cfg — set "
+            "EngineConfig(kv_quant=...) there instead")
     device = default_device(device)
     chunk = min(prefill_buckets)
     block = min(kv_block_size, chunk)
     if paged is None:
         paged = (max_seq_len % block == 0 and chunk % block == 0
                  and max_seq_len % chunk == 0)
+    if kv_quant and not paged:
+        raise ValueError(
+            "kv_quant='int8' needs the paged engine, but the alignment "
+            f"invariants rejected paging (block {block}, chunk {chunk}, "
+            f"max_seq_len {max_seq_len})")
     if not paged:
         raise NotImplementedError(
             "dense-cache engine (paged=False or unaligned block/chunk): "
@@ -81,7 +98,8 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
         kv_block_size=block, kv_pool_blocks=kv_pool_blocks,
         prefill_chunk=chunk,
         prefix_cache_blocks=prefix_cache_blocks
-        if prefix_cache_blocks is not None else max_seq_len // block)
+        if prefix_cache_blocks is not None else max_seq_len // block,
+        kv_quant=kv_quant)
     params, cfg = build_params(name, seed=seed, device=device,
                                quantize=quantize)
     return InferenceEngine(params, cfg, ecfg, device=device)
