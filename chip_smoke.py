@@ -8,29 +8,36 @@ Phases, each of which must pass or the script exits non-zero:
 1. card: the GPU's name and power limit (``nvidia-smi``), torch and CUDA
    versions;
 2. build: compiles every CUDA kernel of the main paths from
-   ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, in parallel;
-   one source holds both paged-decode kernels, bf16 and int8);
+   ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
+   together; one source holds the three decode kernels: bf16 pool, int8
+   pool and contiguous cache);
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
-   main path gives it, with table entries past every prefix pointing at
-   poisoned pool blocks (NaN for bf16; payload 127 with NaN scales for
-   int8); times the kernel, the twin and one library call with CUDA
-   events; prints the bounds of the TPU kernels not ported yet, from
-   their shapes;
+   main paths give it: the paged kernels with table entries past every
+   prefix pointing at poisoned pool blocks (NaN for bf16; payload 127 with
+   NaN scales for int8), the ragged kernel with NaN at every cache
+   position past each length, the flash kernel over causal prefills of
+   128, 512 and 2048 tokens and one non-causal shape; times the kernel,
+   the twin and one library call with CUDA events, beside the bound;
 4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
    (random weights from a seed), ``warmup()``, six concurrent ``generate``
    requests (two share a 512-token prefix), a repeated greedy prompt, and
    a check of the generated tokens against a plain no-cache forward;
 5. engine, int8: the same with ``load_engine("llama3-8b-int8",
    kv_quant="int8")``: int8 weights and an int8 paged pool auto-sized to
-   the bf16 pool's bytes.
+   the bf16 pool's bytes;
+6. engine, dense: the same with ``load_engine("llama3-8b", paged=False)``:
+   a contiguous [L, B, S] cache, bucketed prefill through the flash kernel
+   and decode through the ragged kernel (no prefix cache).
 
 The kernel launch counts are zeroed just before each engine phase's
-requests and read just after: the phase's own kernel must have launched
-``n_layers x decode steps`` times and the other one never.
+requests and read just after: each decode kernel of the phase's path must
+have launched ``n_layers x decode steps`` times, the flash kernel (dense
+path) ``n_layers x prefills``, and every other kernel never.
 
-With ``--profile``, one decode window and one fused admission group of
-each engine are profiled with ``torch.profiler`` (wall and device-busy
-time, top kernels; full tables under ``build/profile/``).
+With ``--profile``, one decode window of each engine and one fused
+admission group of each paged engine (one bucket-2048 prefill of the dense
+engine) are profiled with ``torch.profiler`` (wall and device-busy time,
+top kernels; full tables under ``build/profile/``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device and the rest of
@@ -186,27 +193,6 @@ def paged_bound(case, lens: list[int]) -> tuple[float, str]:
     return roofline_ms(n_bytes, 4 * positions * q_heads * head_dim)
 
 
-def print_unported_bounds() -> None:
-    """The bounds of the two TPU kernels that have no CUDA port yet, from
-    llama3-8b shapes (QH 32, KH 8, D 128, bf16): ``flash_attention`` over a
-    causal 2048-token prefill (q, k, v read once, out written once; 4 flops
-    per (head, dim) of each of the T(T+1)/2 pairs at or below the
-    diagonal), and ``ragged_decode_attention`` at B=8 over a contiguous
-    [8, 2048] cache, with every sequence 2048 long and with phase 3's
-    lengths."""
-    qh, kh, d, t = 32, 8, 128, 2048
-    flash = roofline_ms(2 * (2 * t * qh * d) + 2 * (2 * t * kh * d),
-                        4 * qh * d * t * (t + 1) // 2)
-    print(f"bound flash_attention (tpu9/ops/attention.py:119), causal "
-          f"prefill T=S={t}: {flash[0]:.5f} ms ({flash[1]})")
-    for lens in ([t] * 8, [1, 127, 128, 129, 1000, 2048, 513, 1777]):
-        pos = sum(lens)
-        ragged = roofline_ms(2 * (2 * pos * kh * d) + 2 * (2 * 8 * qh * d)
-                             + 4 * 8, 4 * pos * qh * d)
-        print(f"bound ragged_decode_attention (tpu9/ops/paged_attention.py:93)"
-              f", B=8 S={t} lengths {lens}: {ragged[0]:.5f} ms ({ragged[1]})")
-
-
 def sdpa_over_dense(case, k_dense, v_dense):
     """``F.scaled_dot_product_attention`` over the already densified cache:
     the yardstick ``library_ms``. The port never calls it."""
@@ -221,12 +207,34 @@ def sdpa_over_dense(case, k_dense, v_dense):
                                                   enable_gqa=True)
 
 
+DECODE_SRC = "tpu9_torch/csrc/paged_decode_attention.cu"
 KERNELS = {
-    # name: (TPU kernel it replaces, pool)
-    "paged_decode_attention": ("tpu9/ops/paged_attention.py:176", "bf16"),
+    # name: (TPU kernel it replaces, CUDA source)
+    "paged_decode_attention": ("tpu9/ops/paged_attention.py:176", DECODE_SRC),
     "paged_decode_attention_quant": ("tpu9/ops/paged_attention.py:276",
-                                     "int8"),
+                                     DECODE_SRC),
+    "flash_attention": ("tpu9/ops/attention.py:119",
+                        "tpu9_torch/csrc/flash_attention.cu"),
+    "ragged_decode_attention": ("tpu9/ops/paged_attention.py:93",
+                                DECODE_SRC),
 }
+
+
+def wrapper(name: str):
+    """The port's wrapper of a kernel of ``KERNELS``; it counts launches."""
+    from tpu9_torch.ops import attention, paged_attention
+    return getattr(attention if name == "flash_attention" else
+                   paged_attention, name)
+
+
+def kernel_row(name: str, label: str, max_err: float, ms: float,
+               plain_ms: float, bound: tuple[float, str],
+               library_ms: float) -> dict:
+    return {"name": name, "route": "cuda", "source": KERNELS[name][1],
+            "replaces": KERNELS[name][0], "shape": label,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
 
 
 def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
@@ -234,8 +242,8 @@ def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
     poisoned blocks and against its twin, then timed beside the twin, one
     library call and its bound."""
     from tpu9_torch.ops import paged_attention as pa
-    quant = KERNELS[name][1] == "int8"
-    wrapper = getattr(pa, name)
+    quant = name.endswith("_quant")
+    launcher = wrapper(name)
     lens = [1, 127, 128, 129, 1000, 2048, 513, 1777]
     case = paged_case(batch=8, q_heads=32, kv_heads=8, head_dim=head_dim,
                       block_s=128, max_blocks=2048 // 128 + 1, lens=lens,
@@ -244,12 +252,12 @@ def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
     scales = (case["ks"], case["vs"]) if quant else ()
 
     def kernel():
-        return wrapper(q, k, v, *scales, table, clen)
+        return launcher(q, k, v, *scales, table, clen)
 
-    before = wrapper.launches
+    before = launcher.launches
     got = kernel()
     torch.cuda.synchronize()
-    check(wrapper.launches == before + 1, f"{name} did not launch its kernel")
+    check(launcher.launches == before + 1, f"{name} did not launch its kernel")
     # the twin densifies every table entry, so it runs on a copy whose
     # poisoned blocks are zeroed (they are masked either way). For the int8
     # pool it runs on q.float(): it then dequantizes to f32 as the kernel
@@ -289,27 +297,149 @@ def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
     ms = time_ms(kernel)
     plain_ms = time_ms(twin)
     library_ms = time_ms(sdpa_over_dense(case, *dense))
-    bound_ms, bound_by = paged_bound(case, lens)
-    print(f"kernel {name} [{label}]: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}, {bound_ms / ms:.1%} of it), plain twin "
+    bound = paged_bound(case, lens)
+    print(f"kernel {name} [{label}]: {ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {bound[0] / ms:.1%} of it), plain twin "
           f"{plain_ms:.4f} ms, sdpa over the dense "
           f"{'dequantized ' if quant else ''}cache {library_ms:.4f} ms")
-    return {"name": name, "route": "cuda",
-            "source": "tpu9_torch/csrc/paged_decode_attention.cu",
-            "replaces": KERNELS[name][0], "shape": label,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return kernel_row(name, label, max_err, ms, plain_ms, bound, library_ms)
 
 
-# -- phases 4 and 5: the engines at full width --------------------------------
+RAGGED_LENS = [1, 127, 128, 129, 1000, 2048, 513, 1777]
+
+
+def phase_ragged_kernel(label: str, head_dim: int) -> dict:
+    """The ragged decode kernel at B=8 over a contiguous [8, 2048] cache
+    with phase 3's lengths; every cache position at or past a length is
+    NaN, so a read past one shows as a non-finite output. The twin masks
+    by length but multiplies every position, so it runs on a copy whose
+    NaNs are zeroed."""
+    from tpu9_torch.ops import attention as at
+    from tpu9_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(100 + head_dim)
+    b, s, q_heads, kv_heads = 8, 2048, 32, 8
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(DEVICE, torch.bfloat16)
+
+    q = bf16((b, 1, q_heads, head_dim))
+    k = bf16((b, s, kv_heads, head_dim))
+    v = bf16((b, s, kv_heads, head_dim))
+    for i, n in enumerate(RAGGED_LENS):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    clen = torch.tensor(RAGGED_LENS, dtype=torch.int32, device=DEVICE)
+    k_clean, v_clean = k.nan_to_num(0.0), v.nan_to_num(0.0)
+
+    def kernel():
+        return pa.ragged_decode_attention(q, k, v, clen)
+
+    def twin():
+        return at.xla_decode_attention(q, k_clean, v_clean, clen)
+
+    before = pa.ragged_decode_attention.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    check(pa.ragged_decode_attention.launches == before + 1,
+          "ragged_decode_attention did not launch its kernel")
+    check(bool(torch.isfinite(got).all()), f"ragged_decode_attention "
+          f"{label}: kernel output not finite (read past a length?)")
+    # every length is >= 1, as the engine's are: at length 0 the kernel
+    # gives zeros and the twin the mean of v, so the two are not compared
+    # there. Both round an f32 result to bf16 once: the tolerance of the
+    # paged kernels
+    want = twin().float()
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    print(f"kernel ragged_decode_attention [{label}]: max_abs_err "
+          f"{max_err:.3e} (tolerance |err| <= 2^-7*|twin| + 1e-4)")
+    check(bool((err <= 2.0 ** -7 * want.abs() + 1e-4).all()),
+          f"ragged_decode_attention {label}: kernel disagrees with its twin "
+          f"(max abs err {max_err})")
+    ms = time_ms(kernel)
+    plain_ms = time_ms(twin)
+    library_ms = time_ms(sdpa_over_dense({"q": q, "lens": clen}, k_clean,
+                                         v_clean))
+    # each valid k/v row once, q and out once, the lengths once
+    pos = sum(RAGGED_LENS)
+    bound = roofline_ms(2 * pos * kv_heads * head_dim * 2 + 2 * q.numel() * 2
+                        + 4 * b, 4 * pos * q_heads * head_dim)
+    print(f"kernel ragged_decode_attention [{label}]: {ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of it), plain "
+          f"twin {plain_ms:.4f} ms, sdpa over the cache {library_ms:.4f} ms")
+    return kernel_row("ragged_decode_attention", label, max_err, ms, plain_ms,
+                      bound, library_ms)
+
+
+def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
+    """The flash kernel at one prefill shape of llama3-8b (B=1, QH 32,
+    KH 8) with T = S = ``t``, against ``xla_attention``."""
+    import torch.nn.functional as F
+    from tpu9_torch.ops import attention as at
+    label = (f"prefill B=1 T=S={t} QH=32 KH=8 D={head_dim} "
+             f"{'causal' if causal else 'non-causal'}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(t + head_dim + int(causal))
+    q, k, v = (torch.randn((1, t, h, head_dim), generator=gen, device=DEVICE
+                           ).to(torch.bfloat16) for h in (32, 8, 8))
+
+    def kernel():
+        return at.flash_attention(q, k, v, causal=causal)
+
+    def twin():
+        return at.xla_attention(q, k, v, causal=causal)
+
+    before = at.flash_attention.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    check(at.flash_attention.launches == before + 1,
+          "flash_attention did not launch its kernel")
+    want = twin().float()          # f32 softmax and sums, rounded to bf16 once
+    # the kernel rounds each probability to bf16 for the PV product (a
+    # relative error of at most 2^-9 each, on weights that sum to 1): up to
+    # 2^-9 * max|v| over the keys a row attends, on top of one bf16 ulp of
+    # the rounded result (2^-7 relative) and 1e-4 near zero
+    group = q.shape[2] // v.shape[2]
+    vmax = v.float().abs().amax(-1).repeat_interleave(group, dim=2)  # [1,S,QH]
+    vmax = vmax.cummax(dim=1).values if causal \
+        else vmax.amax(dim=1, keepdim=True)
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * vmax[..., None] + 1e-4
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    print(f"kernel flash_attention [{label}]: max_abs_err {max_err:.3e} "
+          f"(tolerance |err| <= 2^-7*|twin| + 2^-9*max|v attended| + 1e-4)")
+    check(bool(torch.isfinite(got).all()) and bool((err <= limit).all()),
+          f"flash_attention {label}: kernel disagrees with its twin (max abs "
+          f"err {max_err})")
+    ms = time_ms(kernel)
+    plain_ms = time_ms(twin)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    # q, k, v read once and out written once; 4 flops per (q head, dim) of
+    # each attended (query, key) pair: T(T+1)/2 of them when causal
+    pairs = t * (t + 1) // 2 if causal else t * t
+    bound = roofline_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                        4 * 32 * head_dim * pairs)
+    print(f"kernel flash_attention [{label}]: {ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]}, {bound[0] / ms:.1%} of it), plain "
+          f"twin {plain_ms:.4f} ms, sdpa (is_causal, enable_gqa) "
+          f"{library_ms:.4f} ms")
+    return kernel_row("flash_attention", label, max_err, ms, plain_ms, bound,
+                      library_ms)
+
+
+# -- phases 4 to 6: the engines at full width ---------------------------------
 
 MAX_NEW = 64
 ENGINES = {
-    # label: (preset, extra load_engine knobs, the kernel of its decode path)
-    "bf16": ("llama3-8b", {}, "paged_decode_attention"),
+    # label: (preset, extra load_engine knobs, the kernels of its path)
+    "bf16": ("llama3-8b", {}, ("paged_decode_attention",)),
     "int8": ("llama3-8b-int8", {"kv_quant": "int8"},
-             "paged_decode_attention_quant"),
+             ("paged_decode_attention_quant",)),
+    "dense": ("llama3-8b", {"paged": False},
+              ("flash_attention", "ragged_decode_attention")),
 }
 
 
@@ -384,14 +514,13 @@ def reference_check(engine, prompt: list[int], generated: list[int],
 
 def phase_engine(card: str, kind: str):
     """Serve the six prompts, the repeat and the reference prompt through
-    the ``kind`` engine of ``ENGINES``; returns (its kernel's launches,
-    the engine)."""
-    from tpu9_torch.ops import paged_attention as pa
+    the ``kind`` engine of ``ENGINES``; returns (its kernels' launches, the
+    engine)."""
     from tpu9_torch.ops.quant import quantized_bytes
     from tpu9_torch.serving.paged_kv import kv_block_bytes
     from tpu9_torch.serving.presets import load_engine
 
-    preset, knobs, kernel = ENGINES[kind]
+    preset, knobs, path_kernels = ENGINES[kind]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = load_engine(preset, device=DEVICE, max_batch=8, max_seq_len=2048,
@@ -403,8 +532,9 @@ def phase_engine(card: str, kind: str):
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     cfg, ecfg = engine.cfg, engine.ecfg
-    quant = bool(knobs)
-    if quant:
+    check(engine.paged == (kind != "dense"), f"the {kind} engine has "
+          f"paged={engine.paged}")
+    if kind == "int8":
         check(engine.params["layers"][0]["wq"]["q"].dtype == torch.int8,
               "the int8 preset did not build int8 weights")
         check(engine.kv_cache["k"].dtype == torch.int8, "the pool is not int8")
@@ -415,31 +545,35 @@ def phase_engine(card: str, kind: str):
                 // kv_block_bytes(cfg, ecfg.kv_block_size, True) + 1)
         check(engine.pool.n_blocks == want, f"int8 pool has "
               f"{engine.pool.n_blocks} blocks, equal-bytes sizing gives {want}")
-    pool_gb = sum(t.numel() * t.element_size() for n, t in
-                  engine.kv_cache.items() if n != "table") / 1e9
+    kv_gb = sum(t.numel() * t.element_size() for n, t in
+                engine.kv_cache.items() if n != "table") / 1e9
+    kv = (f"block {ecfg.kv_block_size} chunk {ecfg.prefill_chunk} pool "
+          f"{engine.pool.n_blocks} blocks" if engine.paged else
+          f"dense cache {list(engine.kv_cache['k'].shape)} buckets "
+          f"{engine._buckets}")
     print(f"engine {kind}: {preset} {cfg.dtype} dim {cfg.dim} layers "
           f"{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} vocab "
           f"{cfg.vocab_size}; weights {quantized_bytes(engine.params) / 1e9:.2f}"
-          f" GB; block {ecfg.kv_block_size} chunk "
-          f"{ecfg.prefill_chunk} pool {engine.pool.n_blocks} blocks "
-          f"({engine.kv_cache['k'].dtype}, {pool_gb:.2f} GB); load "
+          f" GB; {kv} ({engine.kv_cache['k'].dtype}, {kv_gb:.2f} GB); load "
           f"{t_load:.2f} s, warmup {t_warm:.2f} s")
     prompts = make_prompts(cfg.vocab_size, seed=1)
     repeat = prompts[5]
-    ref_prompt = prompts[2][:127]       # 127 tokens: the plain no-cache path
+    # prompt + 8 generated = 135 tokens: the no-cache reference takes the
+    # plain attention path, none of the kernels under test
+    ref_prompt = prompts[2][:127]
 
     async def main_path():
         await engine.start()
         try:
             steps0 = engine.stats()["decode_steps"]
             for name in KERNELS:
-                getattr(pa, name).launches = 0
+                wrapper(name).launches = 0
             outs, t_submit, t_firsts, t_end = await _serve(engine, prompts,
                                                            MAX_NEW)
             rep_a = await engine.generate(repeat, max_new_tokens=32)
             rep_b = await engine.generate(repeat, max_new_tokens=32)
             ref_out = await engine.generate(ref_prompt, max_new_tokens=8)
-            launches = {name: getattr(pa, name).launches for name in KERNELS}
+            launches = {name: wrapper(name).launches for name in KERNELS}
             steps = engine.stats()["decode_steps"] - steps0
             stats = engine.stats()
         finally:
@@ -457,16 +591,25 @@ def phase_engine(card: str, kind: str):
               f"expected {MAX_NEW}")
         check(all(0 <= t < cfg.vocab_size for t in out), "token id out of range")
     check(rep_a == rep_b, f"repeated greedy prompt differs: {rep_a} vs {rep_b}")
-    check(stats["prefix_cache"]["hits"] >= 1, "prefix reuse never ran")
-    check(stats["kv_quant"] == knobs.get("kv_quant", ""),
-          f"stats report kv_quant {stats['kv_quant']!r}")
-    check(launches[kernel] > 0, f"{kernel} never launched")
-    check(launches[kernel] == cfg.n_layers * steps,
-          f"{kernel} launches {launches[kernel]} != n_layers {cfg.n_layers} "
-          f"x decode steps {steps}")
-    for other, n in launches.items():
-        check(other == kernel or n == 0,
-              f"{other} launched {n} times on the {kind} engine's path")
+    if engine.paged:
+        check(stats["prefix_cache"]["hits"] >= 1, "prefix reuse never ran")
+        check(stats["kv_quant"] == knobs.get("kv_quant", ""),
+              f"stats report kv_quant {stats['kv_quant']!r}")
+    else:
+        check("prefix_cache" not in stats, "the dense engine reports a "
+              "prefix cache")
+    # every prefill of the dense path (all buckets are multiples of 128)
+    # runs the flash kernel once per layer; every decode step runs the
+    # path's decode kernel once per layer; no other kernel runs
+    n_prefills = len(prompts) + 3
+    want = {name: 0 for name in KERNELS}
+    for name in path_kernels:
+        want[name] = cfg.n_layers * (n_prefills if name == "flash_attention"
+                                     else steps)
+    check(steps > 0, "no decode step ran")
+    check(launches == want, f"{kind} engine launches {launches}, expected "
+          f"{want} ({cfg.n_layers} layers, {steps} decode steps, "
+          f"{n_prefills} prefills)")
     worst, fork = reference_check(engine, ref_prompt, ref_out)
 
     ttft = sorted(t - t_submit for t in t_firsts)
@@ -480,14 +623,14 @@ def phase_engine(card: str, kind: str):
           f"({decode_tokens} tokens after the first of each request, from the "
           f"first first-token to the end); all {n_tokens} tokens in "
           f"{t_end - t_submit:.3f} s ({card})")
-    print(f"engine {kind}: peak memory {peak_gb:.2f} GB; prefix cache "
-          f"{stats['prefix_cache']}; repeat identical; reference worst gap "
-          f"{worst:.3%} of logit range, "
+    cache = (f"prefix cache {stats['prefix_cache']}" if engine.paged
+             else "no prefix cache")
+    print(f"engine {kind}: peak memory {peak_gb:.2f} GB; {cache}; repeat "
+          f"identical; reference worst gap {worst:.3%} of logit range, "
           f"{'no fork in 8 tokens' if fork < 0 else f'first fork at token {fork}'}")
-    print(f"engine {kind}: {kernel} launches {launches[kernel]} = "
-          f"{cfg.n_layers} layers x {steps} decode steps; other kernels "
-          f"{ {k: n for k, n in launches.items() if k != kernel} } ({card})")
-    return launches[kernel], engine
+    print(f"engine {kind}: launches {launches} ({cfg.n_layers} layers, {steps} "
+          f"decode steps, {n_prefills} prefills) ({card})")
+    return {name: launches[name] for name in path_kernels}, engine
 
 
 # -- optional (--profile): where each engine's time goes ---------------------
@@ -535,20 +678,24 @@ def _profile(fn, label: str, per: int, out_dir: Path) -> None:
 
 def phase_profile(engine, card: str, kind: str) -> None:
     """A decode window of 8 steps with all 8 lanes live at the engine
-    phase's prompt lengths (each lane on its own pool blocks), and one fused
-    admission group of 4 chunks, each profiled. Per-kernel tables go to
+    phase's prompt lengths (paged: each lane on its own pool blocks), and
+    one fused admission group of 4 chunks (paged) or one bucket-2048
+    prefill (dense), each profiled. Per-kernel tables go to
     ``build/profile/``."""
     e = engine
     out_dir = ROOT / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    b, mb = e.ecfg.max_batch, e.pool.mb
-    per_row = mb - 1                                # the last column is trash
-    check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
-    table = torch.zeros((b, mb), dtype=torch.int32, device=e.device)
-    table[:, :per_row] = 1 + torch.arange(
-        b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
+    b = e.ecfg.max_batch
     lens = [600, 1212, 128, 1536, 777, 1000, 1800, 400]
-    kv = dict(e.kv_cache, table=table)
+    kv = e.kv_cache
+    if e.paged:
+        mb = e.pool.mb
+        per_row = mb - 1                            # the last column is trash
+        check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
+        table = torch.zeros((b, mb), dtype=torch.int32, device=e.device)
+        table[:, :per_row] = 1 + torch.arange(
+            b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
+        kv = dict(e.kv_cache, table=table)
     cache_len = torch.tensor(lens, dtype=torch.int32, device=e.device)
     active = torch.ones((b,), dtype=torch.bool, device=e.device)
     last = torch.zeros((b, 1), dtype=torch.int32, device=e.device)
@@ -556,6 +703,16 @@ def phase_profile(engine, card: str, kind: str) -> None:
     window = e.graphs.build_decode(k)
     _profile(lambda: window(e.params, kv, last, cache_len, active, e._gen),
              f"{kind}_decode_step_B{b}", k, out_dir)
+    if not e.paged:
+        bucket = e._buckets[-1]
+        toks = torch.randint(0, e.cfg.vocab_size, (1, bucket),
+                             device=e.device, dtype=torch.int32)
+        prefill = e.graphs.prefill_fn(bucket)
+        _profile(lambda: prefill(e.params, toks, bucket),
+                 f"{kind}_prefill_{bucket}", 1, out_dir)
+        print(f"profile {kind}: per decode step (B={b}, lengths {lens}) and "
+              f"per {bucket}-token prefill ({card})")
+        return
     g, c = 4, e.graphs.chunk
     group = e.graphs.chunk_group_fn(g)
     toks = torch.randint(0, e.cfg.vocab_size, (g, c), device=e.device,
@@ -585,21 +742,31 @@ def main() -> int:
         return 1
     try:
         card = phase_card()
-        # one source holds both paged-decode kernels
-        phase_build(["paged_decode_attention"])
+        # one source holds the three decode kernels, the other the flash one
+        phase_build(["paged_decode_attention", "flash_attention"])
         # one row per kernel, at the main path's shapes; the llama-1b
-        # head_dim is checked and printed beside it
+        # head_dim and the other prefill buckets are checked and printed
+        # beside them
         rows = []
-        for name in KERNELS:
+        for name in ("paged_decode_attention", "paged_decode_attention_quant"):
             rows.append(phase_paged_kernel(
                 name, "llama3-8b decode B=8 QH=32 KH=8 D=128 BS=128 MB=17",
                 128))
             phase_paged_kernel(
                 name, "llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17", 64)
-        print_unported_bounds()
+        for t in (128, 512):
+            phase_flash_kernel(t, 128, causal=True)
+        rows.append(phase_flash_kernel(2048, 128, causal=True))
+        phase_flash_kernel(2048, 64, causal=True)
+        phase_flash_kernel(512, 128, causal=False)
+        rows.append(phase_ragged_kernel(
+            "llama3-8b dense decode B=8 S=2048 QH=32 KH=8 D=128 BS=256", 128))
+        phase_ragged_kernel(
+            "llama-1b dense decode B=8 S=2048 QH=32 KH=8 D=64 BS=256", 64)
         launches = {}
         for kind in ENGINES:
-            launches[ENGINES[kind][2]], engine = phase_engine(card, kind)
+            path_launches, engine = phase_engine(card, kind)
+            launches.update(path_launches)
             if "--profile" in sys.argv[1:]:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads

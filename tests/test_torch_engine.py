@@ -128,29 +128,32 @@ def test_warmup_leaves_the_pool_and_slots_untouched(engines):
 def test_load_engine_pages_by_the_reference_rule(buckets, block, seq):
     kw = dict(max_batch=2, max_seq_len=seq, prefill_buckets=buckets,
               kv_block_size=block)
-    want = jax_load_engine("llama-tiny", **kw).ecfg
-    if want.kv_block_size == 0:
-        # the reference falls back to its dense engine, which the port
-        # does not have yet
-        with pytest.raises(NotImplementedError, match="A11"):
-            load_engine("llama-tiny", device="cpu", **kw)
-        return
-    got = load_engine("llama-tiny", device="cpu", **kw).ecfg
+    jeng = jax_load_engine("llama-tiny", **kw)
+    teng = load_engine("llama-tiny", device="cpu", **kw)
+    want, got = jeng.ecfg, teng.ecfg
     for name in ("max_batch", "max_seq_len", "prefill_buckets",
                  "decode_steps", "kv_block_size", "kv_pool_blocks",
                  "prefill_chunk", "prefix_cache_blocks"):
         assert getattr(got, name) == getattr(want, name), name
+    assert teng.paged == jeng.paged
+    if not want.kv_block_size:
+        # the reference falls back to its dense engine, and so does the
+        # port: it serves, and stats carry no paged key, as in JAX
+        assert not teng.paged
+        assert "kv_block_size" not in teng.stats()
+        assert "kv_block_size" not in jeng.stats()
+        assert len(asyncio.run(_serve(teng, [[3, 1, 4]], 3))[0][0]) == 3
 
 
 SMALL = dict(max_batch=2, max_seq_len=64, prefill_buckets=(16,),
              decode_steps=(1, 4), kv_block_size=16)
 
 
-def test_int8_serving_raises_until_its_slice():
+def test_int8_serving_raises_until_its_slice(int8_engines):
     """Its slice is in: the int8 presets serve (int8 weights by the suffix
-    or by ``quantize=``, the int8 pool by ``kv_quant=``), while the parts
-    still queued, the dense engine (A11) and MoE (A10), raise naming their
-    items."""
+    or by ``quantize=``, the int8 pool by ``kv_quant=``), int8 weights serve
+    on the dense engine too, as the JAX engine's, while the part still
+    queued, MoE (A10), raises naming its item."""
     for name, kw in (("llama-tiny-int8", {}),
                      ("llama-tiny", dict(quantize="int8"))):
         engine = load_engine(name, device="cpu", kv_quant="int8", **SMALL,
@@ -160,8 +163,21 @@ def test_int8_serving_raises_until_its_slice():
         assert engine.stats()["kv_quant"] == "int8"
         out = asyncio.run(_serve(engine, [[3, 1, 4, 1, 5]], 6))[0]
         assert len(out[0]) == 6
-    with pytest.raises(NotImplementedError, match="A11"):
-        load_engine("llama-tiny-int8", device="cpu", paged=False, **SMALL)
+    dense = load_engine("llama-tiny-int8", device="cpu", paged=False, **SMALL)
+    assert not dense.paged and dense.ecfg.kv_block_size == 0
+    assert dense.params["layers"][0]["wq"]["q"].dtype == torch.int8
+    assert len(asyncio.run(_serve(dense, [[3, 1, 4, 1, 5]], 4))[0][0]) == 4
+    # on the JAX int8 tree, the dense engines of both packages agree
+    jparams, jcfg, _, teng = int8_engines
+    kw = dict(max_batch=2, max_seq_len=64, prefill_buckets=(16,),
+              decode_steps=(1, 4))
+    prompt = [[3, 1, 4, 1, 5]]
+    want = asyncio.run(_serve(JaxEngine(jparams, jcfg, JaxEngineConfig(**kw)),
+                              prompt, 6))
+    got = asyncio.run(_serve(InferenceEngine(teng.params, teng.cfg,
+                                             EngineConfig(**kw),
+                                             device="cpu"), prompt, 6))
+    assert got == want
     moe = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], n_experts=4)
     with pytest.raises(NotImplementedError, match="A10"):
         tquant.init_quantized_decoder(moe, torch.Generator(), "cpu")

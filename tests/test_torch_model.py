@@ -162,10 +162,22 @@ def test_rope_length_check_and_unported_branches_raise(tiny):
     with pytest.raises(ValueError, match="rope table"):
         decoder_forward(tparams, toks, tcfg, kv_cache=too_long,
                         cache_len=torch.tensor(4))
+    # the dense branches are ported: a dense prefill of 4 tokens into a
+    # 32-position cache, then one dense decode step, both as in JAX
+    jcfg, jparams = tiny[:2]
     dense = init_kv_cache(tcfg, 1, 32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        decoder_forward(tparams, toks, tcfg, kv_cache=dense)
-    with pytest.raises(NotImplementedError, match="A11"):
-        decoder_forward(tparams, toks[:, :1], tcfg, kv_cache=dense,
-                        cache_len=torch.ones(1, dtype=torch.int32),
-                        decode=True)
+    jdense = jax_init_kv_cache(jcfg, 1, 32)
+    tl, dense = decoder_forward(tparams, toks, tcfg, kv_cache=dense)
+    jl, jdense = jax_forward(jparams, jnp.asarray(toks.numpy(), jnp.int32),
+                             jcfg, kv_cache=jdense)
+    _close(tl, jl)
+    tl, dense = decoder_forward(
+        tparams, toks[:, :1], tcfg, positions=torch.tensor([[4]]),
+        kv_cache=dense, cache_len=torch.tensor([5], dtype=torch.int32),
+        decode=True)
+    jl, jdense = jax_forward(
+        jparams, jnp.zeros((1, 1), jnp.int32), jcfg,
+        positions=jnp.array([[4]]), kv_cache=jdense,
+        cache_len=jnp.array([5], jnp.int32), decode=True)
+    _close(tl, jl)
+    _close(dense["k"], jdense["k"])

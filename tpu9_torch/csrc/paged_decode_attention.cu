@@ -1,19 +1,25 @@
-// Block-table paged decode attention for Hopper (sm_90a), over a bf16 pool
-// or an int8 pool with f32 per-vector scales.
+// Paged decode attention for Hopper (sm_90a), over a bf16 pool or an int8
+// pool with f32 per-vector scales, found through a block table, or over a
+// contiguous bf16 cache.
 //
-// Replaces two TPU kernels of tpu9/ops/paged_attention.py:
+// Replaces three TPU kernels of tpu9/ops/paged_attention.py:
 //   paged_decode_attention        (_paged_kernel, _table_block, _head_update,
-//                                  _finalize_heads)          -> Payload bf16
-//   paged_decode_attention_quant  (_paged_quant_kernel)      -> Payload int8
-// Both compute the same function: one query token per sequence attends over
-// that sequence's valid prefix in a shared KV pool, found through a block
-// table.
+//                                  _finalize_heads)   -> Payload bf16, Table
+//   paged_decode_attention_quant  (_paged_quant_kernel) -> Payload int8, Table
+//   ragged_decode_attention       (_kernel)           -> Payload bf16, Contiguous
+// All compute the same function: one query token per sequence attends over
+// that sequence's valid prefix of its KV cache. The block-table kernels find
+// the prefix's blocks in a shared pool through the table. The ragged kernel
+// reads a contiguous [B, S, KH, D] cache, which is a pool of B * S/BS blocks
+// whose table is implicit: block j of sequence b is b * (S/BS) + j (the
+// Contiguous policy computes it and reads no table).
 //
 //   q           [B, QH, D]        bf16 (the [B, 1, QH, D] decode query)
 //   k/v_pool    [N, BS, KH, D]    bf16, or int8, shared by every sequence
 //   k/v_scale   [N, BS, KH]       f32, int8 pool only: one absmax scale per
 //                                 (token, head) vector, indexed like the pool
 //   block_table [B, MB]           int32, logical block j -> physical pool block
+//                                 (absent for the contiguous cache: MB = S/BS)
 //   cache_len   [B]               int32, valid positions incl. the current token
 //   out         [B, QH, D]        bf16
 //
@@ -54,6 +60,9 @@
 //   load used right away, so each thread issues the loads of 4-8 token rows
 //   before it uses the first (kUnroll).
 // - Masked positions inside the last valid block are never loaded.
+// - The contiguous cache takes the same path with its implicit table, so it
+//   too reads only ceil(len/BS) blocks of each sequence and nothing past
+//   len (the TPU kernel clamped its index map for that).
 //
 // Known limit: at B = 8 and KH = 8 the grid is 64 CTAs on 132 SMs, so half
 // the card idles during decode. Splitting each sequence's blocks across CTAs
@@ -98,7 +107,19 @@ template <> struct Payload<int8_t> {
   static constexpr bool kScaled = true;
 };
 
-template <typename T, int G, int D>
+// where block j of sequence b lies in the pool
+struct Table {          // B1, B2: the sequence's row of the block table
+  __device__ static int64_t block(const int32_t* table, int b, int j, int max_blocks) {
+    return table[(int64_t)b * max_blocks + j];
+  }
+};
+struct Contiguous {     // B4: the [B, S, KH, D] cache, max_blocks = S / BS per sequence
+  __device__ static int64_t block(const int32_t*, int b, int j, int max_blocks) {
+    return (int64_t)b * max_blocks + j;
+  }
+};
+
+template <typename T, typename Addr, int G, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ k_pool,
@@ -156,7 +177,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // a length past the table's width reads no further than its last column
   const int n_blocks = min((len + block_s - 1) / block_s, max_blocks);
   for (int j = 0; j < n_blocks; ++j) {
-    const int64_t phys = block_table[(int64_t)b * max_blocks + j];
+    const int64_t phys = Addr::block(block_table, b, j, max_blocks);
     const int valid = min(block_s, len - j * block_s);
     const int64_t base = (phys * block_s * kv_heads + h) * D + dc * 8;
     const int64_t scale_base = phys * block_s * kv_heads + h;   // int8 only
@@ -285,7 +306,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int G, int D>
+template <typename T, typename Addr, int G, int D>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* block_table, const void* cache_len, void* out,
            int batch, int kv_heads, int block_s, int max_blocks, float scale,
@@ -295,7 +316,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   const int red_floats = kTokenLanes * G * D;
   const size_t smem = sizeof(float) * (score_floats > red_floats ? score_floats : red_floats);
   const dim3 grid(kv_heads, batch);
-  paged_decode_kernel<T, G, D><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<T, Addr, G, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int32_t*>(block_table),
@@ -305,8 +326,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
 }
 
 // Picks the (G, D) instance; cudaErrorInvalidValue for a shape it has none
-// for. k/v_scale are null for the bf16 pool.
-template <typename T>
+// for. k/v_scale are null for the bf16 pool, block_table for the contiguous
+// cache.
+template <typename T, typename Addr>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
              const void* v_scale, const void* block_table, const void* cache_len, void* out,
              int batch, int q_heads, int kv_heads, int head_dim, int block_s, int max_blocks,
@@ -317,10 +339,10 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   const int g = q_heads / kv_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TPU9_CASE(G, D)                                                                     \
-  if (g == G && head_dim == D)                                                              \
-    return launch<T, G, D>(q, k_pool, v_pool, k_scale, v_scale, block_table, cache_len, out, \
-                           batch, kv_heads, block_s, max_blocks, scale, s);
+#define TPU9_CASE(G, D)                                                                    \
+  if (g == G && head_dim == D)                                                             \
+    return launch<T, Addr, G, D>(q, k_pool, v_pool, k_scale, v_scale, block_table, cache_len, \
+                                 out, batch, kv_heads, block_s, max_blocks, scale, s);
   TPU9_CASE(1, 64) TPU9_CASE(2, 64) TPU9_CASE(4, 64) TPU9_CASE(8, 64)
   TPU9_CASE(1, 128) TPU9_CASE(2, 128) TPU9_CASE(4, 128) TPU9_CASE(8, 128)
 #undef TPU9_CASE
@@ -329,16 +351,16 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched), or
+// Each returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape the kernel has no instance for. The
 // Python wrappers validate shapes, types, contiguity and alignment first.
 extern "C" int tpu9_paged_decode_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool, const void* block_table,
     const void* cache_len, void* out, int batch, int q_heads, int kv_heads, int head_dim,
     int block_s, int max_blocks, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr, block_table, cache_len,
-                                 out, batch, q_heads, kv_heads, head_dim, block_s, max_blocks,
-                                 scale, stream);
+  return dispatch<__nv_bfloat16, Table>(q, k_pool, v_pool, nullptr, nullptr, block_table,
+                                        cache_len, out, batch, q_heads, kv_heads, head_dim,
+                                        block_s, max_blocks, scale, stream);
 }
 
 extern "C" int tpu9_paged_decode_attention_int8(
@@ -346,7 +368,18 @@ extern "C" int tpu9_paged_decode_attention_int8(
     const void* v_scale, const void* block_table, const void* cache_len, void* out, int batch,
     int q_heads, int kv_heads, int head_dim, int block_s, int max_blocks, float scale,
     void* stream) {
-  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, block_table, cache_len, out,
-                          batch, q_heads, kv_heads, head_dim, block_s, max_blocks, scale,
-                          stream);
+  return dispatch<int8_t, Table>(q, k_pool, v_pool, k_scale, v_scale, block_table, cache_len,
+                                 out, batch, q_heads, kv_heads, head_dim, block_s, max_blocks,
+                                 scale, stream);
+}
+
+// The contiguous cache [B, S, KH, D]: seq_len = S, a multiple of block_s.
+extern "C" int tpu9_ragged_decode_attention_bf16(
+    const void* q, const void* k_cache, const void* v_cache, const void* cache_len, void* out,
+    int batch, int q_heads, int kv_heads, int head_dim, int block_s, int seq_len, float scale,
+    void* stream) {
+  if (block_s <= 0 || seq_len % block_s != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16, Contiguous>(q, k_cache, v_cache, nullptr, nullptr, nullptr,
+                                             cache_len, out, batch, q_heads, kv_heads, head_dim,
+                                             block_s, seq_len / block_s, scale, stream);
 }

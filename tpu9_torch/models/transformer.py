@@ -5,9 +5,9 @@ Params are a plain dict with the JAX package's paths and layouts (every
 projection stored [in, out], so the forward is ``x @ w``, or an int8
 ``{q, scale}`` entry, see ``ops/quant.py``); a JAX param tree converts with
 :func:`tpu9_torch.bridge.params_from_jax`. ``decoder_forward``
-runs the no-cache forward, chunked prefill into a dense scratch and paged
-decode. KV writes go into the cache tensors in place where the JAX graphs
-donated the buffer.
+runs the no-cache forward, dense prefill, chunked prefill into a dense
+scratch, dense decode and paged decode. KV writes go into the cache tensors
+in place where the JAX graphs donated the buffer.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import (attention, chunk_prefill_attention,
-                             paged_attention_dispatch)
+                             decode_attention, paged_attention_dispatch)
 from ..ops.norms import rms_norm
 from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
@@ -166,8 +166,18 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         raise NotImplementedError(
             "paged multi-token verify (speculative decoding): ROADMAP queue A6")
     elif decode:
-        raise NotImplementedError(
-            "dense-cache decode: ROADMAP queue A11 and kernel B4")
+        # dense decode: write this token's k/v at each row's position of the
+        # contiguous cache, then attend over the prefix (the ragged kernel
+        # reads only ceil(len/block) blocks of each row). In place: the JAX
+        # decode graph donated the cache. Positions clamp to the cache as
+        # JAX's dynamic_update_slice does; the engine never passes one past.
+        k_cache = kv_cache["k"][layer_idx]               # [B, S, KH, D]
+        v_cache = kv_cache["v"][layer_idx]
+        pos = positions[:, 0].long().clamp(0, k_cache.shape[1] - 1)
+        rows = torch.arange(b, device=x.device)
+        k_cache[rows, pos] = k[:, 0]
+        v_cache[rows, pos] = v[:, 0]
+        out = decode_attention(q, k_cache, v_cache, cache_len)
     elif cache_len is not None:
         # chunked prefill: write the chunk at each row's positions, then
         # attend over prefix + chunk with the absolute-position mask
@@ -180,8 +190,12 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         v_cache[rows, idx] = v
         out = chunk_prefill_attention(q, k_cache, v_cache, positions)
     else:
-        raise NotImplementedError(
-            "dense prefill: ROADMAP queue A11 and kernel B3")
+        # dense prefill: write [0, t) of the given cache (in place, as the
+        # JAX prefill graph's update), then causal attention within the
+        # prompt: the flash kernel at block-aligned t
+        kv_cache["k"][layer_idx][:, :t] = k
+        kv_cache["v"][layer_idx][:, :t] = v
+        out = attention(q, k, v, causal=True)
 
     out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
     return x + maybe_matmul(out, layer["wo"])
@@ -194,23 +208,43 @@ def _mlp_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig):
     return x + maybe_matmul(gated, layer["w_down"])
 
 
+def lm_logits(params: Params, x: torch.Tensor,
+              cfg: DecoderConfig) -> torch.Tensor:
+    """The output head: final-norm hidden [..., dim] → f32 logits [..., V]
+    (tied or separate head, soft-capped where the config says so)."""
+    if cfg.tie_embeddings:
+        logits = (x @ params["embed"].T.to(cfg.dtype)).float()
+    else:
+        logits = maybe_matmul(x, params["lm_head"]).float()
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
 @torch.no_grad()
 def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                     positions: Optional[torch.Tensor] = None,
                     kv_cache: Optional[Params] = None,
                     cache_len: Optional[torch.Tensor] = None,
-                    decode: bool = False, rope=None):
+                    decode: bool = False, rope=None,
+                    return_hidden: bool = False):
     """Run the decoder.
 
     - eval:           ``decoder_forward(params, tokens, cfg)`` → logits [B,T,V]
+    - dense prefill:  ``kv_cache`` a contiguous [L,B,S,...] cache and no
+      ``cache_len`` → (logits, kv_cache) with positions [0, T) written
     - chunked prefill: ``kv_cache`` a dense [L,B,S,...] scratch, ``positions``
       [B,C] and any ``cache_len`` → (logits, kv_cache)
-    - paged decode:   ``decode=True``, ``kv_cache`` a pool with ``"table"``
-      (and ``"k_scale"``/``"v_scale"`` planes for an int8 pool), tokens
-      [B,1], positions [B,1], cache_len [B] → (logits [B,1,V], kv_cache)
+    - decode:         ``decode=True``, tokens [B,1], positions [B,1],
+      cache_len [B] → (logits [B,1,V], kv_cache); ``kv_cache`` is the
+      contiguous cache, or a pool with ``"table"`` (and ``"k_scale"``/
+      ``"v_scale"`` planes for an int8 pool)
 
     The returned cache is ``kv_cache`` itself, written in place. ``rope`` is
     an optional precomputed ``rope_table(cfg.max_seq_len, ...)`` pair.
+    ``return_hidden`` returns the final-norm hidden states [B,T,dim] in
+    place of the logits, so a caller can project only the rows it needs
+    with :func:`lm_logits`.
     """
     b, t = tokens.shape
     if positions is None:
@@ -239,12 +273,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         x = _mlp_block(layer, x, cfg)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
-    if cfg.tie_embeddings:
-        logits = (x @ params["embed"].T.to(cfg.dtype)).float()
-    else:
-        logits = maybe_matmul(x, params["lm_head"]).float()
-    if cfg.logit_softcap > 0:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    out = x if return_hidden else lm_logits(params, x, cfg)
     if kv_cache is not None:
-        return logits, kv_cache
-    return logits
+        return out, kv_cache
+    return out

@@ -1,14 +1,16 @@
-"""Block-table paged decode attention (counterpart of
-``tpu9/ops/paged_attention.py``).
+"""Decode attention over a paged pool or a contiguous cache (counterpart
+of ``tpu9/ops/paged_attention.py``).
 
-``paged_decode_attention`` (bf16 pool) and ``paged_decode_attention_quant``
-(int8 pool with f32 per-vector scales) wrap the two instances of the
-hand-written CUDA kernel ``tpu9_torch/csrc/paged_decode_attention.cu``, the
-port of the TPU kernels of the same names. On a CUDA tensor each launches
-its kernel or raises; on a CPU tensor it computes the kernel's plain twin,
+``paged_decode_attention`` (bf16 pool), ``paged_decode_attention_quant``
+(int8 pool with f32 per-vector scales) and ``ragged_decode_attention``
+(contiguous bf16 cache) wrap the three instances of the hand-written CUDA
+kernel ``tpu9_torch/csrc/paged_decode_attention.cu``, the port of the TPU
+kernels of the same names. On a CUDA tensor each launches its kernel or
+raises; on a CPU tensor it computes the kernel's plain twin:
 ``xla_paged_decode_attention`` (gather the table rows densely, dequantize
-an int8 pool, then a masked softmax), which is also the kernels' oracle in
-the tests and in ``chip_smoke.py``.
+an int8 pool, then a masked softmax) for the pool, ``xla_decode_attention``
+for the contiguous cache. The twins are also the kernels' oracles in the
+tests and in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ KERNEL = "paged_decode_attention"
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 MAX_BLOCK_S = 1024
+RAGGED_BLOCK_S = 256          # the JAX ragged kernel's default block_s
 
 
 def gather_paged(pool: torch.Tensor, block_table: torch.Tensor,
@@ -60,10 +63,25 @@ def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return xla_decode_attention(q, k, v, cache_len)
 
 
+def _instance_supports(q_heads: int, kv_heads: int, head_dim: int,
+                       block_s: int) -> str:
+    """The checks every instance shares: head_dim, GQA group, block size."""
+    if head_dim == 256:
+        return ("head_dim in (64, 128), got 256: the gemma presets that use "
+                "it are not ported (ROADMAP queue A3)")
+    if head_dim not in HEAD_DIMS:
+        return f"head_dim in {HEAD_DIMS}, got {head_dim}"
+    if kv_heads == 0 or q_heads % kv_heads or q_heads // kv_heads not in GROUPS:
+        return f"GQA group in {GROUPS}, got {q_heads}/{kv_heads}"
+    if block_s <= 0 or block_s % 16 or block_s > MAX_BLOCK_S:
+        return f"block size a multiple of 16 up to {MAX_BLOCK_S}, got {block_s}"
+    return ""
+
+
 def kernel_supports(q: torch.Tensor, k_pool: torch.Tensor,
                     k_scale: Optional[torch.Tensor] = None) -> str:
-    """Empty when the CUDA kernel takes these shapes and types, else why
-    not. ``k_scale`` marks the int8 instance."""
+    """Empty when the block-table kernel takes these shapes and types, else
+    why not. ``k_scale`` marks the int8 instance."""
     _, t, q_heads, head_dim = q.shape
     _, block_s, kv_heads, _ = k_pool.shape
     if t != 1:
@@ -76,13 +94,37 @@ def kernel_supports(q: torch.Tensor, k_pool: torch.Tensor,
                                 or k_scale.shape != k_pool.shape[:-1]):
         return (f"f32 scales of shape {tuple(k_pool.shape[:-1])}, got "
                 f"{k_scale.dtype} {tuple(k_scale.shape)}")
-    if head_dim not in HEAD_DIMS:
-        return f"head_dim in {HEAD_DIMS}, got {head_dim}"
-    if q_heads % kv_heads or q_heads // kv_heads not in GROUPS:
-        return f"GQA group in {GROUPS}, got {q_heads}/{kv_heads}"
-    if block_s % 16 or block_s > MAX_BLOCK_S:
-        return f"block size a multiple of 16 up to {MAX_BLOCK_S}, got {block_s}"
+    return _instance_supports(q_heads, kv_heads, head_dim, block_s)
+
+
+def ragged_kernel_supports(q: torch.Tensor, k_cache: torch.Tensor,
+                           block_s: int = RAGGED_BLOCK_S) -> str:
+    """Empty when the contiguous-cache kernel takes these shapes and types
+    with blocks of ``block_s`` positions, else why not."""
+    _, t, q_heads, head_dim = q.shape
+    _, s_max, kv_heads, _ = k_cache.shape
+    if t != 1:
+        return f"one query token per sequence, got {t}"
+    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16:
+        return f"bf16 q and cache, got {q.dtype} and {k_cache.dtype}"
+    why = _instance_supports(q_heads, kv_heads, head_dim, block_s)
+    if why:
+        return why
+    if s_max == 0 or s_max % block_s:
+        return (f"a cache length that is a multiple of the block size "
+                f"{block_s}, got {s_max}")
     return ""
+
+
+def check_launch_layout(tensors) -> None:
+    """One device, contiguous, and the first three (q, k, v) 16-byte
+    aligned for the kernels' vector loads."""
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("all operands must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors[:3]):
+        raise ValueError("q, k and v must be 16-byte aligned")
 
 
 def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
@@ -104,34 +146,62 @@ def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
     if block_table.shape[0] != batch or cache_len.shape != (batch,):
         raise ValueError(f"table {tuple(block_table.shape)} / cache_len "
                          f"{tuple(cache_len.shape)} do not match batch {batch}")
-    tensors = (q, k_pool, v_pool, *scales, block_table, cache_len)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("all operands must be on one CUDA device")
     if block_table.dtype != torch.int32 or cache_len.dtype != torch.int32:
         raise ValueError("block_table and cache_len must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("operands must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("q and pools must be 16-byte aligned")
+    check_launch_layout((q, k_pool, v_pool, *scales, block_table, cache_len))
     out = torch.empty_like(q)
     shape = (batch, q_heads, kv_heads, head_dim, block_s, block_table.shape[1],
              head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, *scales, block_table,
                                    cache_len, out)]
-    rc = _kernel_fn(k_scale is not None)(*ptrs, *shape)
+    rc = _kernel_fn("bf16" if k_scale is None else "int8")(*ptrs, *shape)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return out
 
 
+def _launch_ragged(q, k_cache, v_cache, cache_len, block_s: int
+                   ) -> torch.Tensor:
+    """Validate the operands, then launch the contiguous-cache instance."""
+    why = ragged_kernel_supports(q, k_cache, block_s)
+    if why:
+        raise ValueError(f"ragged_decode_attention kernel needs {why}")
+    batch, _, q_heads, head_dim = q.shape
+    _, s_max, kv_heads, _ = k_cache.shape
+    if not (k_cache.shape == v_cache.shape and v_cache.dtype == k_cache.dtype
+            and k_cache.shape[0] == batch and k_cache.shape[3] == head_dim):
+        raise ValueError(f"caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if cache_len.shape != (batch,) or cache_len.dtype != torch.int32:
+        raise ValueError(f"cache_len must be int32 of shape ({batch},), got "
+                         f"{cache_len.dtype} {tuple(cache_len.shape)}")
+    check_launch_layout((q, k_cache, v_cache, cache_len))
+    out = torch.empty_like(q)
+    rc = _kernel_fn("ragged")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cache_len.data_ptr(), out.data_ptr(), batch, q_heads, kv_heads,
+        head_dim, block_s, s_max, head_dim ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ragged_decode_attention launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+# each instance's C entry and its number of pointer operands; all take six
+# ints, the scale and the stream after them
+_ENTRIES = {"bf16": ("tpu9_paged_decode_attention_bf16", 6),
+            "int8": ("tpu9_paged_decode_attention_int8", 8),
+            "ragged": ("tpu9_ragged_decode_attention_bf16", 5)}
+
+
 @functools.cache
-def _kernel_fn(quant: bool):
-    """The bf16 (``quant=False``) or int8 entry point of the library."""
+def _kernel_fn(instance: str):
+    """The entry point of one instance of the library (``_ENTRIES``)."""
     from ._build import load
-    lib = load(KERNEL)
-    fn = (lib.tpu9_paged_decode_attention_int8 if quant
-          else lib.tpu9_paged_decode_attention_bf16)
-    n_ptrs = 8 if quant else 6
+    symbol, n_ptrs = _ENTRIES[instance]
+    fn = getattr(load(KERNEL), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -189,3 +259,33 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention_quant.launches = 0
+
+
+def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, cache_len: torch.Tensor,
+                            block_s: int = RAGGED_BLOCK_S) -> torch.Tensor:
+    """Decode attention over a contiguous cache that reads only each
+    sequence's valid prefix.
+
+    q [B,1,QH,D]; k/v_cache [B,S,KH,D] with S a multiple of ``block_s``;
+    cache_len [B] int32 counts valid positions incl. the current one (the
+    engine passes at least 1). Returns [B,1,QH,D] in q's dtype. Only
+    ceil(len/block_s) blocks of each sequence are read, so positions >= len
+    may hold anything.
+
+    A CUDA ``q`` launches the kernel (``ragged_decode_attention.launches``
+    counts each launch) or raises if the kernel cannot take the operands;
+    a CPU ``q`` computes the plain twin ``xla_decode_attention``. The two
+    agree for len >= 1; at len 0 the kernel gives zeros where the twin's
+    softmax over all-masked logits gives the mean of v."""
+    if q.device.type == "cpu":
+        from .attention import xla_decode_attention
+        return xla_decode_attention(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged decode path for device {q.device}")
+    out = _launch_ragged(q, k_cache, v_cache, cache_len, block_s)
+    ragged_decode_attention.launches += 1
+    return out
+
+
+ragged_decode_attention.launches = 0

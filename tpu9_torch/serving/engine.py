@@ -1,17 +1,22 @@
-"""LLM inference engine: continuous batching over the paged KV pool
-(counterpart of ``tpu9/serving/engine.py``, paged mode).
+"""LLM inference engine: continuous batching over a paged KV pool or a
+dense KV cache (counterpart of ``tpu9/serving/engine.py``).
 
-Slots are fixed ``max_batch`` decode lanes. A request reserves its
-worst-case KV budget, reuses any cached prefix blocks, chunk-prefills the
-rest of its prompt into a batch-1 dense scratch (fused groups of chunks,
-each spliced into pool blocks), and then joins the decode batch at its slot.
-Decode runs in windows of k steps for the whole batch; the sampled ids of a
-window come back to the host in one copy, and one window stays in flight
-while the host fans out the previous one.
+Slots are fixed ``max_batch`` decode lanes. In paged mode
+(``kv_block_size > 0``) a request reserves its worst-case KV budget, reuses
+any cached prefix blocks, chunk-prefills the rest of its prompt into a
+batch-1 dense scratch (fused groups of chunks, each spliced into pool
+blocks), and then joins the decode batch at its slot. In dense mode
+(``kv_block_size == 0``, the ``EngineConfig`` default) every slot owns its
+lanes of one contiguous [L, B, S, KH, D] cache: a request's prompt is padded
+to a prefill bucket, prefilled in one call (the flash kernel) and spliced
+into its slot's lanes; decode attends through the ragged kernel. Decode runs
+in windows of k steps for the whole batch; the sampled ids of a window come
+back to the host in one copy, and one window stays in flight while the host
+fans out the previous one.
 
-The pool is bf16, or int8 with f32 per-vector scales (``kv_quant``). This
-port leaves out speculative decoding, the flight recorder, KV tiering,
-kvwire, profiling, sharding and the dense-cache mode (ROADMAP queue A).
+The paged pool is bf16, or int8 with f32 per-vector scales (``kv_quant``).
+This port leaves out speculative decoding, the flight recorder, KV tiering,
+kvwire, profiling and sharding (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ class EngineConfig:
     # decode-window buckets: K steps per host sync; K drops to the smallest
     # bucket whenever a waiting request could be admitted
     decode_steps: tuple = (1, 4, 16)
-    # block size of the shared KV pool (> 0: this slice has no dense mode)
+    # block size of the shared KV pool; 0 = the dense [B, S] cache
     kv_block_size: int = 0
     # pool size in blocks; 0 = auto (max_batch * max_seq/block)
     kv_pool_blocks: int = 0
@@ -107,36 +112,44 @@ class InferenceEngine:
         self.params = params
         b, s = engine_cfg.max_batch, engine_cfg.max_seq_len
         bs = engine_cfg.kv_block_size
+        self.paged = bs > 0
         # "int8" is the one mode validate_quant_mode passes
         self.kv_quant = bool(validate_quant_mode(engine_cfg.kv_quant,
                                                  "kv_quant"))
-        if self.kv_quant and bs <= 0:
+        if self.kv_quant and not self.paged:
             raise ValueError("kv_quant='int8' requires the paged engine "
                              "(kv_block_size > 0)")
-        if bs <= 0:
-            raise NotImplementedError(
-                "dense-cache engine (kv_block_size=0): ROADMAP queue A11")
-        if s % bs:
-            raise ValueError(f"max_seq_len {s} % kv_block_size {bs}")
-        chunk = engine_cfg.prefill_chunk or min(engine_cfg.prefill_buckets)
-        if chunk % bs:
-            # a chunk smaller than a block would splice nothing
-            raise ValueError(f"prefill_chunk {chunk} must be a multiple of "
-                             f"kv_block_size {bs}")
-        if s % chunk:
-            # the final chunk of a long prompt would run past the scratch
-            raise ValueError(f"max_seq_len {s} must be a multiple of "
-                             f"prefill_chunk {chunk}")
-        self._chunk = chunk
-        self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant)
-        self.kv_cache = self.pool.init_arrays()
-        self.allocator = self.pool.allocator
-        self.prefix_cache = self.pool.prefix_cache
-        # batch-1 dense scratch the chunked prefill writes through before
-        # its blocks are spliced into the pool
-        self._scratch = init_kv_cache(cfg, 1, s, device=self.device)
-        self.graphs = GraphFactory(cfg, engine_cfg, chunk, self.device)
+        self._chunk = 0
+        if self.paged:
+            if s % bs:
+                raise ValueError(f"max_seq_len {s} % kv_block_size {bs}")
+            chunk = engine_cfg.prefill_chunk \
+                or min(engine_cfg.prefill_buckets)
+            if chunk % bs:
+                # a chunk smaller than a block would splice nothing
+                raise ValueError(f"prefill_chunk {chunk} must be a multiple "
+                                 f"of kv_block_size {bs}")
+            if s % chunk:
+                # the final chunk of a long prompt would run past the scratch
+                raise ValueError(f"max_seq_len {s} must be a multiple of "
+                                 f"prefill_chunk {chunk}")
+            self._chunk = chunk
+            self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant)
+            self.kv_cache = self.pool.init_arrays()
+            self.allocator = self.pool.allocator
+            self.prefix_cache = self.pool.prefix_cache
+            # batch-1 dense scratch the chunked prefill writes through
+            # before its blocks are spliced into the pool
+            self._scratch = init_kv_cache(cfg, 1, s, device=self.device)
+        else:
+            self.pool = self.allocator = self.prefix_cache = None
+            self.kv_cache = init_kv_cache(cfg, b, s, device=self.device)
+        self.graphs = GraphFactory(cfg, engine_cfg, self._chunk, self.device)
         self.scheduler = WindowScheduler(self)
+        # dense prefill buckets, clamped to the cache: a bucket wider than
+        # max_seq_len would splice past the slot's lanes
+        self._buckets = sorted({min(bk, s)
+                                for bk in engine_cfg.prefill_buckets})
         self.cache_len = torch.zeros((b,), dtype=torch.int32,
                                      device=self.device)
         self.active = np.zeros((b,), dtype=bool)
@@ -160,6 +173,12 @@ class InferenceEngine:
                        "admit_dispatches": 0,
                        "admit_interleaved_windows": 0,
                        "deadline_expired": 0}
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self._buckets[-1]
 
     # -- paged-KV bookkeeping ------------------------------------------------
 
@@ -209,9 +228,47 @@ class InferenceEngine:
 
     def warmup(self) -> dict:
         """Run every admission and decode-window path once with all lanes
-        inactive (writes land in the trash block, no slot advances), so the
-        first request pays no kernel build or library set-up."""
+        inactive (paged writes land in the trash block, no slot advances),
+        so the first request pays no kernel build or library set-up."""
         timings: dict[str, float] = {}
+        if self.paged:
+            self._warmup_paged(timings)
+        else:
+            self._warmup_dense(timings)
+        inactive = torch.zeros((self.ecfg.max_batch,), dtype=torch.bool,
+                               device=self.device)
+        for k in self.ecfg.decode_steps:
+            t0 = time.perf_counter()
+            self.last_token, self.kv_cache, self.cache_len, toks = \
+                self.graphs.build_decode(k)(
+                    self.params, self.kv_cache, self.last_token,
+                    self.cache_len, inactive, self._gen)
+            self._sync(toks)
+            timings[f"decode_k{k}_s"] = time.perf_counter() - t0
+        return timings
+
+    def _warmup_dense(self, timings: dict) -> None:
+        """Each bucket's prefill and splice. Slot 0's lanes get the zero
+        prompt's prefix; its cache_len stays 0, so nothing attends it."""
+        for bucket in self._buckets:
+            t0 = time.perf_counter()
+            tokens = torch.zeros((1, bucket), dtype=torch.int32,
+                                 device=self.device)
+            last, cache = self.graphs.prefill_fn(bucket)(self.params, tokens,
+                                                         1)
+            self._sync(last)
+            timings[f"prefill_{bucket}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.kv_cache["k"], self.kv_cache["v"] = \
+                self.graphs.dense_splice_fn(bucket)(
+                    self.kv_cache["k"], self.kv_cache["v"], cache["k"],
+                    cache["v"], 0)
+            self._sync(self.kv_cache["k"][0, 0, 0])
+            timings[f"dsplice_{bucket}_s"] = time.perf_counter() - t0
+
+    def _warmup_paged(self, timings: dict) -> None:
+        """The paged admission paths: chunk step, splice, prefix gather and
+        the fused group."""
         bs = self.ecfg.kv_block_size
         c = self._chunk
         trash = np.full((c // bs,), self.pool.trash_block, dtype=np.int32)
@@ -237,17 +294,6 @@ class InferenceEngine:
                 np.full((g, c // bs), self.pool.trash_block, dtype=np.int32))
             self._sync(last)
             timings[f"chunk_group_{g}_s"] = time.perf_counter() - t0
-        inactive = torch.zeros((self.ecfg.max_batch,), dtype=torch.bool,
-                               device=self.device)
-        for k in self.ecfg.decode_steps:
-            t0 = time.perf_counter()
-            self.last_token, self.kv_cache, self.cache_len, toks = \
-                self.graphs.build_decode(k)(
-                    self.params, self.kv_cache, self.last_token,
-                    self.cache_len, inactive, self._gen)
-            self._sync(toks)
-            timings[f"decode_k{k}_s"] = time.perf_counter() - t0
-        return timings
 
     @staticmethod
     def _sync(t: torch.Tensor) -> None:
@@ -266,7 +312,9 @@ class InferenceEngine:
         if budget_s is not None and budget_s <= 0:
             raise TimeoutError(f"{DEADLINE_ERROR}: budget exhausted "
                                "before admission")
-        limit = self.ecfg.max_seq_len - 1
+        # chunked prefill (paged) has no bucket cap, only the cache's
+        limit = self.ecfg.max_seq_len - 1 if self.paged else \
+            min(self._buckets[-1], self.ecfg.max_seq_len - 1)
         if len(prompt) > limit:
             raise ValueError(
                 f"prompt length {len(prompt)} exceeds engine limit {limit}")
@@ -292,21 +340,26 @@ class InferenceEngine:
     def stats(self) -> dict:
         out = dict(self._stats)
         out["active_streams"] = int(self.active.sum())
-        out["queued"] = self._queue.qsize() + len(self._wait_room)
+        out["queued"] = self._queue.qsize()
         out["engine_dead"] = self._dead_reason is not None
-        out["kv_blocks_used"] = self.allocator.used_count
-        out["kv_blocks_free"] = self.allocator.free_count
-        out["kv_blocks_reserved"] = self.allocator.reserved
-        out["kv_block_size"] = self.allocator.block_s
-        # the pool format ("" = model dtype), so a fleet can tell them apart
-        out["kv_quant"] = self.ecfg.kv_quant if self.kv_quant else ""
-        out["prefix_cache"] = self.prefix_cache.stats()
-        # reserved fraction is the honest "can I take another request"
-        # signal under paging
-        out["token_pressure"] = max(
-            float(self._host_len.sum()
-                  / (self.ecfg.max_batch * self.ecfg.max_seq_len)),
-            self.allocator.reserved / max(self.allocator.n_blocks, 1))
+        out["token_pressure"] = float(
+            self._host_len.sum()
+            / (self.ecfg.max_batch * self.ecfg.max_seq_len))
+        if self.paged:
+            out["kv_blocks_used"] = self.allocator.used_count
+            out["kv_blocks_free"] = self.allocator.free_count
+            out["kv_blocks_reserved"] = self.allocator.reserved
+            out["kv_block_size"] = self.allocator.block_s
+            # the pool format ("" = model dtype), so a fleet can tell them
+            # apart
+            out["kv_quant"] = self.ecfg.kv_quant if self.kv_quant else ""
+            out["queued"] += len(self._wait_room)
+            out["prefix_cache"] = self.prefix_cache.stats()
+            # reserved fraction is the honest "can I take another request"
+            # signal under paging
+            out["token_pressure"] = max(
+                out["token_pressure"],
+                self.allocator.reserved / max(self.allocator.n_blocks, 1))
         out["device_kind"] = (torch.cuda.get_device_name(self.device)
                               if self.device.type == "cuda" else "cpu")
         return out
@@ -314,11 +367,43 @@ class InferenceEngine:
     # -- admission -----------------------------------------------------------
 
     async def _admit(self, req: _Request, slot: int):
+        """Prefill and splice one request into ``slot`` and sample its first
+        token. Returns the first token as a device value; the serve loop
+        reads all admissions' first tokens in one copy."""
+        if self.paged:
+            return await self._admit_paged(req, slot)
+        return self._admit_dense(req, slot)
+
+    def _admit_dense(self, req: _Request, slot: int):
+        """Dense admission: pad the prompt to its bucket, prefill it in one
+        call, copy its KV into the slot's lanes."""
+        n = len(req.prompt)
+        bucket = self._bucket_for(n)
+        tokens = np.zeros((1, bucket), dtype=np.int32)
+        tokens[0, :n] = req.prompt[:bucket]
+        last, cache = self.graphs.prefill_fn(bucket)(
+            self.params, torch.from_numpy(tokens).to(self.device), n)
+        self.kv_cache["k"], self.kv_cache["v"] = self.graphs.dense_splice_fn(
+            bucket)(self.kv_cache["k"], self.kv_cache["v"], cache["k"],
+                    cache["v"], slot)
+        self.cache_len[slot] = n
+        self._host_len[slot] = n
+        first = sample_logits(last, self._gen,
+                              temperature=self.ecfg.temperature,
+                              top_k=self.ecfg.top_k, top_p=self.ecfg.top_p)
+        self.last_token[slot, 0] = first
+        self._occupy_slot(req, slot)
+        return first
+
+    def _occupy_slot(self, req: _Request, slot: int) -> None:
+        req.slot = slot
+        self.active[slot] = True
+        self.slot_req[slot] = req
+
+    async def _admit_paged(self, req: _Request, slot: int):
         """Paged admission: reserve the worst case, reuse cached prefix
         blocks, chunk-prefill the suffix in fused groups (a decode window
-        interleaved between groups), splice, and sample the first token.
-        Returns the first token as a device value; the serve loop reads
-        all admissions' first tokens in one copy."""
+        interleaved between groups), splice, and sample the first token."""
         bs = self.ecfg.kv_block_size
         n = len(req.prompt)
         if self.pool.slot_blocks[slot]:
@@ -416,9 +501,7 @@ class InferenceEngine:
                               temperature=self.ecfg.temperature,
                               top_k=self.ecfg.top_k, top_p=self.ecfg.top_p)
         self.last_token[slot, 0] = first
-        req.slot = slot
-        self.active[slot] = True
-        self.slot_req[slot] = req
+        self._occupy_slot(req, slot)
         return first
 
     def _interleave_decode_window(self) -> None:
@@ -462,17 +545,20 @@ class InferenceEngine:
         self.slot_req[slot] = None
         self.cache_len[slot] = 0
         self._host_len[slot] = 0
-        # physical blocks back to the pool, reservation released
-        self.kv_cache["table"] = self.pool.release_slot(slot)
+        if self.paged:
+            # physical blocks back to the pool, reservation released
+            self.kv_cache["table"] = self.pool.release_slot(slot)
         if req is not None:
             if req.queue is not None:
                 req.queue.put_nowait(None)
             req.done.set()
 
     def _room_for(self, req: _Request) -> bool:
-        """Admission control: a request enters only when the pool can
-        reserve its worst case, so mid-decode allocation never fails."""
-        return self.allocator.can_reserve(self._worst_case_tokens(req))
+        """Paged admission control: a request enters only when the pool
+        can reserve its worst case, so mid-decode allocation never fails.
+        A dense slot always has its whole lanes."""
+        return (not self.paged
+                or self.allocator.can_reserve(self._worst_case_tokens(req)))
 
     @staticmethod
     def _req_expired(req: _Request) -> bool:
@@ -484,7 +570,7 @@ class InferenceEngine:
                                 "before prefill")
 
     def _next_admittable(self) -> Optional[_Request]:
-        while self._wait_room:
+        while self.paged and self._wait_room:
             head = self._wait_room[0]
             if self._req_expired(head):
                 self._wait_room.pop(0)
@@ -554,7 +640,7 @@ class InferenceEngine:
                 self._admitting = None
 
             if not self.active.any() and not pending:
-                if self._wait_room:
+                if self.paged and self._wait_room:
                     # idle with a waiting head: reservations are zero, so it
                     # is bigger than the whole pool — fail it loudly
                     head = self._wait_room.pop(0)
@@ -594,10 +680,11 @@ class InferenceEngine:
             await asyncio.sleep(0)
 
     def _launch_window(self, k: int) -> _Window:
-        """Grow every active slot's blocks for ``k`` more writes, dispatch a
-        k-step decode window and start the copy of its tokens to the host."""
+        """Grow every active slot's blocks for ``k`` more writes (paged),
+        dispatch a k-step decode window and start the copy of its tokens to
+        the host."""
         for slot in range(self.ecfg.max_batch):
-            if self.active[slot]:
+            if self.paged and self.active[slot]:
                 self._ensure_slot_blocks(
                     slot, min(int(self._host_len[slot]) + self._inflight_steps
                               + k + 1, self.ecfg.max_seq_len))

@@ -1,7 +1,8 @@
 """The engine's device computations (counterpart of
-``tpu9/serving/graphs.py``): the decode window, one chunked-prefill step,
-the scratch → pool block splice, the pool → scratch prefix gather and the
-fused admission group.
+``tpu9/serving/graphs.py``): the decode window; for the paged engine one
+chunked-prefill step, the scratch → pool block splice, the pool → scratch
+prefix gather and the fused admission group; for the dense engine the
+bucketed prefill and the splice of its KV into a slot's lanes.
 
 The JAX package jit-compiles each of these into one XLA graph and donates
 the pool and scratch buffers; here they run eagerly and write the pool and
@@ -17,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.transformer import decoder_forward
+from ..models.transformer import decoder_forward, init_kv_cache, lm_logits
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
@@ -27,7 +28,7 @@ Params = dict[str, Any]
 
 class GraphFactory:
     """The engine's computations for one (model, engine-config) pair.
-    ``chunk`` is the validated chunked-prefill length."""
+    ``chunk`` is the validated chunked-prefill length (0 = dense mode)."""
 
     def __init__(self, cfg, ecfg, chunk: int, device):
         self.cfg = cfg
@@ -67,6 +68,41 @@ class GraphFactory:
             return last_token, kv_cache, cache_len, torch.stack(toks)
 
         return decode
+
+    # -- dense prefill -------------------------------------------------------
+
+    def prefill_fn(self, bucket: int):
+        """Prefill of one prompt padded to ``bucket`` tokens into a fresh
+        batch-1 cache of ``bucket`` positions (the flash kernel at aligned
+        buckets). Returns the logits at the last real token and the cache
+        [L, 1, bucket, KH, D]. Only that row goes through the output head:
+        the JAX graph computes every row's logits and slices one, which at
+        bucket 2048 would be a [2048, vocab] f32 product made to keep one
+        row."""
+        cfg, rope, device = self.cfg, self.rope, self.device
+
+        @torch.no_grad()
+        def prefill(params, tokens, length: int):
+            cache = init_kv_cache(cfg, 1, bucket, device=device)
+            hidden, cache = decoder_forward(params, tokens, cfg,
+                                            kv_cache=cache, rope=rope,
+                                            return_hidden=True)
+            last = lm_logits(params, hidden[:, length - 1], cfg)[0]
+            return last, cache
+
+        return prefill
+
+    def dense_splice_fn(self, bucket: int):
+        """Copy of a prefill's [L, 1, bucket, ...] k/v into one slot's lanes
+        of the dense [L, B, S, ...] cache, in place (the JAX splice graph
+        donated the cache). Returns the cache's k and v."""
+        @torch.no_grad()
+        def splice(k, v, ck, cv, slot: int):
+            k[:, slot, :bucket] = ck[:, 0, :bucket]
+            v[:, slot, :bucket] = cv[:, 0, :bucket]
+            return k, v
+
+        return splice
 
     # -- paged chunked prefill -----------------------------------------------
 

@@ -4,9 +4,10 @@ the engine is paged and the same quantization knobs, with random weights
 drawn on the device from a seed.
 
 ``<preset>-int8`` or ``quantize="int8"`` serves int8 weight-only
-projections; ``kv_quant="int8"`` stores the paged pool as int8 with
-per-vector scales, auto-sized to the bytes a bf16 pool would take. The two
-knobs are independent; together they are quantized serving end to end.
+projections, on the paged or the dense engine; ``kv_quant="int8"`` stores
+the paged pool as int8 with per-vector scales, auto-sized to the bytes a
+bf16 pool would take. The two knobs are independent; together they are
+quantized serving end to end.
 """
 
 from __future__ import annotations
@@ -65,9 +66,12 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
     ``paged=None`` pages the KV cache whenever block | chunk | max_seq_len
     holds, as the JAX ``load_engine`` does: the chunk is the smallest
     prefill bucket and the block is ``min(kv_block_size, chunk)``.
+    Otherwise (or with ``paged=False``) the engine keeps a dense [B, S]
+    cache and prefills whole bucketed prompts.
     ``prefix_cache_blocks=0`` disables the prefix cache (None = one
-    sequence's worth of blocks). ``quantize`` and ``kv_quant`` are the
-    int8 knobs of the module docstring."""
+    sequence's worth of blocks when paged, 0 when dense). ``quantize`` and
+    ``kv_quant`` are the int8 knobs of the module docstring; int8 weights
+    serve on either engine, the int8 pool only on the paged one."""
     resolve_preset(name, quantize)           # a bad name or mode fails first
     kv_quant = validate_quant_mode(kv_quant, "kv_quant")
     if engine_cfg is not None and kv_quant \
@@ -88,17 +92,15 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
             "kv_quant='int8' needs the paged engine, but the alignment "
             f"invariants rejected paging (block {block}, chunk {chunk}, "
             f"max_seq_len {max_seq_len})")
-    if not paged:
-        raise NotImplementedError(
-            "dense-cache engine (paged=False or unaligned block/chunk): "
-            "ROADMAP queue A11")
     ecfg = engine_cfg or EngineConfig(
         max_batch=max_batch, max_seq_len=max_seq_len,
         prefill_buckets=prefill_buckets, decode_steps=decode_steps,
-        kv_block_size=block, kv_pool_blocks=kv_pool_blocks,
-        prefill_chunk=chunk,
+        kv_block_size=block if paged else 0, kv_pool_blocks=kv_pool_blocks,
+        prefill_chunk=chunk if paged else 0,
+        # an explicit 0 disables the prefix cache; None is the default
         prefix_cache_blocks=prefix_cache_blocks
-        if prefix_cache_blocks is not None else max_seq_len // block,
+        if prefix_cache_blocks is not None
+        else (max_seq_len // block if paged else 0),
         kv_quant=kv_quant)
     params, cfg = build_params(name, seed=seed, device=device,
                                quantize=quantize)

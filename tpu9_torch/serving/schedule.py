@@ -20,7 +20,7 @@ class WindowScheduler:
         if e.active.all():
             return False
         head = None
-        if e._wait_room:
+        if e.paged and e._wait_room:
             head = e._wait_room[0]
         else:
             q = getattr(e._queue, "_queue", None)    # deque peek, no pop
