@@ -10,14 +10,19 @@ Phases, each of which must pass or the script exits non-zero:
 2. build: compiles every CUDA kernel of the main paths from
    ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
    together; one source holds the three decode kernels: bf16 pool, int8
-   pool and contiguous cache);
+   pool and contiguous cache, each a split-KV pass and a combine pass),
+   prints each instance's registers and spills from ``ptxas -v`` and
+   fails if a (G=4, D=128) decode instance spills;
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
    main paths give it: the paged kernels with table entries past every
    prefix pointing at poisoned pool blocks (NaN for bf16; payload 127 with
    NaN scales for int8), the ragged kernel with NaN at every cache
-   position past each length, the flash kernel over causal prefills of
-   128, 512 and 2048 tokens and one non-causal shape; times the kernel,
-   the twin and one library call with CUDA events, beside the bound;
+   position past each length, the decode kernels at B=8 and at B=1 with
+   one 2048-token sequence, the flash kernel over causal prefills of 128,
+   512 and 2048 tokens and one non-causal shape; times the kernel, the
+   twin and one library call with CUDA events, as a host-bound step sees
+   them and on the device alone, and the kernel wrapper's host time per
+   call, beside the bound;
 4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
    (random weights from a seed), ``warmup()``, six concurrent ``generate``
    requests (two share a 512-token prefix), a repeated greedy prompt, and
@@ -50,6 +55,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +69,9 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 L2_FLUSH_BYTES = 256 << 20         # larger than the 50 MB L2
+SPIN_CYCLES = 2_000_000            # about 1 ms of the device's clock
+HOST_SPIN_CYCLES = 50_000_000      # about 25 ms: outlasts HOST_CALLS calls
+HOST_CALLS = 100
 
 
 class SmokeFailure(Exception):
@@ -91,30 +100,82 @@ def phase_card() -> str:
 
 # -- phase 2: build -----------------------------------------------------------
 
+PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
+                         r"(?:NS_)?\d+(Table|Contiguous)E?Li(\d+)ELi(\d+)E")
+# the instances llama3-8b runs (G = 4, D = 128), which must not spill
+NO_SPILL = {("bf16", "Table", 4, 128), ("int8", "Table", 4, 128),
+            ("bf16", "Contiguous", 4, 128)}
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by mangled name."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name]["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
 def phase_build(kernels: list[str]) -> None:
     from tpu9_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s for {kernels} "
           f"({len(logs)} compiled)")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    seen = set()
+    for source, log in logs.items():
+        for name, info in sorted(ptxas_report(log).items()):
+            m = PTXAS_SPLIT.search(name)
+            label = name
+            if m:
+                key = ("bf16" if m.group(1) != "a" else "int8", m.group(2),
+                       int(m.group(3)), int(m.group(4)))
+                label = "split_decode_kernel<{}, {}, G={}, D={}>".format(*key)
+                if key in NO_SPILL:
+                    seen.add(key)
+                    check(info.get("spills") == (0, 0), f"ptxas: {label} "
+                          f"spills {info.get('spills')}")
+            elif "combine_kernel" in name:
+                label = "combine_kernel<D={}>".format(
+                    re.search(r"combine_kernelILi(\d+)E", name).group(1))
+            elif "flash" in name:
+                label = name[:60]
+            print(f"  ptxas {source}: {label}: {info.get('registers')} "
+                  f"registers, spill stores/loads {info.get('spills')}")
+    if "paged_decode_attention" in logs:
+        check(seen == NO_SPILL, f"ptxas reported no (G=4, D=128) instance "
+              f"of {sorted(NO_SPILL - seen)}")
 
 
 # -- phase 3: kernels against their twins -------------------------------------
 
-def time_ms(fn, iters: int = 60) -> float:
-    """Median device time of one call, CUDA events around each launch, with
-    the L2 cache flushed before every launch (a decode step finds each
-    layer's pool cold)."""
+def time_ms(fn, iters: int = 60, hold: bool = False) -> float:
+    """Median time of one call, CUDA events around each call, with the L2
+    cache flushed before every call (a decode step finds each layer's pool
+    cold). The host enqueues the call while the device runs the flush, so
+    where the host takes longer than the flush its enqueue time counts
+    too, as in a host-bound decode step. With ``hold``, a spin kernel keeps
+    the device busy while the host enqueues, so the events time the
+    device's work alone."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if hold:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -123,6 +184,46 @@ def time_ms(fn, iters: int = 60) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_us(fn, rounds: int = 5) -> float:
+    """Host time of one call of ``fn`` in microseconds (a wrapper's checks,
+    allocations and launches): the median over ``rounds`` of the host
+    clock over HOST_CALLS calls, enqueued while a spin kernel holds the
+    device, so that no call waits for it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(HOST_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def measure(kernel, twin, library) -> dict:
+    """The times of a kernel row: the kernel, its twin and the library call
+    with ``time_ms`` as a host-bound step sees them, the kernel and the
+    library call on the device alone, and the kernel wrapper's host time
+    per call."""
+    return {"ms": time_ms(kernel), "device_ms": time_ms(kernel, hold=True),
+            "host_us": host_us(kernel), "plain_ms": time_ms(twin),
+            "library_ms": time_ms(library),
+            "library_device_ms": time_ms(library, hold=True)}
+
+
+def print_times(name: str, label: str, t: dict, bound: tuple[float, str],
+                library: str) -> None:
+    print(f"kernel {name} [{label}]: {t['ms']:.4f} ms (device alone "
+          f"{t['device_ms']:.4f} ms, wrapper host {t['host_us']:.1f} us a "
+          f"call), bound {bound[0]:.5f} ms ({bound[1]}, "
+          f"{bound[0] / t['device_ms']:.1%} of the device time), plain twin "
+          f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms "
+          f"(device alone {t['library_device_ms']:.4f} ms)")
 
 
 def paged_case(batch: int, q_heads: int, kv_heads: int, head_dim: int,
@@ -227,37 +328,46 @@ def wrapper(name: str):
                    paged_attention, name)
 
 
-def kernel_row(name: str, label: str, max_err: float, ms: float,
-               plain_ms: float, bound: tuple[float, str],
-               library_ms: float) -> dict:
+def kernel_row(name: str, label: str, max_err: float, times: dict,
+               bound: tuple[float, str]) -> dict:
     return {"name": name, "route": "cuda", "source": KERNELS[name][1],
             "replaces": KERNELS[name][0], "shape": label,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms}
+            "max_abs_err": max_err, **times, "bound_ms": bound[0],
+            "bound_by": bound[1]}
 
 
-def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
-    """One kernel at one shape: launched once, checked finite over the
-    poisoned blocks and against its twin, then timed beside the twin, one
-    library call and its bound."""
+PAGED_LENS = [1, 127, 128, 129, 1000, 2048, 513, 1777]
+
+
+def check_twin(name: str, label: str, got: torch.Tensor,
+               want: torch.Tensor) -> float:
+    """The decode kernels' check: finite, and within one bf16 ulp of the
+    twin's f32 result rounded to bf16. Both round an f32 result to bf16;
+    results that differ only in f32 summation order (split-KV merges the
+    same sums in another order) round at most one bf16 ulp apart (2^-7
+    relative), and outputs near zero keep an absolute slack of 1e-4."""
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: kernel output "
+          f"not finite (read a block or position past a length?)")
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    check(bool((err <= 2.0 ** -7 * want.abs() + 1e-4).all()),
+          f"{name} {label}: kernel disagrees with its twin (max abs err "
+          f"{max_err})")
+    return max_err
+
+
+def paged_kernel_case(name: str, batch: int, head_dim: int, lens: list[int],
+                      seed: int) -> dict:
+    """The kernel call, its twin and the twin's result, the densified cache
+    for the library call, and the bound, for one paged case."""
     from tpu9_torch.ops import paged_attention as pa
     quant = name.endswith("_quant")
     launcher = wrapper(name)
-    lens = [1, 127, 128, 129, 1000, 2048, 513, 1777]
-    case = paged_case(batch=8, q_heads=32, kv_heads=8, head_dim=head_dim,
+    case = paged_case(batch=batch, q_heads=32, kv_heads=8, head_dim=head_dim,
                       block_s=128, max_blocks=2048 // 128 + 1, lens=lens,
-                      seed=head_dim, quant=quant)
+                      seed=seed, quant=quant)
     q, k, v, table, clen = (case[n] for n in ("q", "k", "v", "table", "lens"))
     scales = (case["ks"], case["vs"]) if quant else ()
-
-    def kernel():
-        return launcher(q, k, v, *scales, table, clen)
-
-    before = launcher.launches
-    got = kernel()
-    torch.cuda.synchronize()
-    check(launcher.launches == before + 1, f"{name} did not launch its kernel")
     # the twin densifies every table entry, so it runs on a copy whose
     # poisoned blocks are zeroed (they are masked either way). For the int8
     # pool it runs on q.float(): it then dequantizes to f32 as the kernel
@@ -278,46 +388,23 @@ def phase_paged_kernel(name: str, label: str, head_dim: int) -> dict:
             return pa.xla_paged_decode_attention(q, clean["k"], clean["v"],
                                                  table, clen)
         dense = [pa.gather_paged(clean[n], table) for n in ("k", "v")]
-    want = twin().to(torch.bfloat16).float()
-    check(bool(torch.isfinite(got).all()),
-          f"{name} {label}: kernel output not finite (read a block past a "
-          f"prefix?)")
-    err = (got.float() - want).abs()
-    # both round an f32 result to bf16; results that differ only in f32
-    # summation order round at most one bf16 ulp apart (2^-7 relative),
-    # and outputs near zero keep an absolute slack of 1e-4
-    limit = 2.0 ** -7 * want.abs() + 1e-4
-    max_err = float(err.max())
-    print(f"kernel {name} [{label}]: max_abs_err {max_err:.3e} (tolerance "
-          f"|err| <= 2^-7*|twin| + 1e-4: one bf16 ulp of rounding an f32 "
-          f"result whose summation order differs)")
-    check(bool((err <= limit).all()), f"{name} {label}: kernel disagrees "
-          f"with its twin (max abs err {max_err})")
-
-    ms = time_ms(kernel)
-    plain_ms = time_ms(twin)
-    library_ms = time_ms(sdpa_over_dense(case, *dense))
-    bound = paged_bound(case, lens)
-    print(f"kernel {name} [{label}]: {ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}, {bound[0] / ms:.1%} of it), plain twin "
-          f"{plain_ms:.4f} ms, sdpa over the dense "
-          f"{'dequantized ' if quant else ''}cache {library_ms:.4f} ms")
-    return kernel_row(name, label, max_err, ms, plain_ms, bound, library_ms)
+    return dict(kernel=lambda: launcher(q, k, v, *scales, table, clen),
+                twin=twin, want=twin().to(torch.bfloat16).float(),
+                library=sdpa_over_dense(case, *dense),
+                bound=paged_bound(case, lens), quant=quant)
 
 
-RAGGED_LENS = [1, 127, 128, 129, 1000, 2048, 513, 1777]
-
-
-def phase_ragged_kernel(label: str, head_dim: int) -> dict:
-    """The ragged decode kernel at B=8 over a contiguous [8, 2048] cache
-    with phase 3's lengths; every cache position at or past a length is
-    NaN, so a read past one shows as a non-finite output. The twin masks
-    by length but multiplies every position, so it runs on a copy whose
-    NaNs are zeroed."""
+def ragged_kernel_case(head_dim: int, lens: list[int], seed: int) -> dict:
+    """The ragged kernel over a contiguous [B, 2048] cache, B = len(lens);
+    every cache position at or past a length is NaN, so a read past one
+    shows as a non-finite output. The twin masks by length but multiplies
+    every position, so it runs on a copy whose NaNs are zeroed. Every
+    length is >= 1, as the engine's are: at length 0 the kernel gives zeros
+    and the twin the mean of v, so the two are not compared there."""
     from tpu9_torch.ops import attention as at
     from tpu9_torch.ops import paged_attention as pa
-    rng = np.random.default_rng(100 + head_dim)
-    b, s, q_heads, kv_heads = 8, 2048, 32, 8
+    rng = np.random.default_rng(seed)
+    b, s, q_heads, kv_heads = len(lens), 2048, 32, 8
 
     def bf16(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
@@ -326,50 +413,65 @@ def phase_ragged_kernel(label: str, head_dim: int) -> dict:
     q = bf16((b, 1, q_heads, head_dim))
     k = bf16((b, s, kv_heads, head_dim))
     v = bf16((b, s, kv_heads, head_dim))
-    for i, n in enumerate(RAGGED_LENS):
+    for i, n in enumerate(lens):
         k[i, n:] = float("nan")
         v[i, n:] = float("nan")
-    clen = torch.tensor(RAGGED_LENS, dtype=torch.int32, device=DEVICE)
+    clen = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     k_clean, v_clean = k.nan_to_num(0.0), v.nan_to_num(0.0)
-
-    def kernel():
-        return pa.ragged_decode_attention(q, k, v, clen)
 
     def twin():
         return at.xla_decode_attention(q, k_clean, v_clean, clen)
-
-    before = pa.ragged_decode_attention.launches
-    got = kernel()
-    torch.cuda.synchronize()
-    check(pa.ragged_decode_attention.launches == before + 1,
-          "ragged_decode_attention did not launch its kernel")
-    check(bool(torch.isfinite(got).all()), f"ragged_decode_attention "
-          f"{label}: kernel output not finite (read past a length?)")
-    # every length is >= 1, as the engine's are: at length 0 the kernel
-    # gives zeros and the twin the mean of v, so the two are not compared
-    # there. Both round an f32 result to bf16 once: the tolerance of the
-    # paged kernels
-    want = twin().float()
-    err = (got.float() - want).abs()
-    max_err = float(err.max())
-    print(f"kernel ragged_decode_attention [{label}]: max_abs_err "
-          f"{max_err:.3e} (tolerance |err| <= 2^-7*|twin| + 1e-4)")
-    check(bool((err <= 2.0 ** -7 * want.abs() + 1e-4).all()),
-          f"ragged_decode_attention {label}: kernel disagrees with its twin "
-          f"(max abs err {max_err})")
-    ms = time_ms(kernel)
-    plain_ms = time_ms(twin)
-    library_ms = time_ms(sdpa_over_dense({"q": q, "lens": clen}, k_clean,
-                                         v_clean))
     # each valid k/v row once, q and out once, the lengths once
-    pos = sum(RAGGED_LENS)
+    pos = sum(lens)
     bound = roofline_ms(2 * pos * kv_heads * head_dim * 2 + 2 * q.numel() * 2
                         + 4 * b, 4 * pos * q_heads * head_dim)
-    print(f"kernel ragged_decode_attention [{label}]: {ms:.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of it), plain "
-          f"twin {plain_ms:.4f} ms, sdpa over the cache {library_ms:.4f} ms")
-    return kernel_row("ragged_decode_attention", label, max_err, ms, plain_ms,
-                      bound, library_ms)
+    return dict(kernel=lambda: pa.ragged_decode_attention(q, k, v, clen),
+                twin=twin, want=twin().float(),
+                library=sdpa_over_dense({"q": q, "lens": clen}, k_clean,
+                                        v_clean),
+                bound=bound, quant=False)
+
+
+def decode_kernel_case(name: str, batch: int, head_dim: int,
+                       lens: list[int]) -> dict:
+    if name == "ragged_decode_attention":
+        return ragged_kernel_case(head_dim, lens,
+                                  seed=100 + head_dim + batch - 8)
+    return paged_kernel_case(name, batch, head_dim, lens,
+                             seed=head_dim + batch - 8)
+
+
+def phase_decode_kernel(name: str, label: str, head_dim: int,
+                        batch: int = 8, lens: list[int] = PAGED_LENS) -> dict:
+    """One decode kernel at one shape: launched once, checked finite over
+    the poisoned blocks (NaN positions) and against its twin, then timed
+    beside the twin, one library call and its bound."""
+    c = decode_kernel_case(name, batch, head_dim, lens)
+    launcher = wrapper(name)
+    before = launcher.launches
+    got = c["kernel"]()
+    torch.cuda.synchronize()
+    check(launcher.launches == before + 1, f"{name} did not launch its kernel")
+    max_err = check_twin(name, label, got, c["want"])
+    print(f"kernel {name} [{label}]: max_abs_err {max_err:.3e} (tolerance "
+          f"|err| <= 2^-7*|twin| + 1e-4: one bf16 ulp of rounding an f32 "
+          f"result whose summation order differs)")
+    times = measure(c["kernel"], c["twin"], c["library"])
+    what = ("the dense dequantized cache" if c["quant"] else "the dense cache"
+            if name != "ragged_decode_attention" else "the cache")
+    print_times(name, label, times, c["bound"], f"sdpa over {what}")
+    return kernel_row(name, label, max_err, times, c["bound"])
+
+
+def print_split_plans() -> None:
+    from tpu9_torch.ops import paged_attention as pa
+    for what, batch, max_blocks, block_s in (
+            ("paged", 8, 17, 128), ("paged", 1, 17, 128),
+            ("contiguous", 8, 8, 256), ("contiguous", 1, 8, 256)):
+        n_splits, bps = pa.split_plan(max_blocks, block_s)
+        print(f"split plan ({what} B={batch} KH=8 MB={max_blocks} "
+              f"BS={block_s}, SPLIT_TOKENS {pa.SPLIT_TOKENS}): {n_splits} "
+              f"splits of {bps} blocks, grid {8 * batch * n_splits} CTAs")
 
 
 def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
@@ -412,22 +514,17 @@ def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
     check(bool(torch.isfinite(got).all()) and bool((err <= limit).all()),
           f"flash_attention {label}: kernel disagrees with its twin (max abs "
           f"err {max_err})")
-    ms = time_ms(kernel)
-    plain_ms = time_ms(twin)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    times = measure(kernel, twin, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True))
     # q, k, v read once and out written once; 4 flops per (q head, dim) of
     # each attended (query, key) pair: T(T+1)/2 of them when causal
     pairs = t * (t + 1) // 2 if causal else t * t
     bound = roofline_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
                         4 * 32 * head_dim * pairs)
-    print(f"kernel flash_attention [{label}]: {ms:.4f} ms, bound "
-          f"{bound[0]:.5f} ms ({bound[1]}, {bound[0] / ms:.1%} of it), plain "
-          f"twin {plain_ms:.4f} ms, sdpa (is_causal, enable_gqa) "
-          f"{library_ms:.4f} ms")
-    return kernel_row("flash_attention", label, max_err, ms, plain_ms, bound,
-                      library_ms)
+    print_times("flash_attention", label, times, bound,
+                "sdpa (is_causal, enable_gqa)")
+    return kernel_row("flash_attention", label, max_err, times, bound)
 
 
 # -- phases 4 to 6: the engines at full width ---------------------------------
@@ -748,21 +845,31 @@ def main() -> int:
         # head_dim and the other prefill buckets are checked and printed
         # beside them
         rows = []
+        print_split_plans()
         for name in ("paged_decode_attention", "paged_decode_attention_quant"):
-            rows.append(phase_paged_kernel(
+            rows.append(phase_decode_kernel(
                 name, "llama3-8b decode B=8 QH=32 KH=8 D=128 BS=128 MB=17",
                 128))
-            phase_paged_kernel(
+            rows.append(phase_decode_kernel(
+                name, "llama3-8b decode B=1 len 2048 QH=32 KH=8 D=128 BS=128 "
+                "MB=17", 128, batch=1, lens=[2048]))
+            phase_decode_kernel(
                 name, "llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17", 64)
         for t in (128, 512):
             phase_flash_kernel(t, 128, causal=True)
         rows.append(phase_flash_kernel(2048, 128, causal=True))
         phase_flash_kernel(2048, 64, causal=True)
         phase_flash_kernel(512, 128, causal=False)
-        rows.append(phase_ragged_kernel(
-            "llama3-8b dense decode B=8 S=2048 QH=32 KH=8 D=128 BS=256", 128))
-        phase_ragged_kernel(
-            "llama-1b dense decode B=8 S=2048 QH=32 KH=8 D=64 BS=256", 64)
+        ragged = "ragged_decode_attention"
+        rows.append(phase_decode_kernel(
+            ragged, "llama3-8b dense decode B=8 S=2048 QH=32 KH=8 D=128 "
+            "BS=256", 128))
+        rows.append(phase_decode_kernel(
+            ragged, "llama3-8b dense decode B=1 len 2048 S=2048 QH=32 KH=8 "
+            "D=128 BS=256", 128, batch=1, lens=[2048]))
+        phase_decode_kernel(
+            ragged, "llama-1b dense decode B=8 S=2048 QH=32 KH=8 D=64 BS=256",
+            64)
         launches = {}
         for kind in ENGINES:
             path_launches, engine = phase_engine(card, kind)

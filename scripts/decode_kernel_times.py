@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time the port's decode kernels (B1 ``paged_decode_attention``, B2
+``paged_decode_attention_quant``, B4 ``ragged_decode_attention``) of the
+``tpu9_torch`` package in ROOT, at ``chip_smoke.py`` phase 3's shapes and
+with its timing method, so that two checkouts' kernels are timed the same
+way, in turns, in one run on one card.
+
+    python3 scripts/decode_kernel_times.py [ROOT] [--candidates]
+
+ROOT (default: this checkout) holds the ``tpu9_torch`` whose kernels are
+built and timed; the cases, checks and timing are this checkout's
+``chip_smoke.py``. Prints the card, then one line per kernel and shape,
+each checked against its twin first: the time as a host-bound step sees it
+and on the device alone, and the wrapper's host time per call.
+
+``--candidates`` (a split-KV ``tpu9_torch`` only) instead checks and times
+on the device, at B=8, B=32 and B=1, each kernel under every split size of
+``CANDIDATES``, with the package's ``SPLIT_TOKENS`` set to it for the run.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+KERNELS = ("paged_decode_attention", "paged_decode_attention_quant",
+           "ragged_decode_attention")
+# positions a split: 1, 2 and 4 blocks of 128, and one split a sequence
+CANDIDATES = (128, 256, 512, 1 << 20)
+
+
+def times(cs, shapes) -> None:
+    for name in KERNELS:
+        for label, (batch, lens) in shapes.items():
+            c = cs.decode_kernel_case(name, batch, 128, lens)
+            cs.check_twin(name, label, c["kernel"](), c["want"])
+            print(f"decode kernel {name} [{label} D=128]: "
+                  f"{cs.time_ms(c['kernel']):.4f} ms, device alone "
+                  f"{cs.time_ms(c['kernel'], hold=True):.4f} ms, wrapper host "
+                  f"{cs.host_us(c['kernel']):.1f} us a call")
+
+
+def candidates(cs, shapes, card: str) -> None:
+    from tpu9_torch.ops import paged_attention as pa
+    kept = pa.SPLIT_TOKENS
+    try:
+        for name in KERNELS:
+            # table columns and block size: phase 3's
+            mb, block_s = ((8, 256) if name == "ragged_decode_attention"
+                           else (17, 128))
+            for label, (batch, lens) in shapes.items():
+                c = cs.decode_kernel_case(name, batch, 128, lens)
+                out = []
+                for tokens in CANDIDATES:
+                    pa.SPLIT_TOKENS = tokens
+                    plan = pa.split_plan(mb, block_s)
+                    cs.check_twin(name, f"{label} split plan {plan}",
+                                  c["kernel"](), c["want"])
+                    out.append(f"{plan[0]} splits x {plan[1]} blocks "
+                               f"{cs.time_ms(c['kernel'], hold=True):.4f} ms")
+                print(f"split candidates {name} [{label} D=128, device "
+                      f"alone]: {'; '.join(out)} ({card})")
+    finally:
+        pa.SPLIT_TOKENS = kept
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("decode_kernel_times: needs a CUDA device", file=sys.stderr)
+        return 1
+    args = [a for a in sys.argv[1:] if a != "--candidates"]
+    root = Path(args[0]).resolve() if args else HERE
+    sys.path.insert(0, str(root))           # ROOT's tpu9_torch comes first
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import tpu9_torch
+    from tpu9_torch.ops import _build
+    card = cs.phase_card()
+    print(f"kernels of {Path(tpu9_torch.__file__).parent} ({card})")
+    _build.build_all(["paged_decode_attention"])
+    shapes = {"B=8": (8, cs.PAGED_LENS), "B=1 len 2048": (1, [2048])}
+    if "--candidates" in sys.argv[1:]:
+        shapes["B=32"] = (32, cs.PAGED_LENS * 4)
+        candidates(cs, shapes, card)
+    else:
+        times(cs, shapes)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,6 +55,27 @@ PAGED_ONLY = {"kv_blocks_used", "kv_blocks_free", "kv_blocks_reserved",
               "kv_block_size", "kv_quant", "prefix_cache"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_numerics():
+    """The process-wide numerics settings of both libraries, pinned for
+    this module's comparisons and restored after: f32 matmuls at full
+    precision on both sides (JAX's default precision lets a backend pick
+    a faster, less precise dot algorithm) and torch's intra-op thread
+    count, which sets the split of its reductions. Under the xdist run this
+    module once saw prefill logits 2.0e-4 apart (79 of 16,384) where they
+    sit 2.0e-6 apart, as the first file of its worker; that run was not
+    reproduced and its cause is unknown, so fixing the settings it could
+    have read is a guess that may change nothing."""
+    threads = torch.get_num_threads()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_num_threads(2)
+    torch.set_float32_matmul_precision("highest")
+    with jax.default_matmul_precision("highest"):
+        yield
+    torch.set_num_threads(threads)
+    torch.set_float32_matmul_precision(precision)
+
+
 def _rand(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
 

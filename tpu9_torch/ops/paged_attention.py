@@ -4,13 +4,16 @@ of ``tpu9/ops/paged_attention.py``).
 ``paged_decode_attention`` (bf16 pool), ``paged_decode_attention_quant``
 (int8 pool with f32 per-vector scales) and ``ragged_decode_attention``
 (contiguous bf16 cache) wrap the three instances of the hand-written CUDA
-kernel ``tpu9_torch/csrc/paged_decode_attention.cu``, the port of the TPU
-kernels of the same names. On a CUDA tensor each launches its kernel or
-raises; on a CPU tensor it computes the kernel's plain twin:
-``xla_paged_decode_attention`` (gather the table rows densely, dequantize
-an int8 pool, then a masked softmax) for the pool, ``xla_decode_attention``
-for the contiguous cache. The twins are also the kernels' oracles in the
-tests and in ``chip_smoke.py``.
+kernels ``tpu9_torch/csrc/paged_decode_attention.cu``, the port of the TPU
+kernels of the same names. Each call launches two kernels: a split-KV pass
+over a grid of (kv head, sequence, split), whose plan ``split_plan`` takes
+from the shapes alone, and a combine pass that merges each split's partial
+softmax state (``merge_partials`` is its plain twin). On a CUDA tensor each
+wrapper launches them or raises; on a CPU tensor it computes the plain
+twin: ``xla_paged_decode_attention`` (gather the table rows densely,
+dequantize an int8 pool, then a masked softmax) for the pool,
+``xla_decode_attention`` for the contiguous cache. The twins are also the
+kernels' oracles in the tests and in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 MAX_BLOCK_S = 1024
 RAGGED_BLOCK_S = 256          # the JAX ragged kernel's default block_s
+# cached positions a split CTA takes at least: the best of 128, 256 and
+# 512 timed on the card (PERF.md §6)
+SPLIT_TOKENS = 128
 
 
 def gather_paged(pool: torch.Tensor, block_table: torch.Tensor,
@@ -61,6 +67,39 @@ def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     k = gather_paged(k_pool, block_table, k_scale, q.dtype)
     v = gather_paged(v_pool, block_table, v_scale, q.dtype)
     return xla_decode_attention(q, k, v, cache_len)
+
+
+def split_plan(max_blocks: int, block_s: int) -> tuple[int, int]:
+    """``(n_splits, blocks_per_split)`` of the split-KV grid (kv_heads,
+    batch, n_splits): split s takes table columns [s * bps, (s + 1) * bps)
+    of every sequence, ``SPLIT_TOKENS`` positions or one block if that is
+    more, and the splits cover all ``max_blocks`` columns. It reads the
+    shapes, never the lengths, so a launch needs no host read of
+    ``cache_len`` and can be captured in a CUDA graph."""
+    bps = min(max_blocks, max(1, -(-SPLIT_TOKENS // block_s)))
+    return -(-max_blocks // bps), bps
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   cache_len: torch.Tensor, block_s: int,
+                   blocks_per_split: int) -> torch.Tensor:
+    """Plain twin of the combine kernel: m, l [B, QH, NS] and acc
+    [B, QH, NS, D] are each split's running max, sum and unnormalised
+    output in f32; only the ceil(ceil(len/BS)/bps) splits of a sequence
+    that hold positions are merged: m* = max m_i, out = sum e^(m_i - m*)
+    acc_i / max(sum e^(m_i - m*) l_i, 1e-30). Returns [B, 1, QH, D] f32;
+    length 0 gives zeros."""
+    from .attention import NEG_INF
+    n_splits = m.shape[-1]
+    blocks = -(-cache_len.long().clamp(min=0) // block_s)
+    used = -(-blocks // blocks_per_split)                          # [B]
+    dead = (torch.arange(n_splits, device=m.device)
+            >= used[:, None])[:, None, :]                          # [B, 1, NS]
+    m = m.masked_fill(dead, NEG_INF)
+    w = torch.exp(m - m.amax(-1, keepdim=True)).masked_fill(dead, 0.0)
+    num = (w[..., None] * acc.masked_fill(dead[..., None], 0.0)).sum(2)
+    den = (w * l.masked_fill(dead, 0.0)).sum(2).clamp(min=1e-30)
+    return (num / den[..., None])[:, None]
 
 
 def _instance_supports(q_heads: int, kv_heads: int, head_dim: int,
@@ -127,6 +166,21 @@ def check_launch_layout(tensors) -> None:
         raise ValueError("q, k and v must be 16-byte aligned")
 
 
+def _plan_and_scratch(q, max_blocks: int, block_s: int):
+    """The split plan for these shapes, and one new f32 buffer for the
+    partials that the split pass writes and the combine pass reads: each
+    split's unnormalised output [B, QH, NS, D], then its running max and
+    sum [B, QH, NS, 2]. Returns the plan, the buffer (held by the caller
+    until both kernels are enqueued) and the two parts' addresses."""
+    batch, _, q_heads, head_dim = q.shape
+    n_splits, bps = split_plan(max_blocks, block_s)
+    rows = batch * q_heads * n_splits
+    scratch = torch.empty(rows * (head_dim + 2), dtype=torch.float32,
+                          device=q.device)
+    base = scratch.data_ptr()
+    return n_splits, bps, scratch, (base, base + 4 * rows * head_dim)
+
+
 def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
             v_scale=None) -> torch.Tensor:
     """Validate the operands, then launch the bf16 instance, or the int8
@@ -137,6 +191,7 @@ def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
         raise ValueError(f"{name} kernel needs {why}")
     batch, _, q_heads, head_dim = q.shape
     _, block_s, kv_heads, _ = k_pool.shape
+    max_blocks = block_table.shape[1]
     if not (k_pool.shape == v_pool.shape and v_pool.dtype == k_pool.dtype):
         raise ValueError("k_pool and v_pool differ in shape or dtype")
     scales = () if k_scale is None else (k_scale, v_scale)
@@ -149,11 +204,13 @@ def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
     if block_table.dtype != torch.int32 or cache_len.dtype != torch.int32:
         raise ValueError("block_table and cache_len must be int32")
     check_launch_layout((q, k_pool, v_pool, *scales, block_table, cache_len))
+    n_splits, bps, scratch, parts = _plan_and_scratch(q, max_blocks, block_s)
     out = torch.empty_like(q)
-    shape = (batch, q_heads, kv_heads, head_dim, block_s, block_table.shape[1],
-             head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    shape = (batch, q_heads, kv_heads, head_dim, block_s, max_blocks,
+             n_splits, bps, head_dim ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, *scales, block_table,
-                                   cache_len, out)]
+                                   cache_len, out)] + list(parts)
     rc = _kernel_fn("bf16" if k_scale is None else "int8")(*ptrs, *shape)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -177,23 +234,25 @@ def _launch_ragged(q, k_cache, v_cache, cache_len, block_s: int
         raise ValueError(f"cache_len must be int32 of shape ({batch},), got "
                          f"{cache_len.dtype} {tuple(cache_len.shape)}")
     check_launch_layout((q, k_cache, v_cache, cache_len))
+    n_splits, bps, scratch, parts = _plan_and_scratch(q, s_max // block_s,
+                                                      block_s)
     out = torch.empty_like(q)
     rc = _kernel_fn("ragged")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), batch, q_heads, kv_heads,
-        head_dim, block_s, s_max, head_dim ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        cache_len.data_ptr(), out.data_ptr(), *parts,
+        batch, q_heads, kv_heads, head_dim, block_s, s_max, n_splits, bps,
+        head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: "
                            f"cudaError {rc}")
     return out
 
 
-# each instance's C entry and its number of pointer operands; all take six
-# ints, the scale and the stream after them
-_ENTRIES = {"bf16": ("tpu9_paged_decode_attention_bf16", 6),
-            "int8": ("tpu9_paged_decode_attention_int8", 8),
-            "ragged": ("tpu9_ragged_decode_attention_bf16", 5)}
+# each instance's C entry and its number of pointer operands (the last two
+# the partials); all take eight ints, the scale and the stream after them
+_ENTRIES = {"bf16": ("tpu9_paged_decode_attention_bf16", 8),
+            "int8": ("tpu9_paged_decode_attention_int8", 10),
+            "ragged": ("tpu9_ragged_decode_attention_bf16", 7)}
 
 
 @functools.cache
@@ -202,7 +261,7 @@ def _kernel_fn(instance: str):
     from ._build import load
     symbol, n_ptrs = _ENTRIES[instance]
     fn = getattr(load(KERNEL), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -218,9 +277,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     a physical pool block (entries past the valid prefix are never read);
     cache_len [B] valid tokens incl. the current one. Returns [B,1,QH,D].
 
-    A CUDA ``q`` launches the kernel (``paged_decode_attention.launches``
-    counts each launch) or raises if the kernel cannot take the operands;
-    a CPU ``q`` computes the plain twin."""
+    A CUDA ``q`` launches the split and combine kernels
+    (``paged_decode_attention.launches`` counts each call) or raises if the
+    kernels cannot take the operands; a CPU ``q`` computes the plain
+    twin."""
     if q.device.type == "cpu":
         return xla_paged_decode_attention(q, k_pool, v_pool, block_table,
                                           cache_len)
@@ -244,9 +304,9 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
     absmax scale per (token, head) vector, ``ops.quant.quantize_kv``). The
     kernel dequantizes in registers, in f32.
 
-    A CUDA ``q`` launches the int8 kernel
-    (``paged_decode_attention_quant.launches`` counts each launch) or
-    raises; a CPU ``q`` computes the plain twin."""
+    A CUDA ``q`` launches the int8 split kernel and the combine kernel
+    (``paged_decode_attention_quant.launches`` counts each call) or raises;
+    a CPU ``q`` computes the plain twin."""
     if q.device.type == "cpu":
         return xla_paged_decode_attention(q, k_pool, v_pool, block_table,
                                           cache_len, k_scale, v_scale)
@@ -273,8 +333,9 @@ def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ceil(len/block_s) blocks of each sequence are read, so positions >= len
     may hold anything.
 
-    A CUDA ``q`` launches the kernel (``ragged_decode_attention.launches``
-    counts each launch) or raises if the kernel cannot take the operands;
+    A CUDA ``q`` launches the split and combine kernels
+    (``ragged_decode_attention.launches`` counts each call) or raises if
+    the kernels cannot take the operands;
     a CPU ``q`` computes the plain twin ``xla_decode_attention``. The two
     agree for len >= 1; at len 0 the kernel gives zeros where the twin's
     softmax over all-masked logits gives the mean of v."""
