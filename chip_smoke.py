@@ -10,16 +10,20 @@ Phases, each of which must pass or the script exits non-zero:
 2. build: compiles every CUDA kernel of the main paths from
    ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
    together; one source holds the three decode kernels: bf16 pool, int8
-   pool and contiguous cache, each a split-KV pass and a combine pass),
-   prints each instance's registers and spills from ``ptxas -v`` and
-   fails if a (G=4, D=128) decode instance spills;
+   pool and contiguous cache, each a split-KV pass and a combine pass;
+   the other the flash kernel's four instances, D 64 and 128, causal or
+   not), prints each instance's registers and spills from ``ptxas -v``
+   and any ``ptxas`` note on serialised ``wgmma`` products, and fails if a
+   (G=4, D=128) decode instance or a D=128 flash instance spills;
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
    main paths give it: the paged kernels with table entries past every
    prefix pointing at poisoned pool blocks (NaN for bf16; payload 127 with
    NaN scales for int8), the ragged kernel with NaN at every cache
    position past each length, the decode kernels at B=8 and at B=1 with
    one 2048-token sequence, the flash kernel over causal prefills of 128,
-   512 and 2048 tokens and one non-causal shape; times the kernel, the
+   512 and 2048 tokens, one non-causal shape, and B=2 sequences of 320
+   tokens (not a multiple of its 128-row tiles), causal and not, read
+   from buffers whose sequence after the last is NaN; times the kernel, the
    twin and one library call with CUDA events, as a host-bound step sees
    them and on the device alone, and the kernel wrapper's host time per
    call, beside the bound;
@@ -102,9 +106,12 @@ def phase_card() -> str:
 
 PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
                          r"(?:NS_)?\d+(Table|Contiguous)E?Li(\d+)ELi(\d+)E")
+PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])E")
 # the instances llama3-8b runs (G = 4, D = 128), which must not spill
 NO_SPILL = {("bf16", "Table", 4, 128), ("int8", "Table", 4, 128),
             ("bf16", "Contiguous", 4, 128)}
+# the flash instances of llama3-8b's prefill (D = 128, causal or not)
+FLASH_NO_SPILL = {(128, True), (128, False)}
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -133,10 +140,15 @@ def phase_build(kernels: list[str]) -> None:
     logs = _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s for {kernels} "
           f"({len(logs)} compiled)")
-    seen = set()
+    seen, flash_seen = set(), set()
     for source, log in logs.items():
+        for line in log.splitlines():
+            # warnings, and ptxas's notes on serialised wgmma products
+            if "warning" in line.lower() or "wgmma" in line:
+                print(f"  nvcc {source}: {line.strip()}")
         for name, info in sorted(ptxas_report(log).items()):
             m = PTXAS_SPLIT.search(name)
+            f = PTXAS_FLASH.search(name)
             label = name
             if m:
                 key = ("bf16" if m.group(1) != "a" else "int8", m.group(2),
@@ -149,13 +161,22 @@ def phase_build(kernels: list[str]) -> None:
             elif "combine_kernel" in name:
                 label = "combine_kernel<D={}>".format(
                     re.search(r"combine_kernelILi(\d+)E", name).group(1))
-            elif "flash" in name:
-                label = name[:60]
+            elif f:
+                key = (int(f.group(1)), f.group(2) == "1")
+                label = "flash_kernel<D={}, {}>".format(
+                    key[0], "causal" if key[1] else "non-causal")
+                if key in FLASH_NO_SPILL:
+                    flash_seen.add(key)
+                    check(info.get("spills") == (0, 0), f"ptxas: {label} "
+                          f"spills {info.get('spills')}")
             print(f"  ptxas {source}: {label}: {info.get('registers')} "
                   f"registers, spill stores/loads {info.get('spills')}")
     if "paged_decode_attention" in logs:
         check(seen == NO_SPILL, f"ptxas reported no (G=4, D=128) instance "
               f"of {sorted(NO_SPILL - seen)}")
+    if "flash_attention" in logs:
+        check(flash_seen == FLASH_NO_SPILL, f"ptxas reported no D=128 flash "
+              f"instance of {sorted(FLASH_NO_SPILL - flash_seen)}")
 
 
 # -- phase 3: kernels against their twins -------------------------------------
@@ -474,6 +495,41 @@ def print_split_plans() -> None:
               f"splits of {bps} blocks, grid {8 * batch * n_splits} CTAs")
 
 
+def flash_limit(want: torch.Tensor, v: torch.Tensor, q_heads: int,
+                causal: bool) -> torch.Tensor:
+    """The flash kernel's tolerance against its twin's result ``want``
+    [B, T, QH, D] (f32 softmax and sums, rounded to bf16 once), for T = S.
+    The kernel rounds each probability to bf16 for the PV product (a
+    relative error of at most 2^-9 each, on weights that sum to 1): up to
+    2^-9 * max|v| over the keys a row attends, on top of one bf16 ulp of
+    the rounded result (2^-7 relative) and 1e-4 near zero."""
+    group = q_heads // v.shape[2]
+    vmax = v.float().abs().amax(-1).repeat_interleave(group, dim=2)  # [B,S,QH]
+    vmax = vmax.cummax(dim=1).values if causal \
+        else vmax.amax(dim=1, keepdim=True)
+    return 2.0 ** -7 * want.abs() + 2.0 ** -9 * vmax[..., None] + 1e-4
+
+
+def check_flash(label: str, got: torch.Tensor, want: torch.Tensor,
+                v: torch.Tensor, causal: bool) -> float:
+    """Finite, and within ``flash_limit`` of the twin's result."""
+    limit = flash_limit(want, v, got.shape[2], causal)
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    print(f"kernel flash_attention [{label}]: max_abs_err {max_err:.3e} "
+          f"(tolerance |err| <= 2^-7*|twin| + 2^-9*max|v attended| + 1e-4)")
+    check(bool(torch.isfinite(got).all()) and bool((err <= limit).all()),
+          f"flash_attention {label}: kernel disagrees with its twin (max abs "
+          f"err {max_err})")
+    return max_err
+
+
+# (T = S, head_dim, causal): llama3-8b's prefill buckets, the llama-1b
+# head_dim at the longest, and one non-causal shape
+FLASH_SHAPES = ((128, 128, True), (512, 128, True), (2048, 128, True),
+                (2048, 64, True), (512, 128, False))
+
+
 def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
     """The flash kernel at one prefill shape of llama3-8b (B=1, QH 32,
     KH 8) with T = S = ``t``, against ``xla_attention``."""
@@ -497,23 +553,7 @@ def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
     torch.cuda.synchronize()
     check(at.flash_attention.launches == before + 1,
           "flash_attention did not launch its kernel")
-    want = twin().float()          # f32 softmax and sums, rounded to bf16 once
-    # the kernel rounds each probability to bf16 for the PV product (a
-    # relative error of at most 2^-9 each, on weights that sum to 1): up to
-    # 2^-9 * max|v| over the keys a row attends, on top of one bf16 ulp of
-    # the rounded result (2^-7 relative) and 1e-4 near zero
-    group = q.shape[2] // v.shape[2]
-    vmax = v.float().abs().amax(-1).repeat_interleave(group, dim=2)  # [1,S,QH]
-    vmax = vmax.cummax(dim=1).values if causal \
-        else vmax.amax(dim=1, keepdim=True)
-    limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * vmax[..., None] + 1e-4
-    err = (got.float() - want).abs()
-    max_err = float(err.max())
-    print(f"kernel flash_attention [{label}]: max_abs_err {max_err:.3e} "
-          f"(tolerance |err| <= 2^-7*|twin| + 2^-9*max|v attended| + 1e-4)")
-    check(bool(torch.isfinite(got).all()) and bool((err <= limit).all()),
-          f"flash_attention {label}: kernel disagrees with its twin (max abs "
-          f"err {max_err})")
+    max_err = check_flash(label, got, twin().float(), v, causal)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     times = measure(kernel, twin, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True))
@@ -525,6 +565,33 @@ def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
     print_times("flash_attention", label, times, bound,
                 "sdpa (is_causal, enable_gqa)")
     return kernel_row("flash_attention", label, max_err, times, bound)
+
+
+def phase_flash_tails(causal: bool, batch: int = 2, t: int = 320) -> float:
+    """The flash kernel at T = S = 320 (a multiple of 64, not of the
+    kernel's 128-row tiles) over ``batch`` sequences, D=128, QH 32, KH 8.
+    q, k and v are the leading ``batch`` sequences of buffers that hold
+    one more, all NaN: a tile that read past the last sequence would put
+    NaN in the output (a masked key still multiplies its v row by 0), and
+    one that read sequence 1's rows for sequence 0's tail would disagree
+    with the twin."""
+    from tpu9_torch.ops import attention as at
+    label = (f"tails B={batch} T=S={t} QH=32 KH=8 D=128 "
+             f"{'causal' if causal else 'non-causal'}, NaN sequence after")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7 + int(causal))
+    bufs = [torch.randn((batch + 1, t, h, 128), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16) for h in (32, 8, 8)]
+    for buf in bufs:
+        buf[batch] = float("nan")
+    q, k, v = (buf[:batch] for buf in bufs)
+    before = at.flash_attention.launches
+    got = at.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(at.flash_attention.launches == before + 1,
+          "flash_attention did not launch its kernel")
+    return check_flash(label, got, at.xla_attention(q, k, v, causal=causal
+                                                    ).float(), v, causal)
 
 
 # -- phases 4 to 6: the engines at full width ---------------------------------
@@ -855,11 +922,12 @@ def main() -> int:
                 "MB=17", 128, batch=1, lens=[2048]))
             phase_decode_kernel(
                 name, "llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17", 64)
-        for t in (128, 512):
-            phase_flash_kernel(t, 128, causal=True)
-        rows.append(phase_flash_kernel(2048, 128, causal=True))
-        phase_flash_kernel(2048, 64, causal=True)
-        phase_flash_kernel(512, 128, causal=False)
+        for shape in FLASH_SHAPES:
+            row = phase_flash_kernel(*shape)
+            if shape == (2048, 128, True):
+                rows.append(row)
+        for causal in (True, False):
+            phase_flash_tails(causal)
         ragged = "ragged_decode_attention"
         rows.append(phase_decode_kernel(
             ragged, "llama3-8b dense decode B=8 S=2048 QH=32 KH=8 D=128 "

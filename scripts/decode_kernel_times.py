@@ -5,7 +5,7 @@
 with its timing method, so that two checkouts' kernels are timed the same
 way, in turns, in one run on one card.
 
-    python3 scripts/decode_kernel_times.py [ROOT] [--candidates]
+    python3 scripts/decode_kernel_times.py [ROOT] [--candidates | --flash]
 
 ROOT (default: this checkout) holds the ``tpu9_torch`` whose kernels are
 built and timed; the cases, checks and timing are this checkout's
@@ -16,6 +16,10 @@ and on the device alone, and the wrapper's host time per call.
 ``--candidates`` (a split-KV ``tpu9_torch`` only) instead checks and times
 on the device, at B=8, B=32 and B=1, each kernel under every split size of
 ``CANDIDATES``, with the package's ``SPLIT_TOKENS`` set to it for the run.
+
+``--flash`` instead checks and times ROOT's flash kernel (B3
+``flash_attention``) at every shape of ``chip_smoke.FLASH_SHAPES``, beside
+SDPA on the same inputs (``chip_smoke.phase_flash_kernel``).
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("decode_kernel_times: needs a CUDA device", file=sys.stderr)
         return 1
-    args = [a for a in sys.argv[1:] if a != "--candidates"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     root = Path(args[0]).resolve() if args else HERE
     sys.path.insert(0, str(root))           # ROOT's tpu9_torch comes first
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -83,6 +87,11 @@ def main() -> int:
     from tpu9_torch.ops import _build
     card = cs.phase_card()
     print(f"kernels of {Path(tpu9_torch.__file__).parent} ({card})")
+    if "--flash" in sys.argv[1:]:
+        _build.build_all(["flash_attention"])
+        for shape in cs.FLASH_SHAPES:
+            cs.phase_flash_kernel(*shape)
+        return 0
     _build.build_all(["paged_decode_attention"])
     shapes = {"B=8": (8, cs.PAGED_LENS), "B=1 len 2048": (1, [2048])}
     if "--candidates" in sys.argv[1:]:

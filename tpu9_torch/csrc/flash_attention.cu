@@ -9,83 +9,230 @@
 //   k/v  [B, S, KH, D]   bf16, S a multiple of 64, KH divides QH
 //   out  [B, T, QH, D]   bf16
 //
-// All three are read in their own layout through row strides (QH*D and
-// KH*D elements between tokens): no transposed copy is made. Query head h
-// reads kv head h / (QH/KH).
+// All three are read in their own layout: no transposed copy is made.
+// Query head h reads kv head h / (QH/KH).
 //
-// What bounds it: at the prefill lengths of the dense engine (T = S = 128,
-// 512, 2048; QH 32, KH 8, D 128) the tensor-core operations bound it from
-// T = 2048 on (4*D*QH*T(T+1)/2 flops at 989 TFLOP/s against q, k, v and out
-// once at 3.35 TB/s) and the bytes below that. So the design keeps the
-// two products on the tensor cores, keeps the scores and the probabilities
-// out of device memory, and reads each k/v tile once per CTA:
+// What bounds it: at the dense engine's prefill buckets (T = S = 128, 512,
+// 2048; QH 32, KH 8, D 128) the tensor-core operations from T = 2048 on
+// (4*D*QH*T(T+1)/2 flops at 989 TFLOP/s against q, k, v and out once at
+// 3.35 TB/s), the bytes below that. The design is FlashAttention-3's shape:
 //
-// - The TPU kernel carries the softmax state across the sequential k axis
-//   of its grid in VMEM; CUDA blocks run in no order, so here one CTA owns
-//   one (q tile of 64 rows, q head, sequence) and walks the k/v tiles in a
-//   loop, with the running max, sum and output in registers.
-// - 4 warps x 16 query rows. QK^T and PV are mma.sync.m16n8k16 bf16 -> f32
-//   (FA2's shape). Operand fragments come from shared memory through
-//   ldmatrix (.trans for V); rows are padded by 8 elements so the 8 rows of
-//   one ldmatrix fall in distinct banks.
-// - The k/v tiles (64 rows) are double-buffered in shared memory: cp.async
-//   copies tile j+1 while tile j is computed.
-// - The scale is applied to the f32 scores (folded with log2(e) for exp2);
-//   the probabilities are rounded to bf16 for the PV product, the row sums
+// - A unit of work is one (128-row q tile, q head, sequence): its CTA walks
+//   the k/v tiles of 128 keys in a loop, with the running max, sum and
+//   output in registers. CUDA blocks run in no order, so the loop takes the
+//   place of the TPU kernel's sequential k grid axis and its VMEM scratch.
+// - The grid is persistent: one CTA an SM, each taking its units from the
+//   heaviest-first order in rounds (one place a round, from the other end
+//   in odd rounds, so that short causal units even out long ones). The
+//   producer loads the next unit's q tile and first k/v tiles while the
+//   consumers finish this one: 0.0805-0.0809 -> 0.0754 ms at causal
+//   T=2048, D=128, D=64 0.0573 -> 0.0537-0.0541.
+// - Both products are wgmma, the only path to the tensor cores' full rate
+//   on this card (mma.sync is not). S = Q K^T is m64n128k16 with both
+//   operands in shared memory (K stored [keys, D] is the K-major B
+//   operand); O += P V takes P from registers, where the f32 score fragment
+//   converts to the bf16 A fragment in place, and V stored [keys, D] as the
+//   MN-major ("transposed") B operand.
+// - Shared-memory reads: a warpgroup's four warps read each k and v tile
+//   once, together, where the mma.sync design had every warp ldmatrix the
+//   whole tile for its own 16 rows.
+// - Loads: warpgroup 0 is a producer that gives its registers up
+//   (setmaxnreg.dec) while one of its threads issues TMA loads: the q tile
+//   once, then k and v tiles into rings of 2 stages, each stage guarded by
+//   a "full" mbarrier (TMA transaction bytes) and an "empty" one (one
+//   arrival per consumer warp once its product has read the stage). No
+//   consumer thread spends an instruction or a register on a load.
+// - Overlap: warpgroups 1 and 2 are the consumers (setmaxnreg.inc), 64 q
+//   rows each. Each issues Q K_j^T and P_{j-1} V_{j-1} together, with the
+//   output's rescale between the two (FlashAttention-3's order), and the
+//   two consumers take turns to issue (named barriers), so that one's
+//   softmax runs under the other's products. The turns: 0.0816 -> 0.0805
+//   ms at causal T=2048, D=128, and 0.0841 -> 0.0811 in another call. The
+//   rescale's place: D=64 0.0587 -> 0.0572, D=128 level. Issuing the two
+//   products together was timed only before the softmax below, level with
+//   issuing them apart; the later levers were built and timed on it. Inside
+//   one warpgroup the softmax does not overlap its own P V: ptxas puts the
+//   wait for that product above the softmax (forcing the order behind a
+//   branch made it serialise every product for registers).
+// - The softmax: row maxima of the raw scores, the scale and log2(e)
+//   folded into one FMA per score, exp2 on the MUFU unit (ex2.approx.ftz),
+//   masks in their own pass on the tiles that cross the diagonal or S:
+//   0.1098 -> 0.0818 ms (the MUFU exp2 alone: 0.1042).
+// - Tiles land 128-byte swizzled: a D=128 row is 256 bytes, so each tile
+//   is D/64 panels of [rows][64] bf16, one TMA box each, and the wgmma
+//   descriptors step through the panels (K-major: 32 bytes a k-step inside
+//   a panel; MN-major: the panel stride is the leading byte offset).
+// - The tensor maps are 4-D, (D, heads, sequence, batch), so the rows of a
+//   tile past T or S are zero-filled by TMA and never come from the next
+//   sequence; keys past S are masked to -inf explicitly (a zero key scores
+//   0), and q rows past T are not stored.
+// - The probabilities are rounded to bf16 for the PV product, the row sums
 //   stay f32. Each p then carries a relative error of at most 2^-9.
-// - Causal: a q tile stops at the diagonal tile and only tiles crossing the
-//   diagonal are masked. The q tiles are the slowest grid axis and are
-//   scanned heaviest-first, so the last wave is made of short tiles.
+// - Causal: a q tile stops at the diagonal tile, and only that tile is
+//   masked. In the order of the units the q tiles come heaviest first, and
+//   the q heads of one kv head are neighbours, so that their k/v tiles are
+//   read from L2.
 //
-// Not done yet (later perf work): wgmma and TMA, a persistent schedule,
-// head_dim 256.
+// Times: device alone on one H100 80GB HBM3 at 700 W, chip_smoke.time_ms
+// as scripts/decode_kernel_times.py --flash uses it, each variant built
+// from a copy of this package (PERF.md section 6).
+// Not done: head_dim 256 (ROADMAP A3).
 
+#include <cuda.h>   // CUtensorMap and its encoder's types; the encoder itself
+                    // comes through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;            // q rows per CTA, k/v rows per tile
+constexpr int kBlockM = 128;         // q rows per CTA, 64 per consumer warpgroup
+constexpr int kBlockN = 128;         // keys per k/v tile
+constexpr int kStages = 2;           // k/v ring
+constexpr int kThreads = 384;        // producer warpgroup + 2 consumer warpgroups
+constexpr int kPanel = 64;           // bf16 columns of one 128-byte swizzled panel
+constexpr int kRowBytes = 128;       // bytes of one panel row
 constexpr float kNegInf = -1e30f;    // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  // shared memory: the q tile, then the k and v rings, then the mbarriers;
+  // every tile starts on a 1024-byte boundary (one 128-byte swizzle atom is
+  // 8 rows of 128 bytes)
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kKVBytes = kBlockN * D * 2;      // one k (or v) stage
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes; // q full/empty, full/empty per k and v stage
+  static constexpr int kBytes = kBars + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// -- mbarriers and TMA --------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// c += a * b for one m16n8k16 tile: a row-major 16x16, b "col" 16x8
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- wgmma --------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// returns once at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products (the asm statements above do not name them).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor for a 128-byte swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout type 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+
+#define TPU9_F8(d, i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TPU9_F32(d, i) TPU9_F8(d, i), TPU9_F8(d, i + 8), TPU9_F8(d, i + 16), TPU9_F8(d, i + 24)
+
+#define TPU9_R32                                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define TPU9_R64                                                                       \
+  TPU9_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
+           "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+           "%61, %62, %63"
+
+// d (64 x 128, f32) = a (64 x 16) b (16 x 128) [+ d]: both operands K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" TPU9_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TPU9_F32(d, 0), TPU9_F32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N): b MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" TPU9_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : TPU9_F32(d, 0), TPU9_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" TPU9_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TPU9_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x (MUFU.EX2; a result below 2^-126 flushes to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -93,186 +240,344 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int D>
-constexpr int smem_bytes() {
-  // q tile + two stages of (k tile, v tile), rows padded to D + 8
-  return (1 + 2 * 2) * kTile * (D + 8) * 2;
+// -- the kernel ---------------------------------------------------------------
+
+// One consumer's 64 q rows: the running max and sum of its two rows (m, l;
+// l is this thread's part), and the rows and tile edge it masks against.
+struct Rows {
+  float m[2];
+  float l[2];
+  int row_min, row_a, row_b, lane;
+};
+
+// The online softmax of one 64 x 128 score tile in place: mask where the
+// tile crosses the diagonal or S, new row maxima (of the raw scores), the
+// factor `alpha` for the output so far, p = 2^(x * scale * log2(e) - max *
+// scale * log2(e)) in `sc` (f32; the scale folded into one FMA), and the
+// running sums.
+template <bool kCausal>
+__device__ __forceinline__ void online_softmax(float (&sc)[64], Rows& r, float (&alpha)[2], int j,
+                                               int seq_k, float scale_log2) {
+  if ((kCausal && j * kBlockN + kBlockN - 1 > r.row_min) || (j + 1) * kBlockN > seq_k) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = j * kBlockN + (i / 4) * 8 + (r.lane % 4) * 2 + (i & 1);
+      if (col >= seq_k || (kCausal && col > ((i / 2) % 2 ? r.row_b : r.row_a))) sc[i] = kNegInf;
+    }
+  }
+  float mx[2] = {r.m[0], r.m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = fast_exp2((r.m[i] - mx[i]) * scale_log2);
+    r.m[i] = mx[i];
+    ms[i] = mx[i] * scale_log2;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[(i / 2) % 2]));
+    rs[(i / 2) % 2] += sc[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) r.l[i] = r.l[i] * alpha[i] + rs[i];
+}
+
+// P in the A fragment of each 16-key step kk: score chunks 2kk and 2kk + 1
+// rounded to bf16, in the accumulator's own register order
+__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i / 2) % 2];
+}
+
+// One unit of work: the (128-row q tile, q head, sequence) at place `idx`
+// of the heaviest-first order (q tiles from the last, then sequences, then
+// q heads, so that the q heads of one kv head are neighbours), and the
+// number of k/v tiles it walks.
+struct Work {
+  int h, b, q0, n_tiles;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ Work work_at(int idx, int q_tiles, int q_heads, int batch, int seq_k) {
+  const int per_tile = q_heads * batch;
+  const int qt = q_tiles - 1 - idx / per_tile;
+  Work w;
+  w.h = idx % q_heads;
+  w.b = (idx % per_tile) / q_heads;
+  w.q0 = qt * kBlockM;
+  w.n_tiles = (seq_k + kBlockN - 1) / kBlockN;
+  if (kCausal) w.n_tiles = min(w.n_tiles, qt + 1);          // tiles past the diagonal see nothing
+  return w;
+}
+
+// The persistent grid's order: CTA i takes place i of every round of
+// gridDim.x places, counted from the other end in odd rounds, so that the
+// short causal tiles of the last rounds even out the long ones of the first.
+__device__ __forceinline__ int place(int round) {
+  return round * gridDim.x + (round % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int seq_q,
-             int seq_k, int q_heads, int kv_heads, float scale_log2) {
-  constexpr int kStride = D + 8;          // padded smem row, elements
-  constexpr int kChunks = D / 8;          // 16-byte chunks per row
-  constexpr int kSteps = D / 16;          // k-steps of QK^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_sh = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_sh = q_sh + kTile * kStride;            // [2][kTile][kStride]
-  __nv_bfloat16* v_sh = k_sh + 2 * kTile * kStride;        // [2][kTile][kStride]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+             int batch, int seq_q, int seq_k, int q_heads, int kv_heads, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int kPanels = D / kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_sh = base;
+  const uint32_t k_sh = base + L::kK;
+  const uint32_t v_sh = base + L::kV;
+  // mbarriers: q_full, q_empty, then full and empty for each k stage and v
+  // stage; k/v tiles are counted over the CTA's whole life (`it`)
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t q_empty = q_full + 8;
+  auto full_k = [&](int it) { return q_full + 8 * (2 + it % kStages); };
+  auto full_v = [&](int it) { return q_full + 8 * (2 + kStages + it % kStages); };
+  auto empty_k = [&](int it) { return q_full + 8 * (2 + 2 * kStages + it % kStages); };
+  auto empty_v = [&](int it) { return q_full + 8 * (2 + 3 * kStages + it % kStages); };
+  // the parity of k/v tile it's use of its stage
+  auto use = [](int it) { return static_cast<uint32_t>((it / kStages) & 1); };
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int qt = gridDim.z - 1 - blockIdx.z;               // heaviest q tile first
-  const int kvh = h / (q_heads / kv_heads);
-  const int q0 = qt * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int64_t q_row = (int64_t)q_heads * D;
-  const int64_t kv_row = (int64_t)kv_heads * D;
-  const __nv_bfloat16* q_base = q + ((int64_t)b * seq_q + q0) * q_row + (int64_t)h * D;
-  const __nv_bfloat16* k_base = k + (int64_t)b * seq_k * kv_row + (int64_t)kvh * D;
-  const __nv_bfloat16* v_base = v + (int64_t)b * seq_k * kv_row + (int64_t)kvh * D;
+  const int q_tiles = (seq_q + kBlockM - 1) / kBlockM;
+  const int n_work = q_tiles * q_heads * batch;
+  const int group = q_heads / kv_heads;
+  const int wg = threadIdx.x / 128;
 
-  for (int c = tid; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    cp_async16(q_sh + r * kStride + col, q_base + r * q_row + col);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);                                  // one arrival per consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 8);
+      mbar_init(empty_v(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  auto load_kv = [&](int stage, int tile) {
-    const int64_t off = (int64_t)tile * kTile * kv_row;
-    __nv_bfloat16* ks = k_sh + stage * kTile * kStride;
-    __nv_bfloat16* vs = v_sh + stage * kTile * kStride;
-    for (int c = tid; c < kTile * kChunks; c += kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      cp_async16(ks + r * kStride + col, k_base + off + r * kv_row + col);
-      cp_async16(vs + r * kStride + col, v_base + off + r * kv_row + col);
-    }
-  };
-  int n_tiles = seq_k / kTile;
-  if (kCausal) n_tiles = min(n_tiles, qt + 1);   // tiles past the diagonal see nothing
-  load_kv(0, 0);
-  cp_async_commit();                              // group 0: the q tile and k/v tile 0
+  __syncthreads();
 
-  // this thread's two query rows: g and g + 8 of the warp's 16
-  const int row_a = q0 + warp * 16 + lane / 4;
-  const int row_b = row_a + 8;
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};                        // this thread's part of the row sums
-  uint32_t qf[kSteps][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_kv((j + 1) & 1, j + 1);
-    cp_async_commit();
-    cp_async_wait_one();                          // everything but tile j + 1 has landed
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        ldmatrix_x4(qf[kk], q_sh + (warp * 16 + lane % 16) * kStride + kk * 16 + (lane / 16) * 8);
-    }
-    const __nv_bfloat16* ks = k_sh + (j & 1) * kTile * kStride;
-    const __nv_bfloat16* vs = v_sh + (j & 1) * kTile * kStride;
-
-    // scores S = Q K^T for the warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ks + (np * 16 + (lane / 16) * 8 + lane % 8) * kStride + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // scale (in the exp2 domain), mask, online softmax
-    const bool masked = kCausal && (j + 1) * kTile - 1 > q0;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (masked) {
-          const int col = j * kTile + nt * 8 + (lane % 4) * 2 + (e & 1);
-          if (col > (e < 2 ? row_a : row_b)) x = kNegInf;
+  if (wg == 0) {
+    // producer: one thread keeps the q tile and both rings full, running
+    // ahead into the CTA's next unit of work
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int round = 0; place(round) < n_work; ++round) {
+        const Work w = work_at<kCausal>(place(round), q_tiles, q_heads, batch, seq_k);
+        // the consumers are done with the last unit's q tile
+        if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
+        mbar_expect_tx(q_full, L::kQBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(q_sh + p * kBlockM * kRowBytes, &q_map, q_full, p * kPanel, w.h, w.q0, w.b);
+        for (int j = 0; j < w.n_tiles; ++j, ++it) {
+          const uint32_t off = (it % kStages) * L::kKVBytes;
+          // each stage is reloaded once the consumers released its previous
+          // tile, it - kStages
+          if (it >= kStages) mbar_wait(empty_k(it), use(it) ^ 1);
+          mbar_expect_tx(full_k(it), L::kKVBytes);
+          for (int p = 0; p < kPanels; ++p)
+            tma_load(k_sh + off + p * kBlockN * kRowBytes, &k_map, full_k(it), p * kPanel,
+                     w.h / group, j * kBlockN, w.b);
+          if (it >= kStages) mbar_wait(empty_v(it), use(it) ^ 1);
+          mbar_expect_tx(full_v(it), L::kKVBytes);
+          for (int p = 0; p < kPanels; ++p)
+            tma_load(v_sh + off + p * kBlockN * kRowBytes, &v_map, full_v(it), p * kPanel,
+                     w.h / group, j * kBlockN, w.b);
         }
-        s[nt][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
     }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e / 2]);
-        s[nt][e] = p;
-        rs[e / 2] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
+  } else {
+    // consumers: warpgroup c = wg - 1 owns q rows [q0 + 64c, q0 + 64c + 64)
+    // of each unit of work
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const uint32_t q_rows = q_sh + 64 * c * kRowBytes;      // this half, in each q panel
+    Rows r;
+    r.lane = threadIdx.x % 32;
 
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-    // fragment of key step kk
+    float o[D / 2];                 // 64 x D accumulator: chunk i of 8 columns in o[4i .. 4i+3]
+    float sc[64];                   // 64 x 128 scores, then probabilities, the same layout
+    uint32_t pa[8][4];              // the probabilities of the tile before, in bf16
+    float alpha[2];                 // its factor for the output so far
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+
+    // S = Q K^T for k/v tile it: D/16 k-steps, 4 per 64-column panel, 32
+    // bytes apart
+    auto qk = [&](int it) {
+      const uint32_t ks = k_sh + (it % kStages) * L::kKVBytes;
+      fence_operands(sc);
+      wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vs + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * kStride +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_qk(sc, smem_desc(q_rows + (kk / 4) * kBlockM * kRowBytes + col, 16, 1024),
+                 smem_desc(ks + (kk / 4) * kBlockN * kRowBytes + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O = O * alpha + P V for k/v tile it: 8 key steps of 16 rows (2048
+    // bytes) each; the D panels are the leading byte offset apart
+    auto pv = [&](int it) {
+      const uint32_t vs = v_sh + (it % kStages) * L::kKVBytes;
+      rescale(o, alpha);
+      mbar_wait(full_v(it), use(it));
+      fence_operands(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_pv(o, pa[kk], smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes, 1024));
+      wgmma_commit();
+    };
+    auto release = [&](uint32_t bar) {                      // this warp is done with a stage
+      __syncwarp();
+      if (r.lane == 0) mbar_arrive(bar);
+    };
+    // The two consumers take turns to issue their products (named barriers
+    // 1 and 2, 256 threads: one warpgroup waits, the other arrives), so that
+    // one's softmax runs under the other's products.
+    auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory"); };
+    auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory"); };
+
+    if (c == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // consumer 0 goes first
+    int it = 0;
+    for (int round = 0; place(round) < n_work; ++round) {
+      const Work w = work_at<kCausal>(place(round), q_tiles, q_heads, batch, seq_k);
+      r.row_min = w.q0 + 64 * c;
+      // this thread's two query rows: g and g + 8 of its warp's 16
+      r.row_a = r.row_min + 16 * warp + r.lane / 4;
+      r.row_b = r.row_a + 8;
+      r.m[0] = r.m[1] = kNegInf;
+      r.l[0] = r.l[1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+      mbar_wait(q_full, round & 1);
+      mbar_wait(full_k(it), use(it));
+      my_turn();
+      qk(it);
+      your_turn();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      release(empty_k(it));
+      if (w.n_tiles == 1) release(q_empty);
+      online_softmax<kCausal>(sc, r, alpha, 0, seq_k, scale_log2);
+      pack_p(sc, pa);
+      // Tile j: Q K_j^T and P_{j-1} V_{j-1} are issued together (the
+      // output's rescale between them, where no product holds the output),
+      // then the softmax of tile j, then the bf16 P_j once P_{j-1} V_{j-1}
+      // is done.
+      for (int j = 1; j < w.n_tiles; ++j) {
+        mbar_wait(full_k(it + j), use(it + j));
+        my_turn();
+        qk(it + j);
+        pv(it + j - 1);
+        your_turn();
+        wgmma_wait<1>();                                    // Q K_j^T done
+        fence_operands(sc);
+        release(empty_k(it + j));
+        if (j == w.n_tiles - 1) release(q_empty);           // the q tile is free for the next unit
+        online_softmax<kCausal>(sc, r, alpha, j, seq_k, scale_log2);
+        wgmma_wait<0>();                                    // P_{j-1} V_{j-1} done
+        fence_operands(o);
+        release(empty_v(it + j - 1));
+        pack_p(sc, pa);
+      }
+      it += w.n_tiles;
+      my_turn();
+      pv(it - 1);
+      // consumer 1 has no turn after its last unit's last product
+      if (c == 0 || place(round + 1) < n_work) your_turn();
+      wgmma_wait<0>();
+      fence_operands(o);
+      release(empty_v(it - 1));
+
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float l = r.l[i] + __shfl_xor_sync(0xffffffffu, r.l[i], 1);
+        inv[i] = 1.f / fmaxf(l + __shfl_xor_sync(0xffffffffu, l, 2), 1e-30f);
+      }
+      const int64_t q_row = static_cast<int64_t>(q_heads) * D;
+      __nv_bfloat16* out_a = out + (static_cast<int64_t>(w.b) * seq_q + r.row_a) * q_row +
+                             static_cast<int64_t>(w.h) * D;
+      __nv_bfloat16* out_b = out_a + 8 * q_row;
+      const int col0 = (r.lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        if (r.row_a < seq_q)
+          *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * i + col0) =
+              __floats2bfloat162_rn(o[4 * i] * inv[0], o[4 * i + 1] * inv[0]);
+        if (r.row_b < seq_q)
+          *reinterpret_cast<__nv_bfloat162*>(out_b + 8 * i + col0) =
+              __floats2bfloat162_rn(o[4 * i + 2] * inv[1], o[4 * i + 3] * inv[1]);
       }
     }
-    __syncthreads();   // the next iteration's prefetch overwrites this stage
   }
+}
 
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+// -- host side ----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  __nv_bfloat16* out_a = out + ((int64_t)b * seq_q + row_a) * q_row + (int64_t)h * D;
-  __nv_bfloat16* out_b = out_a + 8 * q_row;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + (lane % 4) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(out_a + col) =
-        __floats2bfloat162_rn(o[dt][0] * inv[0], o[dt][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(out_b + col) =
-        __floats2bfloat162_rn(o[dt][2] * inv[1], o[dt][3] * inv[1]);
-  }
+  return fn;
+}
+
+// A [batch, seq, heads, D] bf16 tensor as the 4-D map (D, heads, seq,
+// batch) with boxes of 64 columns x `rows` rows of one head: rows past
+// `seq` are zero-filled inside the box, never read from the next sequence.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int heads, int seq,
+                int batch, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(heads) * d * 2,
+                                 static_cast<cuuint64_t>(seq) * heads * d * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int seq_q,
            int seq_k, int q_heads, int kv_heads, float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
+  constexpr int kSmem = Layout<D>::kBytes;
   static bool attr_set = false;    // the dynamic shared memory above 48 KB, once
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -280,26 +585,44 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  const dim3 grid(q_heads, batch, seq_q / kTile);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(encode, &q_map, q, D, q_heads, seq_q, batch, kBlockM) ||
+      !encode_map(encode, &k_map, k, D, kv_heads, seq_k, batch, kBlockN) ||
+      !encode_map(encode, &v_map, v, D, kv_heads, seq_k, batch, kBlockN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a persistent grid: one CTA per SM at most, each walking its units of
+  // work (the next unit's loads overlap this one's last products)
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_work =
+      static_cast<long long>((seq_q + kBlockM - 1) / kBlockM) * q_heads * batch;
+  const int grid = static_cast<int>(n_work < sms ? n_work : sms);
   flash_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), seq_q, seq_k,
-      q_heads, kv_heads, scale * kLog2e);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), batch, seq_q, seq_k, q_heads,
+      kv_heads, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape the kernel has no instance for. The
-// Python wrapper validates shapes, types, contiguity and alignment first.
+// cudaErrorInvalidValue for a shape the kernel has no instance for (or a
+// tensor map the driver refuses), cudaErrorNotSupported when the driver
+// has no tensor-map encoder. The Python wrapper validates shapes, types,
+// contiguity and alignment first.
 extern "C" int tpu9_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                          int batch, int seq_q, int seq_k, int q_heads,
                                          int kv_heads, int head_dim, int causal, float scale,
                                          void* stream) {
   if (batch == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads != 0 || seq_q <= 0 || seq_k <= 0 ||
-      seq_q % kTile != 0 || seq_k % kTile != 0 || batch > 65535 || seq_q / kTile > 65535)
+      seq_q % 64 != 0 || seq_k % 64 != 0 ||
+      static_cast<long long>((seq_q + kBlockM - 1) / kBlockM) * q_heads * batch > INT_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TPU9_CASE(D, C)                                                                   \

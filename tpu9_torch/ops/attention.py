@@ -21,7 +21,8 @@ import torch
 
 NEG_INF = -1e30
 FLASH_HEAD_DIMS = (64, 128)
-FLASH_TILE = 64               # q and k/v rows per tile of the CUDA kernel
+FLASH_TILE = 64               # T and S are multiples of this: the kernel's 128-row
+                              # tiles zero-fill a 64-row tail
 
 
 def _expand_gqa(k: torch.Tensor, q_heads: int) -> torch.Tensor:
