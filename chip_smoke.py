@@ -28,9 +28,16 @@ Phases, each of which must pass or the script exits non-zero:
    them and on the device alone, and the kernel wrapper's host time per
    call, beside the bound;
 4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
-   (random weights from a seed), ``warmup()``, six concurrent ``generate``
-   requests (two share a 512-token prefix), a repeated greedy prompt, and
-   a check of the generated tokens against a plain no-cache forward;
+   (random weights from a seed), ``warmup()`` (which captures each decode
+   window size as a CUDA graph: the three must be captured), six
+   concurrent ``generate`` requests (two share a 512-token prefix), a
+   repeated greedy prompt, and a check of the generated tokens against a
+   plain no-cache forward; then no post-warmup graph build, the
+   ``stats()`` fields of ``[surface.engine_stats]`` with live device
+   memory, a non-empty flight recorder, a streaming request cancelled
+   mid-decode that frees its slot, and ``arm_profile(windows=2)`` writing
+   a trace; and an engine over the same weights that samples at
+   temperature 0.8, whose replayed windows must draw anew;
 5. engine, int8: the same with ``load_engine("llama3-8b-int8",
    kv_quant="int8")``: int8 weights and an int8 paged pool auto-sized to
    the bf16 pool's bytes;
@@ -40,13 +47,14 @@ Phases, each of which must pass or the script exits non-zero:
 
 The kernel launch counts are zeroed just before each engine phase's
 requests and read just after: each decode kernel of the phase's path must
-have launched ``n_layers x decode steps`` times, the flash kernel (dense
-path) ``n_layers x prefills``, and every other kernel never.
+have launched ``n_layers x decode steps`` times (a replayed window adds the
+launches its capture counted), the flash kernel (dense path)
+``n_layers x prefills``, and every other kernel never.
 
-With ``--profile``, one decode window of each engine and one fused
-admission group of each paged engine (one bucket-2048 prefill of the dense
-engine) are profiled with ``torch.profiler`` (wall and device-busy time,
-top kernels; full tables under ``build/profile/``).
+With ``--profile``, one replay of each engine's captured 8-step decode
+window and one fused admission group of each paged engine (one bucket-2048
+prefill of the dense engine) are profiled with ``torch.profiler`` (wall and
+device-busy time, top kernels; full tables under ``build/profile/``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device and the rest of
@@ -676,15 +684,162 @@ def reference_check(engine, prompt: list[int], generated: list[int],
     return worst, -1
 
 
+# stats() keys a dense engine does not have (it has no pool)
+PAGED_ONLY_STATS = {"kv_blocks_used", "kv_blocks_free", "kv_blocks_reserved",
+                    "kv_block_size", "kv_quant", "prefix_cache"}
+
+
+def stats_contract() -> list[str]:
+    """The fields of ``[surface.engine_stats]`` in the reference's wire
+    contracts (read as a file: nothing of the JAX package is imported)."""
+    import tomllib
+    with open(ROOT / "tpu9" / "analysis" / "contracts.toml", "rb") as f:
+        return tomllib.load(f)["surface"]["engine_stats"]["fields"]
+
+
+def check_captured(engine, kind: str) -> None:
+    """Every decode window size is a captured CUDA graph; prints warmup's
+    capture seconds and the graphs' pool."""
+    from tpu9_torch.serving.graphs import CapturedWindow
+    g = engine.graphs
+    ks = engine.ecfg.decode_steps
+    windows = {k: g.compiled.get(("decode", k)) for k in ks}
+    check(all(isinstance(w, CapturedWindow) for w in windows.values()),
+          f"{kind} engine: decode windows not captured: {windows}")
+    check(len(windows) == 3, f"{kind} engine: {len(windows)} window sizes")
+    per_k = {k: w.launches for k, w in windows.items()}
+    print(f"engine {kind}: captured windows k={list(ks)} in "
+          f"{', '.join(f'{g.capture_s[k]:.3f}' for k in ks)} s; graph pool "
+          f"{g.pool_bytes / 1e9:.3f} GB reserved; launches counted per "
+          f"replay {per_k}")
+
+
+def check_surface(engine, kind: str, stats: dict) -> None:
+    """The runner's view after serving: no post-warmup graph build, the
+    contract's stats fields, live device memory, a flight recorder."""
+    check(stats["graph_compiles_post_warmup"] == 0,
+          f"{kind} engine built {stats['graph_compiles_post_warmup']} "
+          f"graphs after warmup")
+    missing = [f for f in stats_contract() if f not in stats
+               and (engine.paged or f not in PAGED_ONLY_STATS)]
+    check(not missing, f"{kind} engine stats lack {missing}")
+    check(stats["hbm_used_gb_per_chip"] > 0, f"{kind} engine reports no "
+          f"device memory in use")
+    check(len(engine.flight_records()) > 0, f"{kind} engine recorded no "
+          f"flight")
+    print(f"engine {kind}: graph_compiles {stats['graph_compiles']} (post "
+          f"warmup {stats['graph_compiles_post_warmup']}); hbm used "
+          f"{stats['hbm_used_gb_per_chip']} GB, peak "
+          f"{stats['hbm_peak_gb_per_chip']} GB, predicted "
+          f"{stats['hbm_predicted_gb_per_chip']} GB, limit "
+          f"{stats['hbm_limit_gb_per_chip']} GB; {stats['windows_processed']}"
+          f" windows, flight {stats['flight']}; latency {stats['latency']}")
+
+
+async def cancel_mid_decode(engine, kind: str, prompt: list[int]) -> int:
+    """A streaming request cancelled after its second token retires its
+    slot well before its budget, and its blocks and reservation return.
+    Returns the tokens it got."""
+    budget = 512
+    req = await engine.generate(prompt, max_new_tokens=budget, stream=True)
+    for _ in range(2):
+        check(await req.queue.get() is not None, "stream ended early")
+    engine.cancel_request(req)
+    await asyncio.wait_for(req.done.wait(), 120)
+    stats = engine.stats()
+    check(len(req.generated) < budget and not req.error,
+          f"{kind} engine: cancelled stream got {len(req.generated)} tokens"
+          f" ({req.error})")
+    check(stats["active_streams"] == 0, f"{kind} engine: slot still live")
+    if engine.paged:
+        check(stats["kv_blocks_reserved"] == 0,
+              f"{kind} engine: {stats['kv_blocks_reserved']} blocks still "
+              f"reserved")
+    return len(req.generated)
+
+
+async def profile_hook(engine, kind: str, prompt: list[int]) -> str:
+    """``arm_profile(windows=2)`` traces the next two windows of a request
+    into ``build/profile/``; returns what the trace holds."""
+    out_dir = ROOT / "build" / "profile" / f"hook_{kind}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.json"):
+        old.unlink()
+    armed = engine.arm_profile(windows=2, out_dir=str(out_dir))
+    check(armed["windows"] == 2, f"arm_profile answered {armed}")
+    await engine.generate(prompt, max_new_tokens=24)
+    # the serve loop stops the trace once it has processed the windows
+    for _ in range(1000):
+        if not engine.stats()["profile"]["active"]:
+            break
+        await asyncio.sleep(0.01)
+    traces = list(out_dir.glob("*.json"))
+    prof = engine.stats()["profile"]
+    check(len(traces) == 1 and not prof["error"] and not prof["active"],
+          f"{kind} engine: arm_profile wrote {traces}, state {prof}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    return f"{len(events)} events, {kernels} kernels"
+
+
+def phase_sampled(engine, card: str) -> None:
+    """An engine over the same weights that samples (temperature 0.8, top-k
+    50): its captured windows replay draws from the engine's generator, so
+    the same window over the same inputs must draw anew on every replay,
+    and one prompt served twice must give two different streams."""
+    import dataclasses
+    from tpu9_torch.serving.engine import InferenceEngine
+    ecfg = dataclasses.replace(engine.ecfg, temperature=0.8, top_k=50)
+    t0 = time.perf_counter()
+    e = InferenceEngine(engine.params, engine.cfg, ecfg, device=DEVICE)
+    e.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check_captured(e, "sampled")
+    window = e.graphs.decode_k(8)
+    draws = []
+    for _ in range(3):
+        e.last_token.fill_(7)
+        e.cache_len.fill_(3)
+        window()
+        draws.append(e._toks[:8].clone().cpu())
+    check(not torch.equal(draws[0], draws[1])
+          and not torch.equal(draws[1], draws[2]),
+          "a replayed sampled window repeated its draws")
+    prompt = list(range(100, 400))
+
+    async def serve():
+        await e.start()
+        try:
+            return [await e.generate(prompt, max_new_tokens=40)
+                    for _ in range(2)]
+        finally:
+            await e.stop()
+
+    a, b = asyncio.run(serve())
+    check(len(a) == len(b) == 40 and a != b, "the sampled engine gave the "
+          "same stream twice")
+    stats = e.stats()
+    check(stats["graph_compiles_post_warmup"] == 0, "the sampled engine "
+          "built a graph after warmup")
+    print(f"engine sampled: temperature 0.8 top_k 50 over the bf16 weights: "
+          f"warmup {t_warm:.2f} s; three replays of one window drew "
+          f"three different token sets; one prompt twice gave two streams "
+          f"({sum(x != y for x, y in zip(a, b))} of 40 tokens differ) "
+          f"({card})")
+    del e
+
+
 def phase_engine(card: str, kind: str):
     """Serve the six prompts, the repeat and the reference prompt through
-    the ``kind`` engine of ``ENGINES``; returns (its kernels' launches, the
-    engine)."""
+    the ``kind`` engine of ``ENGINES``, then check the runner's surface;
+    returns (its kernels' launches, the engine)."""
     from tpu9_torch.ops.quant import quantized_bytes
     from tpu9_torch.serving.paged_kv import kv_block_bytes
     from tpu9_torch.serving.presets import load_engine
 
     preset, knobs, path_kernels = ENGINES[kind]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = load_engine(preset, device=DEVICE, max_batch=8, max_seq_len=2048,
@@ -720,6 +875,7 @@ def phase_engine(card: str, kind: str):
           f"{cfg.vocab_size}; weights {quantized_bytes(engine.params) / 1e9:.2f}"
           f" GB; {kv} ({engine.kv_cache['k'].dtype}, {kv_gb:.2f} GB); load "
           f"{t_load:.2f} s, warmup {t_warm:.2f} s")
+    check_captured(engine, kind)
     prompts = make_prompts(cfg.vocab_size, seed=1)
     repeat = prompts[5]
     # prompt + 8 generated = 135 tokens: the no-cache reference takes the
@@ -740,15 +896,20 @@ def phase_engine(card: str, kind: str):
             launches = {name: wrapper(name).launches for name in KERNELS}
             steps = engine.stats()["decode_steps"] - steps0
             stats = engine.stats()
+            cancelled = await cancel_mid_decode(engine, kind, prompts[4])
+            traced = await profile_hook(engine, kind, prompts[2])
         finally:
             await engine.stop()
         return outs, t_submit, t_firsts, t_end, rep_a, rep_b, ref_out, \
-            launches, steps, stats
+            launches, steps, stats, cancelled, traced
 
     (outs, t_submit, t_firsts, t_end, rep_a, rep_b, ref_out, launches, steps,
-     stats) = asyncio.run(main_path())
+     stats, cancelled, traced) = asyncio.run(main_path())
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the window graphs' pool is reserved but free between replays, so
+    # the peak of reserved memory is where it shows
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
 
     for p, out in zip(prompts, outs):
         check(len(out) == MAX_NEW, f"a request returned {len(out)} tokens, "
@@ -789,11 +950,16 @@ def phase_engine(card: str, kind: str):
           f"{t_end - t_submit:.3f} s ({card})")
     cache = (f"prefix cache {stats['prefix_cache']}" if engine.paged
              else "no prefix cache")
-    print(f"engine {kind}: peak memory {peak_gb:.2f} GB; {cache}; repeat "
+    print(f"engine {kind}: peak memory {peak_gb:.2f} GB (reserved "
+          f"{reserved_gb:.2f} GB); {cache}; repeat "
           f"identical; reference worst gap {worst:.3%} of logit range, "
           f"{'no fork in 8 tokens' if fork < 0 else f'first fork at token {fork}'}")
     print(f"engine {kind}: launches {launches} ({cfg.n_layers} layers, {steps} "
           f"decode steps, {n_prefills} prefills) ({card})")
+    check_surface(engine, kind, stats)
+    print(f"engine {kind}: a stream cancelled after 2 tokens stopped at "
+          f"{cancelled} of 512 and freed its slot; arm_profile(windows=2) "
+          f"wrote a trace of {traced}")
     return {name: launches[name] for name in path_kernels}, engine
 
 
@@ -823,6 +989,8 @@ def _profile(fn, label: str, per: int, out_dir: Path) -> None:
     spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
                    for ev in prof.events() if ev.device_type == DeviceType.CUDA)
     if not spans:
+        check(DEVICE != "cuda", f"profile {label}: the profiler saw no "
+              f"device events")
         print(f"profile {label}: wall {wall_ms:.3f} ms; device time not "
               f"measured (the profiler saw no device events)")
         return
@@ -841,32 +1009,32 @@ def _profile(fn, label: str, per: int, out_dir: Path) -> None:
 
 
 def phase_profile(engine, card: str, kind: str) -> None:
-    """A decode window of 8 steps with all 8 lanes live at the engine
-    phase's prompt lengths (paged: each lane on its own pool blocks), and
+    """A replay of the engine's captured 8-step decode window with all 8
+    lanes live at the engine phase's prompt lengths (paged: each lane on
+    its own pool blocks, written into the engine's table in place), and
     one fused admission group of 4 chunks (paged) or one bucket-2048
-    prefill (dense), each profiled. Per-kernel tables go to
+    prefill (dense), each profiled. The engine is done serving: its
+    window state is overwritten here. Per-kernel tables go to
     ``build/profile/``."""
     e = engine
     out_dir = ROOT / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
     b = e.ecfg.max_batch
     lens = [600, 1212, 128, 1536, 777, 1000, 1800, 400]
-    kv = e.kv_cache
     if e.paged:
         mb = e.pool.mb
         per_row = mb - 1                            # the last column is trash
         check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
-        table = torch.zeros((b, mb), dtype=torch.int32, device=e.device)
+        table = e.kv_cache["table"]
+        table.zero_()
         table[:, :per_row] = 1 + torch.arange(
             b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
-        kv = dict(e.kv_cache, table=table)
-    cache_len = torch.tensor(lens, dtype=torch.int32, device=e.device)
-    active = torch.ones((b,), dtype=torch.bool, device=e.device)
-    last = torch.zeros((b, 1), dtype=torch.int32, device=e.device)
+    # five replays of 8 steps keep every lane inside its 2048 positions
+    e.cache_len.copy_(torch.tensor(lens, dtype=torch.int32))
+    e._active_dev.fill_(True)
+    e.last_token.zero_()
     k = 8
-    window = e.graphs.build_decode(k)
-    _profile(lambda: window(e.params, kv, last, cache_len, active, e._gen),
-             f"{kind}_decode_step_B{b}", k, out_dir)
+    _profile(e.graphs.decode_k(k), f"{kind}_decode_step_B{b}", k, out_dir)
     if not e.paged:
         bucket = e._buckets[-1]
         toks = torch.randint(0, e.cfg.vocab_size, (1, bucket),
@@ -942,6 +1110,8 @@ def main() -> int:
         for kind in ENGINES:
             path_launches, engine = phase_engine(card, kind)
             launches.update(path_launches)
+            if kind == "bf16":
+                phase_sampled(engine, card)
             if "--profile" in sys.argv[1:]:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads

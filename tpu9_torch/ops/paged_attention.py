@@ -14,6 +14,11 @@ twin: ``xla_paged_decode_attention`` (gather the table rows densely,
 dequantize an int8 pool, then a masked softmax) for the pool,
 ``xla_decode_attention`` for the contiguous cache. The twins are also the
 kernels' oracles in the tests and in ``chip_smoke.py``.
+
+Each wrapper counts its launches in ``.launches``. Inside a CUDA-graph
+capture a wrapper enqueues into the graph and launches nothing, and a
+replay runs no Python: so a capture takes back what its wrappers counted
+(:func:`captured_launches`) and each replay adds it (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -350,3 +355,32 @@ def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 ragged_decode_attention.launches = 0
+
+
+# the wrappers whose kernels a captured decode window replays
+COUNTED = (paged_decode_attention, paged_decode_attention_quant,
+           ragged_decode_attention)
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in COUNTED}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' ``.launches``."""
+    for w in COUNTED:
+        w.launches += counts.get(w.__name__, 0)
+
+
+def captured_launches(capture) -> dict[str, int]:
+    """Run ``capture`` (a CUDA-graph capture of wrapper calls) and return
+    the launches its wrappers counted, by name; the counts are then set
+    back, because a capture launches nothing. A replay of the graph adds
+    the returned counts."""
+    before = launch_counts()
+    try:
+        capture()
+    finally:
+        after = launch_counts()
+        add_launches({n: before[n] - after[n] for n in after})
+    return {n: after[n] - before[n] for n in after if after[n] != before[n]}

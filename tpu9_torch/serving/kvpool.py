@@ -1,7 +1,9 @@
 """Paged KV-pool management (counterpart of ``tpu9/serving/kvpool.py``,
 without the host-DRAM tier and kvwire): pool sizing (equal bytes for an
 int8 pool), the trash-block discipline, slot → physical-block bookkeeping,
-worst-case reservations and the host block table."""
+worst-case reservations and the block table, which lives on the device
+at one address for the engine's life (a captured decode window reads it
+there) and is written one row at a time."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils.platform import host_to_device
 from .paged_kv import BlockAllocator, PrefixCache, blocks_for, kv_block_bytes
 
 Params = dict[str, Any]
@@ -56,6 +59,7 @@ class KvPool:
         self.slot_blocks: list[list[int]] = [[] for _ in range(b)]
         self.slot_reserved = [0] * b
         self.table_np = np.zeros((b, self.mb), dtype=np.int32)
+        self.table = torch.from_numpy(self.table_np.copy()).to(device)
         self.kv_allocs = 0           # lifetime block allocations
 
     def init_arrays(self) -> Params:
@@ -72,7 +76,7 @@ class KvPool:
             for name in ("k_scale", "v_scale"):
                 arrays[name] = torch.zeros(shape[:-1], dtype=torch.float32,
                                            device=self.device)
-        arrays["table"] = self.device_table()
+        arrays["table"] = self.table
         return arrays
 
     def alloc_blocks(self, n: int) -> list[int]:
@@ -91,22 +95,22 @@ class KvPool:
         self.kv_allocs += n
         return got
 
-    def device_table(self) -> torch.Tensor:
-        return torch.from_numpy(self.table_np.copy()).to(self.device)
-
     def push_table(self, slot: int) -> torch.Tensor:
         """Refresh one slot's table row from its block list (trash-padded)
-        and return the new device table for the engine to install."""
+        in place, on the host and on the device, and return the device
+        table. The row's copy is queued behind the work already enqueued,
+        so a window in flight still reads the row it was dispatched with."""
         row = np.full((self.mb,), self.trash_block, dtype=np.int32)
         blocks = self.slot_blocks[slot]
         row[:len(blocks)] = blocks
         self.table_np[slot] = row
-        return self.device_table()
+        host_to_device(self.table[slot], row)
+        return self.table
 
     def ensure_slot_blocks(self, slot: int, n_tokens: int) -> bool:
         """Grow the slot's physical block list to cover ``n_tokens``
-        positions. True when the table changed (install
-        :meth:`push_table`'s value)."""
+        positions. True when the slot's block list grew (its table row
+        then needs :meth:`push_table`)."""
         need = blocks_for(n_tokens, self.ecfg.kv_block_size)
         have = len(self.slot_blocks[slot])
         if need <= have:
@@ -116,8 +120,8 @@ class KvPool:
 
     def release_slot(self, slot: int) -> torch.Tensor:
         """Retirement: physical blocks back to the pool (prefix-cache refs
-        keep shared prefix blocks alive), worst-case reservation released.
-        Returns the refreshed device table."""
+        keep shared prefix blocks alive), worst-case reservation released,
+        the slot's table row back to trash. Returns the device table."""
         self.allocator.release(self.slot_blocks[slot])
         self.slot_blocks[slot] = []
         table = self.push_table(slot)

@@ -1,7 +1,8 @@
 """Host-side block allocator and prefix cache for the paged KV pool: the
 port's own copy of ``tpu9/serving/paged_kv.py`` (allocation, reservations,
-prefix lookup/insert, pins and LRU eviction; the kvwire export/adopt and
-host-tier transitions are not in this slice).
+prefix lookup/insert, pins, LRU eviction and the tier-change journal the
+runner's heartbeat ships; the kvwire export/adopt and host-tier
+transitions are not in this slice, so every entry lives on the device).
 
 The device cache is a pool of fixed-size blocks that the paged decode
 kernel reads by table lookup; this allocator hands logical sequence
@@ -13,6 +14,7 @@ cannot fail.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -116,6 +118,29 @@ class PrefixCache:
         self.tokens_reused = 0
         self.evictions = 0
         self.pinned = 0         # live lookup pins
+        # kept at 0 until kvwire adoption and the host tier are ported;
+        # the stats surface carries them as the reference does
+        self.adopted = 0
+        self.spills = 0
+        self.hits_device = 0    # lookup hits by serving tier
+        self.hits_host = 0
+        # tier-change journal for the fleet's prefix directory: every
+        # eviction appends (seq, kind, key-hex16), so the next heartbeat
+        # retracts the advertisement. Bounded; a consumer that falls
+        # behind resyncs from the full digest.
+        self._delta_seq = 0
+        self._deltas: collections.deque = collections.deque(maxlen=512)
+
+    def _note_delta(self, kind: str, key: bytes) -> None:
+        self._delta_seq += 1
+        self._deltas.append((self._delta_seq, kind, key.hex()[:16]))
+
+    def deltas_since(self, seq: int) -> tuple[list[tuple[str, str]], int]:
+        """Tier-change events after journal position ``seq`` (oldest
+        first) plus the new cursor. The caller advances its cursor only
+        once the delta is known-delivered (heartbeat accepted)."""
+        out = [(kind, hx) for s, kind, hx in self._deltas if s > seq]
+        return out, self._delta_seq
 
     @staticmethod
     def _key(tokens: list[int]) -> bytes:
@@ -144,6 +169,7 @@ class PrefixCache:
                 entry.pins += 1
                 self.pinned += 1
                 self.hits += 1
+                self.hits_device += 1
                 self.tokens_reused += entry.n_tokens
                 return entry
             nb -= 1
@@ -192,6 +218,7 @@ class PrefixCache:
         del self._entries[oldest.key]
         self.allocator.release(oldest.blocks)
         self.evictions += 1
+        self._note_delta("evict", oldest.key)
         return True
 
     def evict_for_space(self, blocks_needed: int) -> None:
@@ -206,4 +233,7 @@ class PrefixCache:
                 "held_blocks": self.held_blocks,
                 "hits": self.hits, "misses": self.misses,
                 "tokens_reused": self.tokens_reused,
-                "evictions": self.evictions, "pinned": self.pinned}
+                "evictions": self.evictions, "pinned": self.pinned,
+                "adopted": self.adopted, "spills": self.spills,
+                "hits_device": self.hits_device,
+                "hits_host": self.hits_host}

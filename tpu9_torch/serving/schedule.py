@@ -1,6 +1,8 @@
 """Window scheduling (counterpart of ``tpu9/serving/schedule.py``): the
 decode-window size and the admission-can-proceed check. Pure host
-arithmetic over the engine's scheduling state; it dispatches nothing."""
+arithmetic over the engine's scheduling state; it dispatches nothing, and
+records why it chose a window in ``engine._pick_reason`` (the flight
+recorder's "why was K small" answer)."""
 
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class WindowScheduler:
         could proceed."""
         e = self.engine
         if self.admission_can_proceed():
+            e._pick_reason = "admission"
             return e.ecfg.decode_steps[0]
         limit = max(e.ecfg.decode_steps)
         for slot in range(e.ecfg.max_batch):
@@ -46,6 +49,8 @@ class WindowScheduler:
             room = (e.ecfg.max_seq_len - 1 - e._host_len[slot]
                     - e._inflight_steps)
             limit = min(limit, max(1, remaining), max(1, room))
+        e._pick_reason = ("max" if limit >= max(e.ecfg.decode_steps)
+                          else "budget")
         for k in reversed(e.ecfg.decode_steps):
             if k <= limit:
                 return k

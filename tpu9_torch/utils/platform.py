@@ -7,6 +7,7 @@ with no explicit device is an error, never a quiet fall back to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,16 @@ def device_kind() -> str:
     """The card's name as ``torch.cuda.get_device_name`` gives it, or
     ``"none"`` without a CUDA device."""
     return torch.cuda.get_device_name(0) if torch.cuda.is_available() else "none"
+
+
+def host_to_device(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Write host values into ``dst`` in place without waiting for the
+    device: on CUDA the values go through a pinned staging copy and the
+    transfer is queued on the current stream behind the work already
+    there (the pinned allocator keeps the staging memory until the copy
+    has run); on the CPU it is a plain copy."""
+    src = torch.from_numpy(np.ascontiguousarray(src))
+    if dst.is_cuda:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
