@@ -10,23 +10,29 @@ Phases, each of which must pass or the script exits non-zero:
 2. build: compiles every CUDA kernel of the main paths from
    ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
    together; one source holds the three decode kernels: bf16 pool, int8
-   pool and contiguous cache, each a split-KV pass and a combine pass;
-   the other the flash kernel's four instances, D 64 and 128, causal or
-   not), prints each instance's registers and spills from ``ptxas -v``
-   and any ``ptxas`` note on serialised ``wgmma`` products, and fails if a
-   (G=4, D=128) decode instance or a D=128 flash instance spills;
+   pool and contiguous cache, each a split-KV pass (GQA group 1, 2, 4, 8
+   at D 64, 128, 256) and a combine pass (D 64, 128, 256); the other the
+   flash kernel's six instances, D 64, 128 and 256, causal or not),
+   prints each instance's registers and spills from ``ptxas -v`` and any
+   ``ptxas`` note on serialised ``wgmma`` products, and fails if an
+   instance a served model runs spills: (G=4, D=128) of the decode kernels
+   and D=128 flash (llama3-8b), (G=1, D=256) of the bf16-pool and
+   contiguous decode kernels and D=256 flash (gemma-7b), (G=8, D=256) of
+   the int8-pool kernel (gemma-2b);
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
-   main paths give it: the paged kernels with table entries past every
-   prefix pointing at poisoned pool blocks (NaN for bf16; payload 127 with
-   NaN scales for int8), the ragged kernel with NaN at every cache
-   position past each length, the decode kernels at B=8 and at B=1 with
-   one 2048-token sequence, the flash kernel over causal prefills of 128,
-   512 and 2048 tokens, one non-causal shape, and B=2 sequences of 320
-   tokens (not a multiple of its 128-row tiles), causal and not, read
-   from buffers whose sequence after the last is NaN; times the kernel, the
-   twin and one library call with CUDA events, as a host-bound step sees
-   them and on the device alone, and the kernel wrapper's host time per
-   call, beside the bound;
+   main paths give it, at llama3-8b's heads (QH 32, KH 8, D 128) and at
+   gemma-7b's (QH 16, KH 16, D 256) and gemma-2b's (QH 8, KH 1, D 256):
+   the paged kernels with table entries past every prefix pointing at
+   poisoned pool blocks (NaN for bf16; payload 127 with NaN scales for
+   int8), the ragged kernel with NaN at every cache position past each
+   length, the decode kernels at B=8 and at B=1 with one 2048-token
+   sequence, the flash kernel over causal prefills of 128, 512 and 2048
+   tokens, one non-causal shape, and B=2 sequences of 320 tokens (not a
+   multiple of its 128-row tiles), causal and not, read from buffers
+   whose sequence after the last is NaN; times the kernel, the twin and
+   one library call with CUDA events, as a host-bound step sees them and
+   on the device alone, and the kernel wrapper's host time per call,
+   beside the bound;
 4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
    (random weights from a seed), ``warmup()`` (which captures each decode
    window size as a CUDA graph: the three must be captured), six
@@ -43,7 +49,11 @@ Phases, each of which must pass or the script exits non-zero:
    the bf16 pool's bytes;
 6. engine, dense: the same with ``load_engine("llama3-8b", paged=False)``:
    a contiguous [L, B, S] cache, bucketed prefill through the flash kernel
-   and decode through the ragged kernel (no prefix cache).
+   and decode through the ragged kernel (no prefix cache);
+7. to 9. the same three engines for gemma (head_dim 256, tied embeddings,
+   scaled embeddings): ``load_engine("gemma-7b")`` (paged bf16 pool),
+   ``load_engine("gemma-2b-int8", kv_quant="int8")`` (int8 weights and
+   pool, GQA group 8) and ``load_engine("gemma-7b", paged=False)``.
 
 The kernel launch counts are zeroed just before each engine phase's
 requests and read just after: each decode kernel of the phase's path must
@@ -115,11 +125,14 @@ def phase_card() -> str:
 PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
                          r"(?:NS_)?\d+(Table|Contiguous)E?Li(\d+)ELi(\d+)E")
 PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])E")
-# the instances llama3-8b runs (G = 4, D = 128), which must not spill
+# the decode instances the served models run, which must not spill:
+# llama3-8b (G = 4, D = 128), gemma-7b (G = 1, D = 256; bf16 pool and
+# contiguous cache) and gemma-2b-int8 (G = 8, D = 256, int8 pool)
 NO_SPILL = {("bf16", "Table", 4, 128), ("int8", "Table", 4, 128),
-            ("bf16", "Contiguous", 4, 128)}
-# the flash instances of llama3-8b's prefill (D = 128, causal or not)
-FLASH_NO_SPILL = {(128, True), (128, False)}
+            ("bf16", "Contiguous", 4, 128), ("bf16", "Table", 1, 256),
+            ("bf16", "Contiguous", 1, 256), ("int8", "Table", 8, 256)}
+# the flash instances of llama3-8b's and gemma-7b's prefill (causal or not)
+FLASH_NO_SPILL = {(128, True), (128, False), (256, True), (256, False)}
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -180,10 +193,10 @@ def phase_build(kernels: list[str]) -> None:
             print(f"  ptxas {source}: {label}: {info.get('registers')} "
                   f"registers, spill stores/loads {info.get('spills')}")
     if "paged_decode_attention" in logs:
-        check(seen == NO_SPILL, f"ptxas reported no (G=4, D=128) instance "
+        check(seen == NO_SPILL, f"ptxas reported no served decode instance "
               f"of {sorted(NO_SPILL - seen)}")
     if "flash_attention" in logs:
-        check(flash_seen == FLASH_NO_SPILL, f"ptxas reported no D=128 flash "
+        check(flash_seen == FLASH_NO_SPILL, f"ptxas reported no served flash "
               f"instance of {sorted(FLASH_NO_SPILL - flash_seen)}")
 
 
@@ -366,6 +379,10 @@ def kernel_row(name: str, label: str, max_err: float, times: dict,
 
 
 PAGED_LENS = [1, 127, 128, 129, 1000, 2048, 513, 1777]
+# (q heads, kv heads) of the served models; llama3-8b and llama-1b share
+# theirs, and both gemma models have head_dim 256
+LLAMA_HEADS = (32, 8)
+GEMMA_HEADS = {"gemma-7b": (16, 16), "gemma-2b": (8, 1)}
 
 
 def check_twin(name: str, label: str, got: torch.Tensor,
@@ -386,15 +403,18 @@ def check_twin(name: str, label: str, got: torch.Tensor,
 
 
 def paged_kernel_case(name: str, batch: int, head_dim: int, lens: list[int],
-                      seed: int) -> dict:
+                      seed: int, heads: tuple[int, int] = LLAMA_HEADS
+                      ) -> dict:
     """The kernel call, its twin and the twin's result, the densified cache
-    for the library call, and the bound, for one paged case."""
+    for the library call, and the bound, for one paged case with ``heads``
+    = (q heads, kv heads)."""
     from tpu9_torch.ops import paged_attention as pa
     quant = name.endswith("_quant")
     launcher = wrapper(name)
-    case = paged_case(batch=batch, q_heads=32, kv_heads=8, head_dim=head_dim,
-                      block_s=128, max_blocks=2048 // 128 + 1, lens=lens,
-                      seed=seed, quant=quant)
+    case = paged_case(batch=batch, q_heads=heads[0], kv_heads=heads[1],
+                      head_dim=head_dim, block_s=128,
+                      max_blocks=2048 // 128 + 1, lens=lens, seed=seed,
+                      quant=quant)
     q, k, v, table, clen = (case[n] for n in ("q", "k", "v", "table", "lens"))
     scales = (case["ks"], case["vs"]) if quant else ()
     # the twin densifies every table entry, so it runs on a copy whose
@@ -423,7 +443,8 @@ def paged_kernel_case(name: str, batch: int, head_dim: int, lens: list[int],
                 bound=paged_bound(case, lens), quant=quant)
 
 
-def ragged_kernel_case(head_dim: int, lens: list[int], seed: int) -> dict:
+def ragged_kernel_case(head_dim: int, lens: list[int], seed: int,
+                       heads: tuple[int, int] = LLAMA_HEADS) -> dict:
     """The ragged kernel over a contiguous [B, 2048] cache, B = len(lens);
     every cache position at or past a length is NaN, so a read past one
     shows as a non-finite output. The twin masks by length but multiplies
@@ -433,7 +454,7 @@ def ragged_kernel_case(head_dim: int, lens: list[int], seed: int) -> dict:
     from tpu9_torch.ops import attention as at
     from tpu9_torch.ops import paged_attention as pa
     rng = np.random.default_rng(seed)
-    b, s, q_heads, kv_heads = len(lens), 2048, 32, 8
+    b, s, (q_heads, kv_heads) = len(lens), 2048, heads
 
     def bf16(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
@@ -462,20 +483,23 @@ def ragged_kernel_case(head_dim: int, lens: list[int], seed: int) -> dict:
 
 
 def decode_kernel_case(name: str, batch: int, head_dim: int,
-                       lens: list[int]) -> dict:
+                       lens: list[int],
+                       heads: tuple[int, int] = LLAMA_HEADS) -> dict:
+    seed = head_dim + batch + sum(heads) - 48          # llama's: D + B - 8
     if name == "ragged_decode_attention":
-        return ragged_kernel_case(head_dim, lens,
-                                  seed=100 + head_dim + batch - 8)
-    return paged_kernel_case(name, batch, head_dim, lens,
-                             seed=head_dim + batch - 8)
+        return ragged_kernel_case(head_dim, lens, seed=100 + seed,
+                                  heads=heads)
+    return paged_kernel_case(name, batch, head_dim, lens, seed=seed,
+                             heads=heads)
 
 
 def phase_decode_kernel(name: str, label: str, head_dim: int,
-                        batch: int = 8, lens: list[int] = PAGED_LENS) -> dict:
+                        batch: int = 8, lens: list[int] = PAGED_LENS,
+                        heads: tuple[int, int] = LLAMA_HEADS) -> dict:
     """One decode kernel at one shape: launched once, checked finite over
     the poisoned blocks (NaN positions) and against its twin, then timed
     beside the twin, one library call and its bound."""
-    c = decode_kernel_case(name, batch, head_dim, lens)
+    c = decode_kernel_case(name, batch, head_dim, lens, heads)
     launcher = wrapper(name)
     before = launcher.launches
     got = c["kernel"]()
@@ -498,9 +522,11 @@ def print_split_plans() -> None:
             ("paged", 8, 17, 128), ("paged", 1, 17, 128),
             ("contiguous", 8, 8, 256), ("contiguous", 1, 8, 256)):
         n_splits, bps = pa.split_plan(max_blocks, block_s)
-        print(f"split plan ({what} B={batch} KH=8 MB={max_blocks} "
+        grids = ", ".join(f"KH={kh}: {kh * batch * n_splits}"
+                          for kh in (8, 16, 1))
+        print(f"split plan ({what} B={batch} MB={max_blocks} "
               f"BS={block_s}, SPLIT_TOKENS {pa.SPLIT_TOKENS}): {n_splits} "
-              f"splits of {bps} blocks, grid {8 * batch * n_splits} CTAs")
+              f"splits of {bps} blocks, grid CTAs {grids}")
 
 
 def flash_limit(want: torch.Tensor, v: torch.Tensor, q_heads: int,
@@ -532,23 +558,30 @@ def check_flash(label: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
-# (T = S, head_dim, causal): llama3-8b's prefill buckets, the llama-1b
-# head_dim at the longest, and one non-causal shape
-FLASH_SHAPES = ((128, 128, True), (512, 128, True), (2048, 128, True),
-                (2048, 64, True), (512, 128, False))
+# (T = S, head_dim, causal, heads): llama3-8b's prefill buckets, the
+# llama-1b head_dim at the longest and one non-causal shape; then the same
+# buckets and a non-causal shape at the heads of gemma-7b and gemma-2b
+FLASH_SHAPES = ((128, 128, True, LLAMA_HEADS), (512, 128, True, LLAMA_HEADS),
+                (2048, 128, True, LLAMA_HEADS), (2048, 64, True, LLAMA_HEADS),
+                (512, 128, False, LLAMA_HEADS)) + tuple(
+    (t, 256, causal, heads) for heads in GEMMA_HEADS.values()
+    for t, causal in ((128, True), (512, True), (2048, True), (512, False)))
 
 
-def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
-    """The flash kernel at one prefill shape of llama3-8b (B=1, QH 32,
-    KH 8) with T = S = ``t``, against ``xla_attention``."""
+def phase_flash_kernel(t: int, head_dim: int, causal: bool,
+                       heads: tuple[int, int] = LLAMA_HEADS) -> dict:
+    """The flash kernel at one prefill shape (B=1, ``heads`` = (q heads, kv
+    heads)) with T = S = ``t``, against ``xla_attention``."""
     import torch.nn.functional as F
     from tpu9_torch.ops import attention as at
-    label = (f"prefill B=1 T=S={t} QH=32 KH=8 D={head_dim} "
+    q_heads, kv_heads = heads
+    label = (f"prefill B=1 T=S={t} QH={q_heads} KH={kv_heads} D={head_dim} "
              f"{'causal' if causal else 'non-causal'}")
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(t + head_dim + int(causal))
+    gen.manual_seed(t + head_dim + int(causal) + sum(heads) - 40)
     q, k, v = (torch.randn((1, t, h, head_dim), generator=gen, device=DEVICE
-                           ).to(torch.bfloat16) for h in (32, 8, 8))
+                           ).to(torch.bfloat16)
+               for h in (q_heads, kv_heads, kv_heads))
 
     def kernel():
         return at.flash_attention(q, k, v, causal=causal)
@@ -569,27 +602,32 @@ def phase_flash_kernel(t: int, head_dim: int, causal: bool) -> dict:
     # each attended (query, key) pair: T(T+1)/2 of them when causal
     pairs = t * (t + 1) // 2 if causal else t * t
     bound = roofline_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                        4 * 32 * head_dim * pairs)
+                        4 * q_heads * head_dim * pairs)
     print_times("flash_attention", label, times, bound,
                 "sdpa (is_causal, enable_gqa)")
     return kernel_row("flash_attention", label, max_err, times, bound)
 
 
-def phase_flash_tails(causal: bool, batch: int = 2, t: int = 320) -> float:
+def phase_flash_tails(causal: bool, batch: int = 2, t: int = 320,
+                      head_dim: int = 128,
+                      heads: tuple[int, int] = LLAMA_HEADS) -> float:
     """The flash kernel at T = S = 320 (a multiple of 64, not of the
-    kernel's 128-row tiles) over ``batch`` sequences, D=128, QH 32, KH 8.
-    q, k and v are the leading ``batch`` sequences of buffers that hold
-    one more, all NaN: a tile that read past the last sequence would put
-    NaN in the output (a masked key still multiplies its v row by 0), and
-    one that read sequence 1's rows for sequence 0's tail would disagree
-    with the twin."""
+    kernel's 128-row tiles) over ``batch`` sequences. q, k and v are the
+    leading ``batch`` sequences of buffers that hold one more, all NaN: a
+    tile that read past the last sequence would put NaN in the output (a
+    masked key still multiplies its v row by 0), and one that read
+    sequence 1's rows for sequence 0's tail would disagree with the
+    twin."""
     from tpu9_torch.ops import attention as at
-    label = (f"tails B={batch} T=S={t} QH=32 KH=8 D=128 "
-             f"{'causal' if causal else 'non-causal'}, NaN sequence after")
+    q_heads, kv_heads = heads
+    label = (f"tails B={batch} T=S={t} QH={q_heads} KH={kv_heads} "
+             f"D={head_dim} {'causal' if causal else 'non-causal'}, NaN "
+             f"sequence after")
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(7 + int(causal))
-    bufs = [torch.randn((batch + 1, t, h, 128), generator=gen, device=DEVICE
-                        ).to(torch.bfloat16) for h in (32, 8, 8)]
+    gen.manual_seed(7 + int(causal) + head_dim + sum(heads) - 168)
+    bufs = [torch.randn((batch + 1, t, h, head_dim), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+            for h in (q_heads, kv_heads, kv_heads)]
     for buf in bufs:
         buf[batch] = float("nan")
     q, k, v = (buf[:batch] for buf in bufs)
@@ -602,16 +640,79 @@ def phase_flash_tails(causal: bool, batch: int = 2, t: int = 320) -> float:
                                                     ).float(), v, causal)
 
 
-# -- phases 4 to 6: the engines at full width ---------------------------------
+def phase_kernels() -> list[dict]:
+    """Phase 3. Returns the rows of the kernels line: each kernel at the
+    shapes of the engine phase whose launches it reports (``path``):
+    llama3-8b at B=8 and B=1, and gemma at B=8 (gemma-7b's heads; the
+    int8-pool kernel at gemma-2b's, the model that serves it). The
+    llama-1b head_dim, the other prefill buckets, the other gemma shapes
+    and the tails are checked and printed beside them."""
+    rows = []
+    print_split_plans()
+    llama_paths = {"paged_decode_attention": "bf16",
+                   "paged_decode_attention_quant": "int8",
+                   "flash_attention": "dense",
+                   "ragged_decode_attention": "dense"}
+    gemma_rows = {"paged_decode_attention": ("gemma-7b", "gemma-bf16"),
+                  "paged_decode_attention_quant": ("gemma-2b", "gemma-int8"),
+                  "ragged_decode_attention": ("gemma-7b", "gemma-dense")}
+
+    def keep(row: dict, path: str) -> None:
+        rows.append(dict(row, path=path))
+
+    def decode(name: str, what: str, bs: str) -> None:
+        """``what`` names the path and the cache length, ``bs`` the block
+        size (and table width)."""
+        for batch, lens, n in ((8, PAGED_LENS, "B=8"),
+                               (1, [2048], "B=1 len 2048")):
+            keep(phase_decode_kernel(
+                name, f"llama3-8b {what.format(n)} QH=32 KH=8 D=128 {bs}",
+                128, batch=batch, lens=lens), llama_paths[name])
+        phase_decode_kernel(name, f"llama-1b {what.format('B=8')} QH=32 KH=8 "
+                            f"D=64 {bs}", 64)
+        for model, heads in GEMMA_HEADS.items():
+            for batch, lens, n in ((8, PAGED_LENS, "B=8"),
+                                   (1, [2048], "B=1 len 2048")):
+                row = phase_decode_kernel(
+                    name, f"{model} {what.format(n)} QH={heads[0]} "
+                    f"KH={heads[1]} D=256 {bs}", 256, batch=batch, lens=lens,
+                    heads=heads)
+                if batch == 8 and gemma_rows[name][0] == model:
+                    keep(row, gemma_rows[name][1])
+
+    for name in ("paged_decode_attention", "paged_decode_attention_quant"):
+        decode(name, "decode {}", "BS=128 MB=17")
+    for shape in FLASH_SHAPES:
+        row = phase_flash_kernel(*shape)
+        if shape == (2048, 128, True, LLAMA_HEADS):
+            keep(row, "dense")
+        elif shape == (2048, 256, True, GEMMA_HEADS["gemma-7b"]):
+            keep(row, "gemma-dense")
+    for head_dim, heads in ((128, LLAMA_HEADS), *(
+            (256, h) for h in GEMMA_HEADS.values())):
+        for causal in (True, False):
+            phase_flash_tails(causal, head_dim=head_dim, heads=heads)
+    decode("ragged_decode_attention", "dense decode {} S=2048", "BS=256")
+    return rows
+
+
+# -- phases 4 to 9: the engines at full width ---------------------------------
 
 MAX_NEW = 64
 ENGINES = {
-    # label: (preset, extra load_engine knobs, the kernels of its path)
+    # label: (preset, extra load_engine knobs, the kernels of its path);
+    # knobs paged=False make the dense engine, kv_quant="int8" the int8
+    # pool, and a "-int8" preset int8 weights
     "bf16": ("llama3-8b", {}, ("paged_decode_attention",)),
     "int8": ("llama3-8b-int8", {"kv_quant": "int8"},
              ("paged_decode_attention_quant",)),
     "dense": ("llama3-8b", {"paged": False},
               ("flash_attention", "ragged_decode_attention")),
+    "gemma-bf16": ("gemma-7b", {}, ("paged_decode_attention",)),
+    "gemma-int8": ("gemma-2b-int8", {"kv_quant": "int8"},
+                   ("paged_decode_attention_quant",)),
+    "gemma-dense": ("gemma-7b", {"paged": False},
+                    ("flash_attention", "ragged_decode_attention")),
 }
 
 
@@ -851,11 +952,12 @@ def phase_engine(card: str, kind: str):
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     cfg, ecfg = engine.cfg, engine.ecfg
-    check(engine.paged == (kind != "dense"), f"the {kind} engine has "
+    check(engine.paged == knobs.get("paged", True), f"the {kind} engine has "
           f"paged={engine.paged}")
-    if kind == "int8":
+    if preset.endswith("-int8"):
         check(engine.params["layers"][0]["wq"]["q"].dtype == torch.int8,
               "the int8 preset did not build int8 weights")
+    if knobs.get("kv_quant") == "int8":
         check(engine.kv_cache["k"].dtype == torch.int8, "the pool is not int8")
         # equal-bytes auto sizing: the bf16 pool's blocks x bf16 block bytes
         # // int8 block bytes, + the trash block
@@ -1076,40 +1178,10 @@ def main() -> int:
         card = phase_card()
         # one source holds the three decode kernels, the other the flash one
         phase_build(["paged_decode_attention", "flash_attention"])
-        # one row per kernel, at the main path's shapes; the llama-1b
-        # head_dim and the other prefill buckets are checked and printed
-        # beside them
-        rows = []
-        print_split_plans()
-        for name in ("paged_decode_attention", "paged_decode_attention_quant"):
-            rows.append(phase_decode_kernel(
-                name, "llama3-8b decode B=8 QH=32 KH=8 D=128 BS=128 MB=17",
-                128))
-            rows.append(phase_decode_kernel(
-                name, "llama3-8b decode B=1 len 2048 QH=32 KH=8 D=128 BS=128 "
-                "MB=17", 128, batch=1, lens=[2048]))
-            phase_decode_kernel(
-                name, "llama-1b decode B=8 QH=32 KH=8 D=64 BS=128 MB=17", 64)
-        for shape in FLASH_SHAPES:
-            row = phase_flash_kernel(*shape)
-            if shape == (2048, 128, True):
-                rows.append(row)
-        for causal in (True, False):
-            phase_flash_tails(causal)
-        ragged = "ragged_decode_attention"
-        rows.append(phase_decode_kernel(
-            ragged, "llama3-8b dense decode B=8 S=2048 QH=32 KH=8 D=128 "
-            "BS=256", 128))
-        rows.append(phase_decode_kernel(
-            ragged, "llama3-8b dense decode B=1 len 2048 S=2048 QH=32 KH=8 "
-            "D=128 BS=256", 128, batch=1, lens=[2048]))
-        phase_decode_kernel(
-            ragged, "llama-1b dense decode B=8 S=2048 QH=32 KH=8 D=64 BS=256",
-            64)
+        rows = phase_kernels()
         launches = {}
         for kind in ENGINES:
-            path_launches, engine = phase_engine(card, kind)
-            launches.update(path_launches)
+            launches[kind], engine = phase_engine(card, kind)
             if kind == "bf16":
                 phase_sampled(engine, card)
             if "--profile" in sys.argv[1:]:
@@ -1122,7 +1194,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[row["path"]][row["name"]]
     print(json.dumps({"kernels": rows}))
     from tpu9_torch.utils.platform import device_kind
     print(json.dumps({"ok": True, "device": {

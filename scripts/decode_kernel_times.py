@@ -3,7 +3,8 @@
 ``paged_decode_attention_quant``, B4 ``ragged_decode_attention``) of the
 ``tpu9_torch`` package in ROOT, at ``chip_smoke.py`` phase 3's shapes and
 with its timing method, so that two checkouts' kernels are timed the same
-way, in turns, in one run on one card.
+way, in turns, in one run on one card: llama3-8b's heads at D=128 and
+gemma-7b's and gemma-2b's at D=256 (``chip_smoke.GEMMA_HEADS``).
 
     python3 scripts/decode_kernel_times.py [ROOT] [--candidates | --flash]
 
@@ -17,9 +18,14 @@ and on the device alone, and the wrapper's host time per call.
 on the device, at B=8, B=32 and B=1, each kernel under every split size of
 ``CANDIDATES``, with the package's ``SPLIT_TOKENS`` set to it for the run.
 
+``--candidates`` takes llama3-8b's heads only.
+
 ``--flash`` instead checks and times ROOT's flash kernel (B3
-``flash_attention``) at every shape of ``chip_smoke.FLASH_SHAPES``, beside
-SDPA on the same inputs (``chip_smoke.phase_flash_kernel``).
+``flash_attention``) at every shape of ``chip_smoke.FLASH_SHAPES`` (llama
+and gemma), beside SDPA on the same inputs
+(``chip_smoke.phase_flash_kernel``). Either way, a tree whose kernels take
+no head_dim 256 (before gemma's instances) is timed at the shapes it
+takes.
 """
 
 from __future__ import annotations
@@ -38,14 +44,23 @@ CANDIDATES = (128, 256, 512, 1 << 20)
 
 
 def times(cs, shapes) -> None:
+    from tpu9_torch.ops import paged_attention as pa
+    # model: (head_dim, (q heads, kv heads))
+    models = {"llama3-8b": (128, cs.LLAMA_HEADS),
+              **{m: (256, h) for m, h in cs.GEMMA_HEADS.items()}}
     for name in KERNELS:
-        for label, (batch, lens) in shapes.items():
-            c = cs.decode_kernel_case(name, batch, 128, lens)
-            cs.check_twin(name, label, c["kernel"](), c["want"])
-            print(f"decode kernel {name} [{label} D=128]: "
-                  f"{cs.time_ms(c['kernel']):.4f} ms, device alone "
-                  f"{cs.time_ms(c['kernel'], hold=True):.4f} ms, wrapper host "
-                  f"{cs.host_us(c['kernel']):.1f} us a call")
+        for model, (head_dim, heads) in models.items():
+            if head_dim not in pa.HEAD_DIMS:      # an older tree's kernels
+                continue
+            for label, (batch, lens) in shapes.items():
+                what = (f"{model} {label} QH={heads[0]} KH={heads[1]} "
+                        f"D={head_dim}")
+                c = cs.decode_kernel_case(name, batch, head_dim, lens, heads)
+                cs.check_twin(name, what, c["kernel"](), c["want"])
+                print(f"decode kernel {name} [{what}]: "
+                      f"{cs.time_ms(c['kernel']):.4f} ms, device alone "
+                      f"{cs.time_ms(c['kernel'], hold=True):.4f} ms, wrapper "
+                      f"host {cs.host_us(c['kernel']):.1f} us a call")
 
 
 def candidates(cs, shapes, card: str) -> None:
@@ -66,8 +81,8 @@ def candidates(cs, shapes, card: str) -> None:
                                   c["kernel"](), c["want"])
                     out.append(f"{plan[0]} splits x {plan[1]} blocks "
                                f"{cs.time_ms(c['kernel'], hold=True):.4f} ms")
-                print(f"split candidates {name} [{label} D=128, device "
-                      f"alone]: {'; '.join(out)} ({card})")
+                print(f"split candidates {name} [llama3-8b {label} QH=32 "
+                      f"KH=8 D=128, device alone]: {'; '.join(out)} ({card})")
     finally:
         pa.SPLIT_TOKENS = kept
 
@@ -88,9 +103,11 @@ def main() -> int:
     card = cs.phase_card()
     print(f"kernels of {Path(tpu9_torch.__file__).parent} ({card})")
     if "--flash" in sys.argv[1:]:
+        from tpu9_torch.ops import attention as at
         _build.build_all(["flash_attention"])
         for shape in cs.FLASH_SHAPES:
-            cs.phase_flash_kernel(*shape)
+            if shape[1] in at.FLASH_HEAD_DIMS:    # an older tree's instances
+                cs.phase_flash_kernel(*shape)
         return 0
     _build.build_all(["paged_decode_attention"])
     shapes = {"B=8": (8, cs.PAGED_LENS), "B=1 len 2048": (1, [2048])}

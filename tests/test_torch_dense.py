@@ -182,7 +182,7 @@ def _flash_operands(b=1, t=128, s=128, qh=8, kh=2, d=128,
     (dict(), ""),
     (dict(t=2048, s=2048, qh=32, kh=8, d=64), ""),
     (dict(dtype=torch.float32), "bf16"),
-    (dict(d=256), "ROADMAP queue A3"),
+    (dict(qh=16, kh=16, d=256), ""),           # gemma-7b's prefill
     (dict(d=96), "head_dim"),
     (dict(t=100), "multiples of 64"),
     (dict(kh=3), "kv heads"),
@@ -212,7 +212,7 @@ def _ragged_operands(b=8, t=1, s=2048, qh=32, kh=8, d=128,
     (dict(d=64, s=512), 256, ""),
     (dict(t=2), 256, "one query token"),
     (dict(dtype=torch.float32), 256, "bf16"),
-    (dict(d=256), 256, "ROADMAP queue A3"),
+    (dict(qh=8, kh=1, d=256), 256, ""),        # gemma-2b's decode
     (dict(qh=32, kh=2), 256, "GQA group"),
     (dict(s=640), 256, "multiple of the block size"),
     (dict(), 24, "block size a multiple of 16"),

@@ -2,7 +2,8 @@
 on the CPU, where the kernel cannot run.
 
 ``kernel_model`` repeats the kernel's arithmetic in PyTorch: 128-row q
-tiles over 128-key k/v tiles, zero-filled past T and S as TMA fills them;
+tiles over 128-key k/v tiles (64-key at D = 256), zero-filled past T and S
+as TMA fills them;
 scores in f32, scaled by ``D^-0.5 * log2(e)`` for ``exp2``; keys past S and,
 when causal, keys past the row masked to -1e30 (the kernel masks only the
 tiles that cross the diagonal or S, where the mask can be true); a causal q
@@ -11,7 +12,7 @@ each probability rounded to bf16 for the PV product; the row sum floored at
 1e-30 and the output rounded to bf16.
 
 On the same inputs made from a seed (bf16 values; B=2, GQA 4, T = S = 256
-and 320, which is a multiple of 64 and not of 128; D 64 and 128; causal
+and 320, which is a multiple of 64 and not of 128; D 64, 128 and 256; causal
 and not), the JAX Pallas ``flash_attention`` in interpret mode is the
 reference: the port's twin ``xla_attention`` matches it in f32 at
 ``atol=2e-5``, and the model stays within ``chip_smoke.flash_limit`` of the
@@ -32,7 +33,13 @@ from tpu9_torch.ops import attention as tattn
 
 torch.set_num_threads(2)
 
-TILE = 128
+TILE = 128                    # q rows of a tile
+
+
+def key_tile(d: int) -> int:
+    """Keys of a k/v tile: 64 at D = 256 (the q tile and two stages of
+    128-key k and v tiles would not fit in shared memory), else 128."""
+    return 64 if d == 256 else 128
 ATOL = 2e-5
 LOG2E = 1.4426950408889634
 
@@ -44,29 +51,31 @@ def kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch, t, q_heads, d = q.shape
     s, kv_heads = k.shape[1], k.shape[2]
     group = q_heads // kv_heads
+    bn = key_tile(d)
     scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
 
-    def tiles(x, n):
-        """[B, L, H, D] -> [B, H, n tiles, TILE, D] in f32, zero-filled."""
-        pad = -(-x.shape[1] // TILE) * TILE - x.shape[1]
+    def tiles(x, n, rows):
+        """[B, L, H, D] -> [B, H, n tiles, rows, D] in f32, zero-filled."""
+        pad = n * rows - x.shape[1]
         x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
-        return x.reshape(batch, n, TILE, x.shape[2], d).permute(0, 3, 1, 2, 4)
+        return x.reshape(batch, n, rows, x.shape[2], d).permute(0, 3, 1, 2, 4)
 
-    n_q, n_k = -(-t // TILE), -(-s // TILE)
-    qs = tiles(q, n_q)
-    ks = tiles(k, n_k).repeat_interleave(group, dim=1)
-    vs = tiles(v, n_k).repeat_interleave(group, dim=1)
+    n_q, n_k = -(-t // TILE), -(-s // bn)
+    qs = tiles(q, n_q, TILE)
+    ks = tiles(k, n_k, bn).repeat_interleave(group, dim=1)
+    vs = tiles(v, n_k, bn).repeat_interleave(group, dim=1)
     out = torch.empty((batch, q_heads, n_q, TILE, d), dtype=torch.float32)
     for qt in range(n_q):
         rows = qt * TILE + torch.arange(TILE)
         m = torch.full((batch, q_heads, TILE), -1e30)
         l = torch.zeros((batch, q_heads, TILE))
         o = torch.zeros((batch, q_heads, TILE, d))
-        for j in range(min(n_k, qt + 1) if causal else n_k):
+        # a causal q tile stops at the last key tile its rows reach
+        for j in range(min(n_k, (qt + 1) * TILE // bn) if causal else n_k):
             x = qs[:, :, qt] @ ks[:, :, j].transpose(-1, -2) * scale_log2
-            cols = j * TILE + torch.arange(TILE)
-            masked = (cols >= s)[None, :].expand(TILE, TILE)
+            cols = j * bn + torch.arange(bn)
+            masked = (cols >= s)[None, :].expand(TILE, bn)
             if causal:
                 masked = masked | (cols[None, :] > rows[:, None])
             x = x.masked_fill(masked, -1e30)
@@ -87,7 +96,7 @@ def _bf16_values(rng, shape) -> np.ndarray:
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("t", [256, 320])
 def test_kernel_model_within_chip_tolerance_of_twin_and_jax(t, d, causal):
     rng = np.random.default_rng(1000 + t + d + int(causal))

@@ -13,14 +13,16 @@
 // Query head h reads kv head h / (QH/KH).
 //
 // What bounds it: at the dense engine's prefill buckets (T = S = 128, 512,
-// 2048; QH 32, KH 8, D 128) the tensor-core operations from T = 2048 on
-// (4*D*QH*T(T+1)/2 flops at 989 TFLOP/s against q, k, v and out once at
-// 3.35 TB/s), the bytes below that. The design is FlashAttention-3's shape:
+// 2048; QH 32, KH 8, D 128 for llama3-8b; QH 16, KH 16, D 256 for
+// gemma-7b) the tensor-core operations from T = 2048 on (4*D*QH*T(T+1)/2
+// flops at 989 TFLOP/s against q, k, v and out once at 3.35 TB/s), the
+// bytes below that. The design is FlashAttention-3's shape:
 //
 // - A unit of work is one (128-row q tile, q head, sequence): its CTA walks
-//   the k/v tiles of 128 keys in a loop, with the running max, sum and
-//   output in registers. CUDA blocks run in no order, so the loop takes the
-//   place of the TPU kernel's sequential k grid axis and its VMEM scratch.
+//   the k/v tiles of kBlockN keys (128; 64 at D = 256, below) in a loop,
+//   with the running max, sum and output in registers. CUDA blocks run in
+//   no order, so the loop takes the place of the TPU kernel's sequential k
+//   grid axis and its VMEM scratch.
 // - The grid is persistent: one CTA an SM, each taking its units from the
 //   heaviest-first order in rounds (one place a round, from the other end
 //   in odd rounds, so that short causal units even out long ones). The
@@ -62,6 +64,18 @@
 //   is D/64 panels of [rows][64] bf16, one TMA box each, and the wgmma
 //   descriptors step through the panels (K-major: 32 bytes a k-step inside
 //   a panel; MN-major: the panel stride is the leading byte offset).
+// - D = 256 (gemma) keeps the two 64-row consumer warpgroups and halves
+//   the k/v tile to 64 keys. With 128-key tiles the q tile (64 KB) and two
+//   stages of k and v (4 x 64 KB) would need 320 KB of the SM's 227; with
+//   64-key tiles they take 64 + 4 x 32 = 192 KB. A consumer thread then
+//   holds the 64 x 256 f32 output (128 registers), a 64 x 64 score tile
+//   (32, from an m64n64k16 Q K^T) and its bf16 P fragment (16): 176, about
+//   D=128's 64 + 64 + 32 = 160, inside the 240 that setmaxnreg gives it,
+//   so no instance needs one consumer of 64 rows. O += P V is one m64n256k16
+//   product a 16-key step (N = 256, the largest wgmma N), over 4 panels of
+//   v. A 128-row q tile spans two 64-key tiles, so a causal unit walks
+//   2(qt + 1) of them, and consumer 0's last one is wholly masked (its
+//   probabilities are 0).
 // - The tensor maps are 4-D, (D, heads, sequence, batch), so the rows of a
 //   tile past T or S are zero-filled by TMA and never come from the next
 //   sequence; keys past S are masked to -inf explicitly (a zero key scores
@@ -75,8 +89,9 @@
 //
 // Times: device alone on one H100 80GB HBM3 at 700 W, chip_smoke.time_ms
 // as scripts/decode_kernel_times.py --flash uses it, each variant built
-// from a copy of this package (PERF.md section 6).
-// Not done: head_dim 256 (ROADMAP A3).
+// from a copy of this package (PERF.md section 6). At D = 256 the causal
+// T = 2048 prefill takes 0.077 ms at gemma-7b's heads (SDPA 0.099); the
+// shorter buckets, and gemma-2b's one kv head, trail SDPA by 3-12%.
 
 #include <cuda.h>   // CUtensorMap and its encoder's types; the encoder itself
                     // comes through cudaGetDriverEntryPoint, so no -lcuda
@@ -88,7 +103,6 @@
 namespace {
 
 constexpr int kBlockM = 128;         // q rows per CTA, 64 per consumer warpgroup
-constexpr int kBlockN = 128;         // keys per k/v tile
 constexpr int kStages = 2;           // k/v ring
 constexpr int kThreads = 384;        // producer warpgroup + 2 consumer warpgroups
 constexpr int kPanel = 64;           // bf16 columns of one 128-byte swizzled panel
@@ -98,6 +112,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
+  // keys per k/v tile: 64 at D = 256, where 128-key tiles would not fit
+  // (see the note at the top)
+  static constexpr int kBlockN = D == 256 ? 64 : 128;
   // shared memory: the q tile, then the k and v rings, then the mbarriers;
   // every tile starts on a 1024-byte boundary (one 128-byte swizzle atom is
   // 8 rows of 128 bytes)
@@ -196,6 +213,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
   TPU9_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
            "%61, %62, %63"
+#define TPU9_R128                                                                      \
+  TPU9_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
+           "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+           "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "     \
+           "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "    \
+           "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define TPU9_F128(d, i) TPU9_F32(d, i), TPU9_F32(d, i + 32), TPU9_F32(d, i + 64), TPU9_F32(d, i + 96)
 
 // d (64 x 128, f32) = a (64 x 16) b (16 x 128) [+ d]: both operands K-major
 // in shared memory
@@ -208,8 +232,27 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, f32) = a (64 x 16) b (16 x 64) [+ d]: the 64-key tiles of D = 256
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" TPU9_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TPU9_F32(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N): b MN-major in
 // shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" TPU9_R128
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : TPU9_F128(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -250,24 +293,26 @@ struct Rows {
   int row_min, row_a, row_b, lane;
 };
 
-// The online softmax of one 64 x 128 score tile in place: mask where the
-// tile crosses the diagonal or S, new row maxima (of the raw scores), the
-// factor `alpha` for the output so far, p = 2^(x * scale * log2(e) - max *
-// scale * log2(e)) in `sc` (f32; the scale folded into one FMA), and the
-// running sums.
-template <bool kCausal>
-__device__ __forceinline__ void online_softmax(float (&sc)[64], Rows& r, float (&alpha)[2], int j,
-                                               int seq_k, float scale_log2) {
+// The online softmax of one 64 x kBlockN score tile in place: mask where
+// the tile crosses the diagonal or S, new row maxima (of the raw scores),
+// the factor `alpha` for the output so far, p = 2^(x * scale * log2(e) -
+// max * scale * log2(e)) in `sc` (f32; the scale folded into one FMA), and
+// the running sums.
+template <bool kCausal, int kBlockN>
+__device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], Rows& r,
+                                               float (&alpha)[2], int j, int seq_k,
+                                               float scale_log2) {
+  constexpr int kN = kBlockN / 2;
   if ((kCausal && j * kBlockN + kBlockN - 1 > r.row_min) || (j + 1) * kBlockN > seq_k) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kN; ++i) {
       const int col = j * kBlockN + (i / 4) * 8 + (r.lane % 4) * 2 + (i & 1);
       if (col >= seq_k || (kCausal && col > ((i / 2) % 2 ? r.row_b : r.row_a))) sc[i] = kNegInf;
     }
   }
   float mx[2] = {r.m[0], r.m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  for (int i = 0; i < kN; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
   float ms[2], rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -278,7 +323,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], Rows& r, float (
     ms[i] = mx[i] * scale_log2;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kN; ++i) {
     sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[(i / 2) % 2]));
     rs[(i / 2) % 2] += sc[i];
   }
@@ -288,9 +333,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], Rows& r, float (
 
 // P in the A fragment of each 16-key step kk: score chunks 2kk and 2kk + 1
 // rounded to bf16, in the accumulator's own register order
-__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[8][4]) {
+template <int kSteps>
+__device__ __forceinline__ void pack_p(const float (&sc)[8 * kSteps], uint32_t (&pa)[kSteps][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 }
@@ -309,7 +355,7 @@ struct Work {
   int h, b, q0, n_tiles;
 };
 
-template <bool kCausal>
+template <bool kCausal, int kBlockN>
 __device__ __forceinline__ Work work_at(int idx, int q_tiles, int q_heads, int batch, int seq_k) {
   const int per_tile = q_heads * batch;
   const int qt = q_tiles - 1 - idx / per_tile;
@@ -318,7 +364,8 @@ __device__ __forceinline__ Work work_at(int idx, int q_tiles, int q_heads, int b
   w.b = (idx % per_tile) / q_heads;
   w.q0 = qt * kBlockM;
   w.n_tiles = (seq_k + kBlockN - 1) / kBlockN;
-  if (kCausal) w.n_tiles = min(w.n_tiles, qt + 1);          // tiles past the diagonal see nothing
+  // tiles past the diagonal see nothing
+  if (kCausal) w.n_tiles = min(w.n_tiles, (qt + 1) * (kBlockM / kBlockN));
   return w;
 }
 
@@ -335,6 +382,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
              const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
              int batch, int seq_q, int seq_k, int q_heads, int kv_heads, float scale_log2) {
   using L = Layout<D>;
+  constexpr int kBlockN = L::kBlockN;
   constexpr int kPanels = D / kPanel;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -377,7 +425,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     if (threadIdx.x == 0) {
       int it = 0;
       for (int round = 0; place(round) < n_work; ++round) {
-        const Work w = work_at<kCausal>(place(round), q_tiles, q_heads, batch, seq_k);
+        const Work w = work_at<kCausal, kBlockN>(place(round), q_tiles, q_heads, batch, seq_k);
         // the consumers are done with the last unit's q tile
         if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
         mbar_expect_tx(q_full, L::kQBytes);
@@ -411,11 +459,11 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     r.lane = threadIdx.x % 32;
 
     float o[D / 2];                 // 64 x D accumulator: chunk i of 8 columns in o[4i .. 4i+3]
-    float sc[64];                   // 64 x 128 scores, then probabilities, the same layout
-    uint32_t pa[8][4];              // the probabilities of the tile before, in bf16
+    float sc[kBlockN / 2];          // 64 x kBlockN scores, then probabilities, the same layout
+    uint32_t pa[kBlockN / 16][4];   // the probabilities of the tile before, in bf16
     float alpha[2];                 // its factor for the output so far
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
 
     // S = Q K^T for k/v tile it: D/16 k-steps, 4 per 64-column panel, 32
     // bytes apart
@@ -431,8 +479,8 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       }
       wgmma_commit();
     };
-    // O = O * alpha + P V for k/v tile it: 8 key steps of 16 rows (2048
-    // bytes) each; the D panels are the leading byte offset apart
+    // O = O * alpha + P V for k/v tile it: kBlockN/16 key steps of 16 rows
+    // (2048 bytes) each; the D panels are the leading byte offset apart
     auto pv = [&](int it) {
       const uint32_t vs = v_sh + (it % kStages) * L::kKVBytes;
       rescale(o, alpha);
@@ -440,7 +488,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       fence_operands(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
         wgmma_pv(o, pa[kk], smem_desc(vs + kk * 16 * kRowBytes, kBlockN * kRowBytes, 1024));
       wgmma_commit();
     };
@@ -457,7 +505,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     if (c == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // consumer 0 goes first
     int it = 0;
     for (int round = 0; place(round) < n_work; ++round) {
-      const Work w = work_at<kCausal>(place(round), q_tiles, q_heads, batch, seq_k);
+      const Work w = work_at<kCausal, kBlockN>(place(round), q_tiles, q_heads, batch, seq_k);
       r.row_min = w.q0 + 64 * c;
       // this thread's two query rows: g and g + 8 of its warp's 16
       r.row_a = r.row_min + 16 * warp + r.lane / 4;
@@ -476,7 +524,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       fence_operands(sc);
       release(empty_k(it));
       if (w.n_tiles == 1) release(q_empty);
-      online_softmax<kCausal>(sc, r, alpha, 0, seq_k, scale_log2);
+      online_softmax<kCausal, kBlockN>(sc, r, alpha, 0, seq_k, scale_log2);
       pack_p(sc, pa);
       // Tile j: Q K_j^T and P_{j-1} V_{j-1} are issued together (the
       // output's rescale between them, where no product holds the output),
@@ -492,7 +540,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
         fence_operands(sc);
         release(empty_k(it + j));
         if (j == w.n_tiles - 1) release(q_empty);           // the q tile is free for the next unit
-        online_softmax<kCausal>(sc, r, alpha, j, seq_k, scale_log2);
+        online_softmax<kCausal, kBlockN>(sc, r, alpha, j, seq_k, scale_log2);
         wgmma_wait<0>();                                    // P_{j-1} V_{j-1} done
         fence_operands(o);
         release(empty_v(it + j - 1));
@@ -589,8 +637,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, k_map, v_map;
   if (!encode_map(encode, &q_map, q, D, q_heads, seq_q, batch, kBlockM) ||
-      !encode_map(encode, &k_map, k, D, kv_heads, seq_k, batch, kBlockN) ||
-      !encode_map(encode, &v_map, v, D, kv_heads, seq_k, batch, kBlockN))
+      !encode_map(encode, &k_map, k, D, kv_heads, seq_k, batch, Layout<D>::kBlockN) ||
+      !encode_map(encode, &v_map, v, D, kv_heads, seq_k, batch, Layout<D>::kBlockN))
     return static_cast<int>(cudaErrorInvalidValue);
   // a persistent grid: one CTA per SM at most, each walking its units of
   // work (the next unit's loads overlap this one's last products)
@@ -629,6 +677,7 @@ extern "C" int tpu9_flash_attention_bf16(const void* q, const void* k, const voi
   if (head_dim == D && (causal != 0) == C)                                                \
     return launch<D, C>(q, k, v, out, batch, seq_q, seq_k, q_heads, kv_heads, scale, s);
   TPU9_CASE(64, true) TPU9_CASE(64, false) TPU9_CASE(128, true) TPU9_CASE(128, false)
+  TPU9_CASE(256, true) TPU9_CASE(256, false)
 #undef TPU9_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

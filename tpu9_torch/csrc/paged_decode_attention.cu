@@ -87,6 +87,12 @@
 //   the end.
 // - Each thread issues the loads of 4-8 token rows before it uses the first
 //   (kUnroll), so every thread keeps 32-128 bytes in flight.
+// - D = 256 (gemma) keeps a thread's share of a row: twice the lanes a
+//   row (a whole warp for 8-element rows) and half the token lanes, so a
+//   thread's registers are those of its D = 128 instance. The reduction
+//   scratch kTokenLanes * G * D floats stays at most 32 KB (G = 8, or G =
+//   4 with 16-element rows), under the 48 KB a launch gets without opting
+//   in, as does the score scratch G * BS floats (32 KB at G = 8, BS = 1024).
 // - Masked positions inside the last valid block are never loaded.
 // - The contiguous cache takes the same path with its implicit table, so it
 //   too reads only ceil(len/BS) blocks of each sequence and nothing past
@@ -457,6 +463,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
                                  max_blocks, n_splits, blocks_per_split, scale, s);
   TPU9_CASE(1, 64) TPU9_CASE(2, 64) TPU9_CASE(4, 64) TPU9_CASE(8, 64)
   TPU9_CASE(1, 128) TPU9_CASE(2, 128) TPU9_CASE(4, 128) TPU9_CASE(8, 128)
+  TPU9_CASE(1, 256) TPU9_CASE(2, 256) TPU9_CASE(4, 256) TPU9_CASE(8, 256)
 #undef TPU9_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

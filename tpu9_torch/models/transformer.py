@@ -12,6 +12,7 @@ in place where the JAX graphs donated the buffer.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -111,6 +112,14 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int = 0,
     dt = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+@functools.cache
+def embed_scale(dim: int, dtype: torch.dtype) -> float:
+    """sqrt(dim) rounded to ``dtype``, as a Python float. Times a tensor
+    of ``dtype`` it gives JAX's ``x * jnp.asarray(dim ** 0.5, dtype)``:
+    the product of two bf16 values is exact in f32 and rounds once."""
+    return torch.full((), dim ** 0.5, dtype=dtype).item()
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -252,7 +261,10 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
     x = params["embed"][tokens.long()].to(cfg.dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.dim ** 0.5, dtype=cfg.dtype, device=x.device)
+        # a Python scalar, so no host-to-device copy (a CUDA-graph capture
+        # refuses one): sqrt(dim) rounded to cfg.dtype first, as the JAX
+        # code rounds it, so the product rounds as JAX's does
+        x = x * embed_scale(cfg.dim, cfg.dtype)
 
     # the rope table must cover every cache slot: a position past it would
     # rotate wrongly (or fault), so catch the shape mismatch up front

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_TILE = 64               # T and S are multiples of this: the kernel's 128-row
                               # tiles zero-fill a 64-row tail
 
@@ -92,9 +92,6 @@ def flash_kernel_supports(q: torch.Tensor, k: torch.Tensor) -> str:
     s, kv_heads = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
         return f"bf16 q and k/v, got {q.dtype} and {k.dtype}"
-    if head_dim == 256:
-        return ("head_dim in (64, 128), got 256: the gemma presets that use "
-                "it are not ported (ROADMAP queue A3)")
     if head_dim not in FLASH_HEAD_DIMS:
         return f"head_dim in {FLASH_HEAD_DIMS}, got {head_dim}"
     if kv_heads == 0 or q_heads % kv_heads:

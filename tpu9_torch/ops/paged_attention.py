@@ -32,7 +32,7 @@ import torch
 from .quant import dequantize_kv
 
 KERNEL = "paged_decode_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 GROUPS = (1, 2, 4, 8)
 MAX_BLOCK_S = 1024
 RAGGED_BLOCK_S = 256          # the JAX ragged kernel's default block_s
@@ -110,9 +110,6 @@ def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 def _instance_supports(q_heads: int, kv_heads: int, head_dim: int,
                        block_s: int) -> str:
     """The checks every instance shares: head_dim, GQA group, block size."""
-    if head_dim == 256:
-        return ("head_dim in (64, 128), got 256: the gemma presets that use "
-                "it are not ported (ROADMAP queue A3)")
     if head_dim not in HEAD_DIMS:
         return f"head_dim in {HEAD_DIMS}, got {head_dim}"
     if kv_heads == 0 or q_heads % kv_heads or q_heads // kv_heads not in GROUPS:

@@ -1,7 +1,8 @@
 """Engine construction from model presets (counterpart of
-``tpu9/serving/presets.py``): the same preset names, the same rule for when
-the engine is paged and the same quantization knobs, with random weights
-drawn on the device from a seed.
+``tpu9/serving/presets.py``): the same llama and gemma preset names (the
+mixtral names wait for the MoE decoder), the same rule for when the engine
+is paged and the same quantization knobs, with random weights drawn on the
+device from a seed.
 
 ``<preset>-int8`` or ``quantize="int8"`` serves int8 weight-only
 projections, on the paged or the dense engine; ``kv_quant="int8"`` stores
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..models.gemma import GEMMA_PRESETS
 from ..models.llama import LLAMA_PRESETS
 from ..models.transformer import init_decoder
 from ..ops.quant import init_quantized_decoder, validate_quant_mode
@@ -23,16 +25,26 @@ from ..utils.platform import default_device
 from .engine import EngineConfig, InferenceEngine
 
 
+PRESETS = {**LLAMA_PRESETS, **GEMMA_PRESETS}
+# the reference's mixtral preset names (``tpu9/models/mixtral.py``): the
+# MoE decoder they need is not ported yet
+MIXTRAL_NAMES = ("mixtral-tiny", "mixtral-8x7b")
+
+
 def resolve_preset(name: str, quantize: Optional[str] = None):
-    """Return ``(DecoderConfig, quantized)`` for a preset name: a
-    ``-int8`` suffix or ``quantize="int8"`` selects int8 weights."""
+    """Return ``(DecoderConfig, quantized)`` for a llama or gemma preset
+    name: a ``-int8`` suffix or ``quantize="int8"`` selects int8 weights.
+    A mixtral name raises ``NotImplementedError``, any other ``KeyError``."""
     quantize = validate_quant_mode(quantize)
     quantized = name.endswith("-int8") or quantize == "int8"
     base = name[:-len("-int8")] if name.endswith("-int8") else name
-    if base not in LLAMA_PRESETS:
+    if base in MIXTRAL_NAMES:
+        raise NotImplementedError(
+            f"model preset {base!r} needs the MoE decoder: ROADMAP queue A10")
+    if base not in PRESETS:
         raise KeyError(f"unknown model preset {base!r}; have "
-                       f"{sorted(LLAMA_PRESETS)}")
-    return LLAMA_PRESETS[base], quantized
+                       f"{sorted(PRESETS)}")
+    return PRESETS[base], quantized
 
 
 def build_params(name: str, seed: int = 0, device=None,
