@@ -55,11 +55,22 @@ Phases, each of which must pass or the script exits non-zero:
    ``load_engine("gemma-2b-int8", kv_quant="int8")`` (int8 weights and
    pool, GQA group 8) and ``load_engine("gemma-7b", paged=False)``.
 
+After phases 4 and 5, KV motion (``phase_kv_motion``), on an engine over
+the same weights with a 1024 MB host tier armed through ``engine_cfg``: a
+prompt with a 512-token prefix served on the device, exported to kvwire
+bytes (header geometry and payload size checked), dropped and adopted,
+served again, exported again, down-paged to host DRAM and served again
+(an up-page), and a stream in flight exported, adopted and resumed: the
+same greedy tokens, byte-identical re-exports, one host hit and one
+up-page, no pool tensor moved and no graph built after warmup; then
+export, adopt, down-page and up-page of the prefix timed beside a plain
+pinned copy of the same bytes.
+
 The kernel launch counts are zeroed just before each engine phase's
-requests and read just after: each decode kernel of the phase's path must
-have launched ``n_layers x decode steps`` times (a replayed window adds the
-launches its capture counted), the flash kernel (dense path)
-``n_layers x prefills``, and every other kernel never.
+requests (and the KV-motion phase's) and read just after: each decode
+kernel of the phase's path must have launched ``n_layers x decode steps``
+times (a replayed window adds the launches its capture counted), the flash
+kernel (dense path) ``n_layers x prefills``, and every other kernel never.
 
 With ``--profile``, one replay of each engine's captured 8-step decode
 window and one fused admission group of each paged engine (one bucket-2048
@@ -1065,6 +1076,275 @@ def phase_engine(card: str, kind: str):
     return {name: launches[name] for name in path_kernels}, engine
 
 
+# -- after phases 4 and 5: the KV cache leaves the card ------------------------
+
+KV_PREFIX = 512                   # tokens of the prefix that moves
+KV_HOST_MB = 1024                 # the host tier's budget
+KV_NEW = 32                       # tokens of each served prompt
+DRAIN_NEW = 128                   # budget of the drained stream
+DRAIN_AT = 20                     # tokens read before the drain export
+KV_REPS = 5                       # timed repetitions of each motion
+
+
+def _host_ms(fn, setup=None, reps: int = KV_REPS) -> float:
+    """Median host-clock milliseconds of ``fn`` between two device
+    synchronizations (``setup`` runs untimed before each call)."""
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def judge_resume(engine, prompt: list[int], want: list[int],
+                 got: list[int]) -> str:
+    """A resumed greedy stream against the uninterrupted one. The resume
+    prefills the delivered tokens in a chunk where the uninterrupted
+    stream decoded them one by one, so in bf16 the two may round apart:
+    they pass when identical, or when at their first fork both tokens are
+    within 1% of the logit range of the maximum of a plain no-cache
+    forward over the common prefix (a tie, as ``reference_check`` judges
+    forks). Tokens past a fork are not compared."""
+    from tpu9_torch.models.transformer import decoder_forward
+    check(len(got) == len(want), f"resume gave {len(got)} tokens, the "
+          f"uninterrupted stream {len(want)}")
+    fork = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), -1)
+    if fork < 0:
+        return "identical"
+    seq = prompt + want[:fork]
+    tokens = torch.tensor([seq], dtype=torch.int64, device=engine.device)
+    with torch.no_grad():
+        row = decoder_forward(engine.params, tokens, engine.cfg)[0, -1].float()
+    span = float(row.max() - row.min())
+    gaps = [float(row.max() - row[t]) / span for t in (want[fork], got[fork])]
+    check(max(gaps) <= 0.01, f"resume forks at token {fork}: "
+          f"{got[fork]} against {want[fork]}, gaps {gaps} of the logit range")
+    return (f"first fork at token {fork} of {len(want)}, a tie (gaps "
+            f"{gaps[0]:.3%} and {gaps[1]:.3%} of the logit range)")
+
+
+def phase_kv_motion(engine, card: str, kind: str) -> None:
+    """The KV cache leaves the card and comes back, on an engine over the
+    phase's weights with a host tier armed through ``engine_cfg``:
+
+    1. a prompt with a 512-token prefix is served twice (the second run
+       reuses the cached prefix on the device);
+    2. ``export_prefix_kv``: the header's geometry and the payload's size;
+    3. the entry is dropped and the payload adopted (``adopt_kv``);
+    4. the prompt again: the device-prefix run's tokens, one adopted entry,
+       one import hit, a prefix hit;
+    5. a second export gives the same bytes;
+    6. the entry down-pages to host DRAM at an idle boundary, then the
+       prompt again: the same tokens, one host hit, one up-page, and the
+       same bytes on export;
+    7. a stream in flight is exported (``export_request_kv``), adopted,
+       and continued from prompt + delivered tokens, against the
+       uninterrupted stream (``judge_resume``).
+
+    The path's decode kernel launches ``n_layers x decode steps`` times
+    (counts zeroed just before, read just after), the others never; no
+    pool tensor changes address and no graph is built after warmup. Then
+    export, adopt, down-page and up-page of the prefix are timed beside a
+    plain pinned copy of the same bytes in the same direction."""
+    import dataclasses
+    from tpu9_torch.serving import kvwire
+    from tpu9_torch.serving.engine import InferenceEngine
+    from tpu9_torch.serving.kvpool import host_planes
+    from tpu9_torch.serving.paged_kv import PrefixCache, kv_block_bytes
+
+    path_kernel = ENGINES[kind][2][0]
+    cfg = engine.cfg
+    ecfg = dataclasses.replace(engine.ecfg, kv_host_pool_mb=KV_HOST_MB)
+    t0 = time.perf_counter()
+    e = InferenceEngine(engine.params, cfg, ecfg, device=DEVICE)
+    e.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(e.pool.tiered, f"kv {kind}: no host tier with kv_host_pool_mb "
+          f"{KV_HOST_MB}")
+    bs = ecfg.kv_block_size
+    n_blocks = KV_PREFIX // bs
+    plane_bytes = n_blocks * kv_block_bytes(cfg, bs, e.kv_quant)
+    ptrs = {name: t.data_ptr() for name, t in e.kv_cache.items()}
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab_size, KV_PREFIX).tolist()
+    prompt = prefix + rng.integers(0, cfg.vocab_size, 88).tolist()
+    drain_prompt = rng.integers(0, cfg.vocab_size, 500).tolist()
+    key = PrefixCache._key(prefix)
+
+    def header_of(payload: bytes) -> dict:
+        header, off = kvwire.decode_header(payload)
+        check(len(payload) == off + plane_bytes and sum(
+            r["nbytes"] for r in header["planes"]) == plane_bytes,
+            f"kv {kind}: payload of {len(payload)} bytes, header ends at "
+            f"{off}, planes should hold {plane_bytes}")
+        return header
+
+    async def main_path():
+        await e.start()
+        try:
+            steps0 = e.stats()["decode_steps"]
+            for name in KERNELS:
+                wrapper(name).launches = 0
+            first = await e.generate(prompt, max_new_tokens=KV_NEW)
+            on_device = await e.generate(prompt, max_new_tokens=KV_NEW)
+            payload = e.export_prefix_kv(prompt)
+            check(payload is not None, f"kv {kind}: nothing to export")
+            header = header_of(payload)
+            e.prefix_cache.drop(key)
+            check(e.adopt_kv(payload), f"kv {kind}: adopt_kv declined")
+            adopted = await e.generate(prompt, max_new_tokens=KV_NEW)
+            after_adopt = e.stats()
+            again = e.export_prefix_kv(prompt)
+            entry = e.prefix_cache.acquire_for_export(prompt)
+            e.prefix_cache.release_pin(entry)
+            check(e.pool.downpage(e._pool_dict(), entry),
+                  f"kv {kind}: the down-page was refused")
+            check(entry.tier == "host", f"kv {kind}: entry still on device")
+            uppaged = await e.generate(prompt, max_new_tokens=KV_NEW)
+            after_uppage = e.stats()
+            third = e.export_prefix_kv(prompt)
+            ref = await e.generate(drain_prompt, max_new_tokens=DRAIN_NEW)
+            req = await e.generate(drain_prompt, max_new_tokens=DRAIN_NEW,
+                                   request_id="kv-drain", stream=True)
+            for _ in range(DRAIN_AT):
+                check(await req.queue.get() is not None, "stream ended early")
+            drained = e.export_request_kv("kv-drain")
+            delivered = list(req.generated)
+            e.cancel_request(req)
+            await asyncio.wait_for(req.done.wait(), 120)
+            check(drained is not None, f"kv {kind}: nothing to drain")
+            check(e.adopt_kv(drained), f"kv {kind}: drained adopt declined")
+            rest = await e.generate(drain_prompt + delivered,
+                                    max_new_tokens=DRAIN_NEW - len(delivered))
+            launches = {name: wrapper(name).launches for name in KERNELS}
+            steps = e.stats()["decode_steps"] - steps0
+        finally:
+            await e.stop()
+        return (first, on_device, payload, header, adopted, after_adopt,
+                again, uppaged, after_uppage, third, ref, drained, delivered,
+                rest, launches, steps)
+
+    (first, on_device, payload, header, adopted, after_adopt, again, uppaged,
+     after_uppage, third, ref, drained, delivered, rest, launches,
+     steps) = asyncio.run(main_path())
+    torch.cuda.synchronize()
+    want = {name: 0 for name in KERNELS}
+    want[path_kernel] = cfg.n_layers * steps
+    check(steps > 0 and launches == want, f"kv {kind}: launches {launches}, "
+          f"expected {want} ({cfg.n_layers} layers, {steps} decode steps)")
+    geo = kvwire.geometry(cfg, ecfg, e.kv_quant)
+    check({k: header[k] for k in geo} == geo and header["n_blocks"] ==
+          n_blocks and header["n_tokens"] == KV_PREFIX,
+          f"kv {kind}: header {header} against geometry {geo}")
+    check(adopted == on_device, f"kv {kind}: the adopted prefix served "
+          f"{adopted}, the device prefix {on_device}")
+    check(after_adopt["prefix_cache"]["adopted"] == 1
+          and after_adopt["kvwire_import_hits"] == 1
+          and after_adopt["prefix_cache"]["hits"] == 2,
+          f"kv {kind}: after the adopt {after_adopt['prefix_cache']}, "
+          f"{after_adopt['kvwire_import_hits']} import hits")
+    check(again == payload and third == payload, f"kv {kind}: a re-export "
+          f"differs from the first export")
+    check(uppaged == on_device, f"kv {kind}: the up-paged prefix served "
+          f"{uppaged}, the device prefix {on_device}")
+    check(after_uppage["kvtier_hits_host"] == 1
+          and after_uppage["kvtier_uppages"] == 1
+          and after_uppage["kvtier_downpages"] == 0,
+          f"kv {kind}: after the up-page hits_host "
+          f"{after_uppage['kvtier_hits_host']}, uppages "
+          f"{after_uppage['kvtier_uppages']}")
+    dh, _ = kvwire.decode_header(drained)
+    check(dh["n_tokens"] == (len(drain_prompt) + len(delivered)) // bs * bs,
+          f"kv {kind}: drained {dh['n_tokens']} tokens of "
+          f"{len(drain_prompt)} + {len(delivered)}")
+    resume = judge_resume(e, drain_prompt, ref, delivered + rest)
+    stats = e.stats()
+    check(stats["graph_compiles_post_warmup"] == 0, f"kv {kind}: "
+          f"{stats['graph_compiles_post_warmup']} graphs built after warmup")
+    moved = {name: t.data_ptr() for name, t in e.kv_cache.items()}
+    check(moved == ptrs, f"kv {kind}: pool tensors moved: {ptrs} -> {moved}")
+    print(f"kv {kind}: engine with a {KV_HOST_MB} MB host tier over the "
+          f"{cfg.dtype} weights, warmup {t_warm:.2f} s; prefix "
+          f"{KV_PREFIX} tokens = {n_blocks} blocks of {bs} = {plane_bytes} "
+          f"plane bytes, payload {len(payload)} bytes; first run "
+          f"{'equals' if first == on_device else 'differs from'} the "
+          f"device-prefix run; adopted, re-exported and up-paged prefixes "
+          f"served the device-prefix run's {KV_NEW} tokens; re-exports "
+          f"byte-identical; drained stream at {len(delivered)} tokens "
+          f"({dh['n_tokens']} tokens shipped), resume {resume}")
+    print(f"kv {kind}: launches {launches} ({cfg.n_layers} layers, {steps} "
+          f"decode steps); pool addresses unchanged; graph_compiles_post_"
+          f"warmup 0; host tier {e.pool.tier_stats()} ({card})")
+
+    # -- timing: the prefix's motion beside a plain pinned copy -------------
+    def adopt_again():
+        e.prefix_cache.drop(key)
+
+    export_ms = _host_ms(lambda: e.export_prefix_kv(prompt))
+    adopt_ms = _host_ms(lambda: check(e.adopt_kv(payload), "adopt declined"),
+                        setup=adopt_again)
+    pin = DEVICE == "cuda"
+
+    def pinned_bytes() -> np.ndarray:
+        stats = torch.cuda.host_memory_stats() if pin else {}
+        return np.array([stats.get(f"{k}_bytes.current", 0)
+                         for k in ("allocated", "active")])
+
+    down, down_host, up, pinned = [], [], [], []
+    for _ in range(KV_REPS):
+        entry = e.prefix_cache._entries[key]
+        torch.cuda.synchronize()
+        before = pinned_bytes()
+        t0 = time.perf_counter()
+        check(e.pool.downpage(e._pool_dict(), entry), "down-page refused")
+        t1 = time.perf_counter()
+        host_planes(e.pool.host_tier.peek(key))
+        t2 = time.perf_counter()
+        down_host.append((t1 - t0) * 1e3)
+        down.append((t2 - t0) * 1e3)
+        # what the host tier's budget counts, and what the pinned
+        # allocator handed out for it (it rounds blocks up)
+        pinned.append((e.pool.host_tier.used_bytes,
+                       *(int(b) for b in pinned_bytes() - before)))
+        hit = e.prefix_cache.lookup(prompt)
+        planes = e.pool.uppage_planes(hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.pool.complete_uppage(e._pool_dict(), hit, planes)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+        e.prefix_cache.release_pin(hit)
+    dev = torch.empty(plane_bytes, dtype=torch.uint8, device=DEVICE)
+    host = torch.empty(plane_bytes, dtype=torch.uint8, pin_memory=pin)
+    d2h_ms = _host_ms(lambda: host.copy_(dev, non_blocking=True))
+    h2d_ms = _host_ms(lambda: dev.copy_(host, non_blocking=True))
+
+    def rate(ms: float) -> str:
+        return f"{ms:.3f} ms, {plane_bytes / ms / 1e6:.2f} GB/s"
+
+    for op, ms, yard, way in (
+            ("export", export_ms, d2h_ms, "device to host"),
+            ("adopt", adopt_ms, h2d_ms, "host to device"),
+            ("down-page", float(np.median(down)), d2h_ms, "device to host"),
+            ("up-page", float(np.median(up)), h2d_ms, "host to device")):
+        print(f"kv {kind}: {op} of {KV_PREFIX} tokens ({plane_bytes} bytes): "
+              f"{rate(ms)}; pinned copy_ of the same bytes {way} "
+              f"{rate(yard)} ({card})")
+    print(f"kv {kind}: down-page returns to the serve loop in "
+          f"{float(np.median(down_host)):.3f} ms (its copy lands later); "
+          f"each down-page: (plane bytes the host tier's "
+          f"{e.pool.host_tier.capacity_bytes}-byte budget counts, growth of "
+          f"the pinned allocator's allocated and active bytes) {pinned} "
+          f"({card})")
+    del e, dev, host
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -1184,6 +1464,8 @@ def main() -> int:
             launches[kind], engine = phase_engine(card, kind)
             if kind == "bf16":
                 phase_sampled(engine, card)
+            if kind in ("bf16", "int8"):
+                phase_kv_motion(engine, card, kind)
             if "--profile" in sys.argv[1:]:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads

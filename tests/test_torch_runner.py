@@ -2,17 +2,20 @@
 against the JAX engine on llama-tiny at f32 (the port's params converted
 from the JAX ones by ``params_from_jax``), paged and dense.
 
-``stats()`` carries the JAX engine's key set (the ``kvwire_`` and
-``kvtier_`` families aside, which wait for their ports), with the fields of
-``[surface.engine_stats]`` in ``tpu9/analysis/contracts.toml``; a
+``stats()`` carries exactly the JAX engine's key set, the ``kvwire_``
+family included and, with a host tier, the ``kvtier_`` family, with the
+fields of ``[surface.engine_stats]`` in ``tpu9/analysis/contracts.toml``; a
 cancelled stream frees its slot and blocks; flight records, the profiling
 hook, the black box and the tiering hooks of the pressure heartbeat answer
 as the reference's do. The own copies of the flight recorder and of the
-latency summaries behave as the reference modules. One LocalStack e2e
-serves the torch engine (on the CPU) behind the real runner with the
+latency summaries behave as the reference modules. Two LocalStack e2es
+serve the torch engine (on the CPU) behind the real runner: one with the
 default environment, KV tiering armed: buffered and SSE greed equal to the
 JAX engine's, the pressure heartbeat in the router table, a client
-disconnect that frees the slot, ``/flight`` and ``/profile``."""
+disconnect that frees the slot, ``/flight`` and ``/profile``; the other
+with a shared ``TPU9_KV_CACHE_DIR``, where a JAX replica publishes a
+prefix after prefill and the torch replica serves a request that carries
+``adopt_kv`` from it."""
 
 import asyncio
 import dataclasses
@@ -49,8 +52,8 @@ PAGED = dict(max_batch=2, max_seq_len=128, prefill_buckets=(16, 64),
              prefix_cache_blocks=8, admit_group_chunks=2)
 DENSE = dict(max_batch=2, max_seq_len=128, prefill_buckets=(16, 64),
              decode_steps=(1, 4))
-MODES = {"paged": PAGED, "dense": DENSE}
-FAMILIES = ("kvwire_", "kvtier_")
+MODES = {"paged": PAGED, "dense": DENSE,
+         "paged-tiered": dict(PAGED, kv_host_pool_mb=64)}
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +100,9 @@ def _contract_fields() -> list[str]:
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_stats_keys_equal_the_jax_engine(tiny, mode):
+def test_stats_keys_equal_the_jax_engine(tiny, mode, monkeypatch):
+    monkeypatch.delenv("TPU9_KV_TIER", raising=False)
+    monkeypatch.delenv("TPU9_KV_HOST_POOL_MB", raising=False)
     jeng, teng = _pair(tiny, MODES[mode])
     for e in (jeng, teng):
         e.warmup()
@@ -105,8 +110,16 @@ def test_stats_keys_equal_the_jax_engine(tiny, mode):
     jout = asyncio.run(_serve(jeng, _prompts()))
     tout = asyncio.run(_serve(teng, _prompts()))
     assert tout == jout
+    for e in (jeng, teng):
+        # a kvwire export and a ship sample add their latency keys
+        e.export_prefix_kv(_prompts()[0])
+        e.note_kvwire_ship(0.01)
     js, ts = jeng.stats(), teng.stats()
-    assert set(ts) == {k for k in js if not k.startswith(FAMILIES)}
+    assert set(ts) == set(js)
+    assert any(k.startswith("kvtier_") for k in ts) == mode.endswith("tiered")
+    for key in [k for k in js if k.startswith(("kvwire_", "kvtier_"))
+                and not k.endswith("_s")]:
+        assert ts[key] == js[key], key
     emitted = [f for f in _contract_fields() if f in js]
     assert len(emitted) > 30 and set(emitted) <= set(ts)
     for nested in ("latency", "flight", "profile") + (
@@ -482,3 +495,75 @@ async def test_torch_engine_serves_behind_the_runner():
             json_body={"stub_id": dep["stub_id"], "windows": 2})
         assert status == 200, prof
         assert prof["windows"] == 2 and prof["path"]
+
+
+JAX_LLM_APP = f"""
+import dataclasses
+
+
+def load_engine():
+    # the reference engine over the same llama-tiny weights at f32
+    import jax
+    import jax.numpy as jnp
+    from tpu9.models import init_decoder
+    from tpu9.models.llama import LLAMA_PRESETS
+    from tpu9.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], dtype=jnp.float32,
+                              max_seq_len=2048)
+    return InferenceEngine(init_decoder(jax.random.PRNGKey(0), cfg), cfg,
+                           EngineConfig(**{E2E!r}))
+"""
+
+
+@pytest.mark.e2e
+async def test_torch_replica_adopts_a_prefix_the_jax_replica_published(
+        tmp_path):
+    """A JAX replica serves a prompt with ``export_after_prefill`` and
+    publishes its prefix KV to the shared cache directory; the torch
+    replica then serves the same prompt with ``adopt_kv`` naming that
+    payload: HTTP 200, a counted import hit on its heartbeat, and the JAX
+    replica's tokens."""
+    from tpu9.abstractions.llm import LlmRouter
+    from tpu9.testing.localstack import LocalStack
+
+    prompt = [(i * 7) % 400 + 3 for i in range(40)]    # 2 full blocks
+    common = {"timeout_s": 240.0, "extra": {"runner": "llm"},
+              "keep_warm_seconds": 120.0,
+              "runtime": {"cpu_millicores": 1000, "memory_mb": 3072},
+              "autoscaler": {"max_containers": 1},
+              "env": {"TPU9_KV_CACHE_DIR": str(tmp_path / "kv")}}
+    async with LocalStack() as stack:
+        await stack.deploy_endpoint("llm-jax", {"app.py": JAX_LLM_APP},
+                                    "app:load_engine", config_extra=common)
+        tdep = await stack.deploy_endpoint(
+            "llm-torch-adopt", {"app.py": TORCH_LLM_APP}, "app:load_engine",
+            config_extra=common)
+        # both replicas come up together; the torch one serves a warm-up
+        (status, pub), (wstatus, warm) = await asyncio.gather(
+            stack.api("POST", "/endpoint/llm-jax",
+                      json_body={"tokens": prompt, "max_new_tokens": 8,
+                                 "export_after_prefill": True},
+                      timeout=240),
+            stack.api("POST", "/endpoint/llm-torch-adopt",
+                      json_body={"tokens": [5, 3, 9], "max_new_tokens": 2},
+                      timeout=240))
+        assert status == 200 and wstatus == 200, (pub, warm)
+        assert pub["kv_key"] and pub["n_tokens"] == 32, pub
+        status, out = await stack.api(
+            "POST", "/endpoint/llm-torch-adopt",
+            json_body={"tokens": prompt, "max_new_tokens": 8,
+                       "adopt_kv": {"key": pub["kv_key"],
+                                    "n_tokens": pub["n_tokens"]}},
+            timeout=120)
+        assert status == 200, out
+        assert out["tokens"] == pub["tokens"]
+
+        states = await stack.running_containers(tdep["stub_id"])
+        assert len(states) == 1
+        seen = await _pressure(
+            LlmRouter(stack.store), states[0].container_id,
+            lambda p: int(float(p.get("kvwire_import_hits", 0))) >= 1)
+        assert int(float(seen["kvwire_import_fallbacks"])) == 0
+        assert int(float(seen["kvwire_blocks_imported"])) == 2
+        assert int(float(seen["prefix_hits"])) >= 1

@@ -20,12 +20,18 @@ dense cache). Nothing the window reads is ever reassigned, only written in
 place.
 
 The paged pool is bf16, or int8 with f32 per-vector scales (``kv_quant``).
+Its KV can leave the card: a cached prefix, or an in-flight stream's,
+exports to kvwire bytes and another replica adopts them into its pool
+(``export_prefix_kv``, ``export_request_kv``, ``adopt_kv``); with a host
+tier (``kv_host_pool_mb``) an unpinned prefix down-pages to host DRAM at a
+window boundary under pool pressure and a host hit up-pages it back into
+fresh blocks. Both write the pool in place.
 The runner's surface is the reference's: ``generate(..., trace=)``,
 ``cancel_request``, ``active_stream_requests``, ``flight_records``,
 ``arm_profile`` (``torch.profiler``), ``blackbox``/``last_postmortem``, the
-tiering hooks of the pressure heartbeat, and the ``[surface.engine_stats]``
-key set of ``stats()``. This port leaves out speculative decoding, the
-tracer's engine spans, KV tiering, kvwire and sharding (ROADMAP queue A).
+kvwire and tiering hooks, and the ``[surface.engine_stats]`` key set of
+``stats()``. This port leaves out speculative decoding, the tracer's engine
+spans and sharding (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -45,11 +51,12 @@ from ..models.transformer import DecoderConfig, init_kv_cache
 from ..observability.metrics import Metrics
 from ..ops.quant import validate_quant_mode
 from ..ops.sampling import sample_logits
-from ..utils.platform import default_device, host_to_device
+from ..utils.platform import (default_device, env_kv_host_pool_mb,
+                              env_kv_tier_on, host_to_device)
 from .flight import FlightRecorder
 from .graphs import GraphFactory, WindowState
-from .kvpool import KvPool
-from .paged_kv import blocks_for
+from .kvpool import KvPool, PoolExhausted
+from .paged_kv import PrefixCache, blocks_for
 from .schedule import WindowScheduler
 
 Params = dict[str, Any]
@@ -87,6 +94,10 @@ class EngineConfig:
     # "int8": the pool stores int8 k/v with f32 per-(token, head) scales,
     # auto-sized to the bytes a bf16 pool would take; "" = model dtype
     kv_quant: str = ""
+    # host-DRAM second tier for the paged pool, in MB; 0 disables tiering.
+    # TPU9_KV_HOST_POOL_MB overrides it at engine construction, and
+    # TPU9_KV_TIER=0 forces tiering off regardless
+    kv_host_pool_mb: int = 0
 
 
 @dataclass
@@ -160,7 +171,11 @@ class InferenceEngine:
                 raise ValueError(f"max_seq_len {s} must be a multiple of "
                                  f"prefill_chunk {chunk}")
             self._chunk = chunk
-            self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant)
+            host_mb = env_kv_host_pool_mb(engine_cfg.kv_host_pool_mb)
+            if not env_kv_tier_on() or engine_cfg.prefix_cache_blocks <= 0:
+                host_mb = 0
+            self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant,
+                               host_pool_mb=host_mb)
             self.kv_cache = self.pool.init_arrays()
             self.allocator = self.pool.allocator
             self.prefix_cache = self.pool.prefix_cache
@@ -205,13 +220,30 @@ class InferenceEngine:
         # includes their steps
         self._deferred_windows: list[_Window] = []
         self._inflight_steps = 0
+        # host-tier up-pages in flight, by prefix key: a second admission
+        # hitting the same host entry awaits the first up-page instead of
+        # filling fresh blocks twice
+        self._uppage_inflight: dict = {}
         # spec_* stay 0 until speculative decoding is ported (queue A6)
         self._stats = {"active_streams": 0, "queued": 0,
                        "tokens_generated": 0, "decode_steps": 0,
                        "admit_dispatches": 0,
                        "admit_interleaved_windows": 0,
                        "spec_windows": 0, "spec_proposed": 0,
-                       "spec_accepted": 0, "deadline_expired": 0}
+                       "spec_accepted": 0, "deadline_expired": 0,
+                       # kvwire block-ship accounting, flat so the runner's
+                       # heartbeat forwards them unchanged
+                       "kvwire_exports": 0, "kvwire_export_misses": 0,
+                       "kvwire_blocks_exported": 0,
+                       "kvwire_bytes_exported": 0,
+                       "kvwire_blocks_imported": 0,
+                       "kvwire_bytes_imported": 0,
+                       "kvwire_import_hits": 0,
+                       "kvwire_import_fallbacks": 0,
+                       # kv tiering: paging and recompute accounting
+                       "kvtier_downpages": 0, "kvtier_uppages": 0,
+                       "kvtier_uppage_failures": 0,
+                       "kvtier_peer_spills": 0}
         self._init_observability()
 
     def _init_observability(self) -> None:
@@ -453,6 +485,105 @@ class InferenceEngine:
             raise ValueError(req.error)
         return req.generated
 
+    # -- kvwire export / adopt ----------------------------------------------
+    # Synchronous: these run on the event loop between awaits, so slot,
+    # allocator and prefix-cache state cannot shift underneath them. An
+    # export waits for its gather, which is queued behind the windows in
+    # flight; an adopt queues its copy and returns.
+
+    def export_prefix_kv(self, tokens: list[int]) -> Optional[bytes]:
+        """Serialize the longest prefix-cached block run covering
+        ``tokens`` into a kvwire payload (None = nothing cached). The entry
+        stays PINNED across the gather, so an eviction cannot recycle a
+        block under it."""
+        if not self.paged or self.ecfg.prefix_cache_blocks <= 0:
+            return None
+        entry = self.prefix_cache.acquire_for_export(list(tokens))
+        if entry is None:
+            self._stats["kvwire_export_misses"] += 1
+            return None
+        t0 = time.perf_counter()
+        try:
+            payload = self.pool.export_blocks(
+                self.kv_cache, entry.blocks, entry.key, entry.n_tokens)
+        finally:
+            self.prefix_cache.release_pin(entry)
+        self.metrics.observe("tpu9_kvwire_export_s",
+                             time.perf_counter() - t0)
+        self._stats["kvwire_exports"] += 1
+        self._stats["kvwire_blocks_exported"] += len(entry.blocks)
+        self._stats["kvwire_bytes_exported"] += len(payload)
+        return payload
+
+    def export_request_kv(self, request_id: str) -> Optional[bytes]:
+        """Serialize an in-flight request's full-block KV prefix (prompt +
+        generated so far): the drain-migration export. The slot's own block
+        refs keep the blocks alive; the window in flight only writes
+        positions past the delivered sequence, in blocks past the shipped
+        run. None = request not active or under one full block."""
+        if not self.paged:
+            return None
+        for slot in range(self.ecfg.max_batch):
+            req = self.slot_req[slot]
+            if req is None or not self.active[slot] \
+                    or req.request_id != request_id:
+                continue
+            seq = req.prompt + req.generated
+            bs = self.ecfg.kv_block_size
+            nb = min(len(seq) // bs, len(self.pool.slot_blocks[slot]))
+            if nb <= 0:
+                return None
+            t0 = time.perf_counter()
+            payload = self.pool.export_blocks(
+                self.kv_cache, self.pool.slot_blocks[slot][:nb],
+                PrefixCache._key(seq[:nb * bs]), nb * bs)
+            self.metrics.observe("tpu9_kvwire_export_s",
+                                 time.perf_counter() - t0)
+            self._stats["kvwire_exports"] += 1
+            self._stats["kvwire_blocks_exported"] += nb
+            self._stats["kvwire_bytes_exported"] += len(payload)
+            return payload
+        return None
+
+    def adopt_kv(self, payload: bytes) -> bool:
+        """Write a kvwire payload into fresh pool blocks (in place) and
+        adopt the prefix into the cache, so the next ``generate`` over
+        those tokens admits through the ordinary prefix-reuse path. False =
+        could not adopt (no free block, or the prefix budget): the caller
+        falls back to plain re-prefill. A malformed payload raises
+        :class:`~tpu9_torch.serving.kvwire.KvWireError` before any pool
+        mutation."""
+        if not self.paged or self.ecfg.prefix_cache_blocks <= 0:
+            self._stats["kvwire_import_fallbacks"] += 1
+            return False
+        t0 = time.perf_counter()
+        try:
+            adopted, header = self.pool.import_blocks(self.kv_cache, payload)
+        except PoolExhausted:
+            # no room: re-prefill serves the request from scratch
+            self._stats["kvwire_import_fallbacks"] += 1
+            return False
+        if not adopted:
+            self._stats["kvwire_import_fallbacks"] += 1
+            return False
+        self.metrics.observe("tpu9_kvwire_import_s",
+                             time.perf_counter() - t0)
+        self._stats["kvwire_import_hits"] += 1
+        self._stats["kvwire_blocks_imported"] += int(
+            header.get("n_blocks", 0))
+        self._stats["kvwire_bytes_imported"] += len(payload)
+        return True
+
+    def note_kvwire_ship(self, seconds: float) -> None:
+        """Transport-side ship latency (cache put/get round trip), fed by
+        the runner: the engine never touches the transport."""
+        self.metrics.observe("tpu9_kvwire_ship_s", seconds)
+
+    def note_kvwire_fallback(self) -> None:
+        """A ship that never reached import (fetch failed, no transport):
+        counted so hit against fallback covers the whole path."""
+        self._stats["kvwire_import_fallbacks"] += 1
+
     def flight_records(self, limit: int = 256,
                        since_seq: int = 0) -> list[dict]:
         """Flight-recorder tail (newest last)."""
@@ -510,11 +641,15 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """The ``[surface.engine_stats]`` keys of the reference engine
-        (``tpu9/analysis/contracts.toml``), but for the ``kvwire_`` and
-        ``kvtier_`` families, which wait for their ports. Host state only:
+        (``tpu9/analysis/contracts.toml``), with the ``kvwire_`` family and,
+        when a host tier exists, the ``kvtier_`` family. Host state only:
         a device read here would stall the runner's event loop behind the
         window in flight."""
         out = dict(self._stats)
+        if not self.paged or not self.pool.tiered:
+            # no kvtier_ family without a host tier, as the reference
+            for k in [k for k in out if k.startswith("kvtier_")]:
+                del out[k]
         out["active_streams"] = int(self.active.sum())
         out["queued"] = self._queue.qsize()
         out["engine_dead"] = self._dead_reason is not None
@@ -584,6 +719,27 @@ class InferenceEngine:
                 lat[f"{phase}_count"] = snap["count"]
                 lat[f"{phase}_mean_s"] = round(snap["mean"], 6)
         out["latency"] = lat
+        # kvwire latency percentiles, flat under the counters' prefix:
+        # export/import are the engine's gather and write, ship the
+        # transport round trip the runner reports
+        for op in ("export", "import", "ship"):
+            snap = summaries.get(f"tpu9_kvwire_{op}_s")
+            if snap:
+                out[f"kvwire_{op}_p50_s"] = round(snap["p50"], 6)
+                out[f"kvwire_{op}_p95_s"] = round(snap["p95"], 6)
+        if self.paged and self.pool.tiered:
+            ts = self.pool.tier_stats()
+            for k in ("device_blocks", "device_bytes", "host_blocks",
+                      "host_bytes", "host_entries", "host_evictions"):
+                out[f"kvtier_{k}"] = ts[k]
+            out["kvtier_peer_spills"] = self.pool.peer_spills
+            out["kvtier_hits_device"] = self.prefix_cache.hits_device
+            out["kvtier_hits_host"] = self.prefix_cache.hits_host
+            for op in ("downpage", "uppage"):
+                snap = summaries.get(f"tpu9_kvtier_{op}_s")
+                if snap:
+                    out[f"kvtier_{op}_p50_s"] = round(snap["p50"], 6)
+                    out[f"kvtier_{op}_p95_s"] = round(snap["p95"], 6)
         if self.paged:
             out["kv_blocks_used"] = self.allocator.used_count
             out["kv_blocks_free"] = self.allocator.free_count
@@ -602,32 +758,43 @@ class InferenceEngine:
         return out
 
     # -- the pressure heartbeat's tiering hooks ------------------------------
-    # Only the device tier exists: every entry reads "d", and there are no
-    # spills or tier decisions until the host tier is ported (queue A4).
+    # Event-loop synchronous like the kvwire methods: pure host state.
 
     def kvtier_digest(self, top_k: int = 48) -> str:
         """Bounded top-K prefix-key summary for the directory heartbeat:
-        ``hex16:tier:n_tokens`` comma-joined, MRU first."""
+        ``hex16:tier:n_tokens`` comma-joined (tier ``d`` or ``h``), MRU
+        first."""
         if self.prefix_cache is None:
             return ""
         ents = sorted(self.prefix_cache._entries.values(),
                       key=lambda e: -e.last_used)[:top_k]
-        return ",".join(f"{e.key.hex()[:16]}:d:{e.n_tokens}" for e in ents)
+        return ",".join(
+            f"{e.key.hex()[:16]}:{'h' if e.tier == 'host' else 'd'}"
+            f":{e.n_tokens}" for e in ents)
 
     def kvtier_deltas(self, since: int) -> tuple:
-        """Tier-change journal after cursor ``since`` (evictions the
-        directory must retract) and the new cursor."""
+        """Tier-change journal after cursor ``since`` (evictions, spills
+        and peer hand-offs the directory must apply) and the new cursor."""
         if self.prefix_cache is None:
             return [], 0
         return self.prefix_cache.deltas_since(since)
 
     def drain_kv_spills(self) -> list:
-        """Peer-cache spill payloads: none without a host tier."""
-        return []
+        """Queued peer-cache spill payloads ``(key_hex16, payload,
+        n_tokens)``: the runner owns the transport. Destructive read."""
+        if self.pool is None:
+            return []
+        return self.pool.drain_peer_spills()
 
     def drain_kvtier_decisions(self) -> list:
-        """Journaled ``kv_tier`` decisions: none without a host tier."""
-        return []
+        """Journaled ``kv_tier`` decisions (spill, pull, recompute and
+        evict choices made in the serving plane) for the runner's decision
+        ledger. Destructive read."""
+        if self.pool is None or not self.pool.kv_decisions:
+            return []
+        out = list(self.pool.kv_decisions)
+        self.pool.kv_decisions.clear()
+        return out
 
     # -- observability hooks -------------------------------------------------
     # Host bookkeeping on state the loop already holds: latency observes
@@ -827,6 +994,10 @@ class InferenceEngine:
 
         entry = self.prefix_cache.lookup(req.prompt) \
             if self.ecfg.prefix_cache_blocks > 0 else None
+        if entry is not None and entry.tier == "host":
+            # host-tier hit: write the planes back into fresh blocks before
+            # they can be shared; a lost host copy degrades to a plain miss
+            entry = await self._uppage_entry(entry, req.request_id)
         shared: list[int] = list(entry.blocks) if entry else []
         p = entry.n_tokens if entry else 0
         # cached prefixes end on block boundaries, chunk windows start on
@@ -918,6 +1089,100 @@ class InferenceEngine:
         self.last_token[slot, 0] = first
         self._occupy_slot(req, slot)
         return first
+
+    # -- KV tiering: up-page / down-page -------------------------------------
+
+    async def _uppage_entry(self, entry, request_id: str = ""):
+        """Write a host-tier prefix hit back into fresh pool blocks. The
+        entry arrives PINNED from ``lookup`` and stays pinned for the whole
+        up-page, so neither eviction nor a host reap can destroy it
+        mid-copy. Returns the entry, device-resident and still pinned, or
+        None (pin released) when the host copy is gone or the pool has no
+        free block: the caller recomputes, never errors. A second admission
+        hitting the same entry awaits the first up-page."""
+        cache = self.prefix_cache
+        key = entry.key
+        fut = self._uppage_inflight.get(key)
+        if fut is not None:
+            cache.release_pin(entry)
+            await fut
+            ent = cache._entries.get(key)
+            if ent is None or ent.tier != "device":
+                return None                 # the first up-page failed
+            ent.pins += 1                   # pin again for this admission
+            cache.pinned += 1
+            return ent
+        fut = asyncio.get_running_loop().create_future()
+        self._uppage_inflight[key] = fut
+        t0 = time.perf_counter()
+        try:
+            planes = self.pool.uppage_planes(entry)
+            if planes is None:
+                # the host copy vanished between advertisement and use
+                self._note_recompute(entry, request_id, "host_copy_lost")
+                cache.release_pin(entry)
+                if entry.pins == 0:
+                    cache.drop(key, kind="evict")
+                return None
+            try:
+                self.pool.complete_uppage(self._pool_dict(), entry, planes)
+            except PoolExhausted:
+                # the prefix stays on the host tier for a calmer window;
+                # this admission recomputes
+                self._note_recompute(entry, request_id, "pool_exhausted")
+                cache.release_pin(entry)
+                return None
+            # the copy is queued, not waited for: the admission's own work
+            # is queued behind it on the same stream
+            await asyncio.sleep(0)
+            dt = time.perf_counter() - t0
+            self._stats["kvtier_uppages"] += 1
+            self.metrics.observe("tpu9_kvtier_uppage_s", dt)
+            self.pool.kv_decisions.append(
+                {"decision": "pull", "request_id": request_id,
+                 "chosen": f"host:{key.hex()[:16]}",
+                 "signals": {"n_tokens": entry.n_tokens,
+                             "uppage_s": round(dt, 6)}})
+            return entry
+        except BaseException:
+            cache.release_pin(entry)
+            raise
+        finally:
+            self._uppage_inflight.pop(key, None)
+            if not fut.done():
+                fut.set_result(True)
+
+    def _note_recompute(self, entry, request_id: str, reason: str) -> None:
+        self._stats["kvtier_uppage_failures"] += 1
+        self.pool.kv_decisions.append(
+            {"decision": "recompute", "request_id": request_id,
+             "chosen": "recompute",
+             "rejected": [{"alternative": f"host:{entry.key.hex()[:16]}",
+                           "reason": reason}],
+             "signals": {"n_tokens": entry.n_tokens}})
+
+    def _kvtier_tick(self) -> None:
+        """Window-boundary down-paging: when the scheduler's low-water
+        check fires, LRU unpinned prefix entries spill to host DRAM before
+        allocation pressure lets ``_evict_one`` destroy them. The gathers
+        are queued behind the window in flight; nothing waits for them."""
+        quota = self.scheduler.downpage_quota()
+        if not quota:
+            return
+        for entry in self.prefix_cache.spill_candidates(quota):
+            key_hex = entry.key.hex()[:16]
+            n_tok = entry.n_tokens
+            t0 = time.perf_counter()
+            if not self.pool.downpage(self._pool_dict(), entry):
+                continue
+            dt = time.perf_counter() - t0
+            self._stats["kvtier_downpages"] += 1
+            self.metrics.observe("tpu9_kvtier_downpage_s", dt)
+            self.pool.kv_decisions.append(
+                {"decision": "spill", "chosen": f"host:{key_hex}",
+                 "signals": {"n_tokens": n_tok,
+                             "free_blocks": self.allocator.free_count,
+                             "downpage_s": round(dt, 6)}})
 
     def _interleave_decode_window(self) -> None:
         """Dispatch one decode window for the active batch without syncing
@@ -1113,6 +1378,10 @@ class InferenceEngine:
                     self._drain_windows()
                 continue
 
+            # window boundary: down-page LRU prefixes to host DRAM when the
+            # pool nears eviction pressure (no-op without a host tier)
+            if self.paged and self.pool.tiered:
+                self._kvtier_tick()
             self._profile_window_start()
             self._deferred_windows.append(self._dispatch_window())
             self._profile_window_dispatched()

@@ -1,21 +1,147 @@
-"""Paged KV-pool management (counterpart of ``tpu9/serving/kvpool.py``,
-without the host-DRAM tier and kvwire): pool sizing (equal bytes for an
-int8 pool), the trash-block discipline, slot → physical-block bookkeeping,
-worst-case reservations and the block table, which lives on the device
-at one address for the engine's life (a captured decode window reads it
-there) and is written one row at a time."""
+"""Paged KV-pool management (counterpart of ``tpu9/serving/kvpool.py``):
+pool sizing (equal bytes for an int8 pool), the trash-block discipline,
+slot → physical-block bookkeeping, worst-case reservations, the block
+table, kvwire export/import and the host-DRAM second tier.
+
+Every device tensor of the pool lives at one address for the engine's
+life: a captured decode window reads the pool and the table there. So
+nothing here rebinds a pool tensor. The table is written one row at a
+time, and import and up-page write blocks in place (``index_copy_`` on
+the block axis). Export and down-page gather blocks with ``index_select``
+on the current stream, behind the windows already queued there (the
+order XLA gives the reference), and copy them into host memory; every
+later write to those blocks is queued behind that copy on the same
+stream, so a block released right after a down-page is never overwritten
+before it was read. On a CUDA engine the host copies are pinned, so an
+up-page is one asynchronous host-to-device copy.
+"""
 
 from __future__ import annotations
 
-from typing import Any
+import collections
+import time
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..utils.platform import host_to_device
+from . import kvwire
 from .paged_kv import BlockAllocator, PrefixCache, blocks_for, kv_block_bytes
 
 Params = dict[str, Any]
+
+# host-tier spill scoring: a reaped host entry whose hits x recency score
+# clears this goes to the peer cache instead of dying (system prompts and
+# chat-session heads score high, one-shot prompts decay to zero)
+PEER_SPILL_SCORE = 1.0
+PEER_SPILL_HALF_LIFE_S = 300.0
+PEER_SPILL_QUEUE_MAX = 8
+
+# the payload header's informational topology: one card, the reference's
+# single-device ``policy.describe()``
+TOPOLOGY = {"tp": 1, "fsdp": 1, "n_chips": 1}
+
+
+class PoolExhausted(RuntimeError):
+    """No free block even after evicting the prefix cache: an import or
+    up-page under pressure, which falls back to recompute. Its own type,
+    so a device error is never taken for it."""
+
+
+class HostKvTier:
+    """Host-DRAM second tier for the paged KV pool.
+
+    Stores canonical pool planes per prefix key (the layout kvwire ships,
+    as host tensors; pinned on a CUDA engine), so a down-page is one
+    gather off the device, an up-page one scatter back, and a peer-cache
+    spill a pure host ``kvwire.encode_blocks``. With ``kv_quant`` the
+    planes are int8 (+ f32 scales). The byte budget counts plane bytes and
+    is enforced on insert: LRU entries are reaped (the pool scores them
+    for peer spill first); the ``skip`` predicate protects pinned ones.
+    An entry's ``ready`` is the CUDA event after its device-to-host copy
+    (None on the CPU): a host reader of its planes waits on it."""
+
+    def __init__(self, capacity_bytes: int):
+        self.capacity_bytes = int(capacity_bytes)
+        # key -> {"planes", "n_tokens", "n_blocks", "nbytes", "ready"}
+        self._entries: "collections.OrderedDict[bytes, dict]" = \
+            collections.OrderedDict()
+        self.used_bytes = 0
+        self.inserts = 0
+        self.evictions = 0
+        self.rejected = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._entries
+
+    def get(self, key: bytes) -> Optional[dict]:
+        ent = self._entries.get(key)
+        if ent is not None:
+            self._entries.move_to_end(key)
+        return ent
+
+    def peek(self, key: bytes) -> Optional[dict]:
+        return self._entries.get(key)
+
+    def pop(self, key: bytes) -> Optional[dict]:
+        ent = self._entries.pop(key, None)
+        if ent is not None:
+            self.used_bytes -= ent["nbytes"]
+        return ent
+
+    def put(self, key: bytes, planes: dict, n_tokens: int,
+            n_blocks: int, skip=None, ready=None) -> tuple[bool, list]:
+        """Insert (or refresh) an entry, reaping LRU entries to fit.
+        Returns ``(stored, reaped)``: ``reaped`` lists the ``(key, entry)``
+        pairs evicted to make room. ``skip(key)`` excludes entries from
+        reaping."""
+        if key in self._entries:
+            self.pop(key)
+        nbytes = sum(int(p.nbytes) for p in planes.values())
+        if nbytes > self.capacity_bytes:
+            self.rejected += 1
+            return False, []
+        reaped: list = []
+        while self.used_bytes + nbytes > self.capacity_bytes:
+            victim = self._reap_one(skip)
+            if victim is None:
+                # it does not fit without touching skip-protected residents
+                self.rejected += 1
+                return False, reaped
+            reaped.append(victim)
+        self._entries[key] = {"planes": planes, "n_tokens": int(n_tokens),
+                              "n_blocks": int(n_blocks), "nbytes": nbytes,
+                              "ready": ready}
+        self.used_bytes += nbytes
+        self.inserts += 1
+        return True, reaped
+
+    def _reap_one(self, skip=None):
+        for key in self._entries:           # OrderedDict: LRU first
+            if skip is not None and skip(key):
+                continue
+            ent = self.pop(key)
+            self.evictions += 1
+            return key, ent
+        return None
+
+    def stats(self) -> dict:
+        return {"entries": len(self._entries),
+                "bytes": self.used_bytes,
+                "capacity_bytes": self.capacity_bytes,
+                "inserts": self.inserts, "evictions": self.evictions,
+                "rejected": self.rejected}
+
+
+def host_planes(ent: dict) -> dict:
+    """A host-tier entry's planes, once its device-to-host copy landed."""
+    if ent.get("ready") is not None:
+        ent["ready"].synchronize()
+    return ent["planes"]
 
 
 class KvPool:
@@ -24,7 +150,8 @@ class KvPool:
     per-slot physical-block state the serve loop mutates. ``kv_quant``
     makes the pool int8 with f32 scale planes."""
 
-    def __init__(self, cfg, ecfg, device, kv_quant: bool = False):
+    def __init__(self, cfg, ecfg, device, kv_quant: bool = False,
+                 host_pool_mb: int = 0):
         b, s = ecfg.max_batch, ecfg.max_seq_len
         bs = ecfg.kv_block_size
         self.cfg = cfg
@@ -61,6 +188,23 @@ class KvPool:
         self.table_np = np.zeros((b, self.mb), dtype=np.int32)
         self.table = torch.from_numpy(self.table_np.copy()).to(device)
         self.kv_allocs = 0           # lifetime block allocations
+        # -- host-DRAM second tier; inert at 0 MB ----------------------------
+        self.host_pool_mb = int(host_pool_mb)
+        self.host_tier: Optional[HostKvTier] = None
+        self.downpages = 0
+        self.uppages = 0
+        self.peer_spills = 0
+        # (key_hex16, payload, n_tokens) encoded for the peer cache; the
+        # runner drains this (the serving plane never touches transport)
+        self.peer_spill_queue: collections.deque = \
+            collections.deque(maxlen=PEER_SPILL_QUEUE_MAX)
+        # kv_tier decision journal: plain dicts the runner drains into its
+        # decision ledger on the heartbeat loop
+        self.kv_decisions: collections.deque = collections.deque(maxlen=256)
+        if self.host_pool_mb > 0:
+            self.host_tier = HostKvTier(self.host_pool_mb * (1 << 20))
+            # an entry prefilled again on the device drops its host copy
+            self.prefix_cache.on_host_drop = self.host_tier.pop
 
     def init_arrays(self) -> Params:
         """The pool's device state: k/v [L, N, BS, KH, D] (int8 for an
@@ -89,11 +233,248 @@ class KvPool:
             self.prefix_cache.evict_for_space(n)
             got = self.allocator.alloc(n)
         if got is None:
-            raise RuntimeError(
+            raise PoolExhausted(
                 f"KV pool exhausted: need {n}, free "
                 f"{self.allocator.free_count} (reservation bug)")
         self.kv_allocs += n
         return got
+
+    # -- kvwire export / import ----------------------------------------------
+
+    def wire_names(self) -> list[str]:
+        """Pool tensors that ship on the wire, in the reference's order
+        (payload, then int8 scale planes; the table is pool-local)."""
+        return ["k", "v"] + (["k_scale", "v_scale"] if self.kv_quant else [])
+
+    def _block_index(self, blocks: list[int]) -> torch.Tensor:
+        idx = np.asarray(blocks, dtype=np.int64)
+        if self.device.type == "cuda":
+            dev = torch.empty(idx.shape, dtype=torch.int64,
+                              device=self.device)
+            host_to_device(dev, idx)
+            return dev
+        return torch.from_numpy(idx)
+
+    def gather_blocks(self, kv, blocks: list[int]):
+        """Queue a copy of ``blocks`` of every wire plane into host memory
+        (pinned on CUDA) on the current stream, behind the work already
+        queued there. Returns the canonical planes and the CUDA event
+        after the copy (None on the CPU, where the copy is done)."""
+        idx = self._block_index(blocks)
+        planes = {}
+        for name in self.wire_names():
+            got = kv[name].index_select(1, idx)
+            if got.is_cuda:
+                host = torch.empty(got.shape, dtype=got.dtype,
+                                   pin_memory=True)
+                host.copy_(got, non_blocking=True)
+                got = host
+            planes[name] = got
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return planes, ready
+
+    def _wire_meta(self, n_blocks: int, n_tokens: int,
+                   prefix_key: bytes) -> dict:
+        meta = kvwire.geometry(self.cfg, self.ecfg, self.kv_quant)
+        meta.update({"n_blocks": int(n_blocks), "n_tokens": int(n_tokens),
+                     "prefix_key": prefix_key.hex(),
+                     "topology": dict(TOPOLOGY)})
+        return meta
+
+    def export_blocks(self, kv, blocks: list[int], prefix_key: bytes,
+                      n_tokens: int) -> bytes:
+        """Gather ``blocks`` of every wire plane into one kvwire payload.
+        Waits for the gather, which runs after the windows in flight. The
+        caller holds a pin on the blocks (prefix-cache export pin or a
+        slot's own refs) for the duration."""
+        planes, ready = self.gather_blocks(kv, blocks)
+        if ready is not None:
+            ready.synchronize()
+        return kvwire.encode_blocks(
+            self._wire_meta(len(blocks), n_tokens, prefix_key), planes)
+
+    def import_blocks(self, kv, payload: bytes) -> tuple[bool, dict]:
+        """Validate a kvwire payload, write it into fresh pool blocks in
+        place and adopt them into the prefix cache under the exporter's
+        key. Returns ``(adopted, header)``. Every validation runs before
+        any allocation or write: a bad payload leaves the pool untouched.
+        ``adopted=False`` means the entry could not fit the prefix budget
+        (its blocks were released; the caller falls back to re-prefill).
+        Raises :class:`PoolExhausted` when no block is free."""
+        header, planes = kvwire.decode_blocks(
+            payload, pin_memory=self.device.type == "cuda")
+        kvwire.check_geometry(
+            header, kvwire.geometry(self.cfg, self.ecfg, self.kv_quant))
+        try:
+            nb = int(header["n_blocks"])
+            n_tokens = int(header["n_tokens"])
+            key = bytes.fromhex(header["prefix_key"])
+        except (KeyError, TypeError, ValueError) as exc:
+            raise kvwire.KvWireError(
+                f"kvwire: missing/malformed prefix metadata: {exc}") from exc
+        if nb <= 0 or not key:
+            raise kvwire.KvWireError(
+                f"kvwire: empty prefix payload (n_blocks={nb})")
+        for name in self.wire_names():
+            if name not in planes:
+                raise kvwire.KvWireError(
+                    f"kvwire: payload missing plane {name!r}")
+            pool_shape = tuple(kv[name].shape)
+            want = (pool_shape[0], nb) + pool_shape[2:]
+            if tuple(planes[name].shape) != want:
+                raise kvwire.KvWireError(
+                    f"kvwire: plane {name!r} shape "
+                    f"{tuple(planes[name].shape)} != pool slice {want}")
+        if self.prefix_cache.contains(key):
+            # this replica already holds the prefix (raced a local
+            # prefill): the adopt is a no-op hit, zero pool work
+            return True, header
+        blocks = self.alloc_blocks(nb)
+        try:
+            self.place_host_blocks(kv, planes, blocks)
+        except Exception:
+            self.allocator.release(blocks)
+            raise
+        if not self.prefix_cache.adopt(key, blocks, n_tokens):
+            self.allocator.release(blocks)
+            return False, header
+        return True, header
+
+    def place_host_blocks(self, kv, planes: dict, blocks: list[int]) -> None:
+        """Write canonical host planes into ``blocks`` of every wire plane,
+        in place (one asynchronous copy from pinned memory per plane on
+        CUDA, queued on the current stream). Shared by the kvwire import
+        and the host-tier up-page."""
+        idx = self._block_index(blocks)
+        for name in self.wire_names():
+            dst = kv[name]
+            dst.index_copy_(1, idx, planes[name].to(
+                device=dst.device, dtype=dst.dtype, non_blocking=True))
+
+    # -- host-DRAM tier: down-page / up-page / peer spill --------------------
+
+    @property
+    def tiered(self) -> bool:
+        return self.host_tier is not None
+
+    def downpage(self, kv, entry) -> bool:
+        """Move one unpinned device prefix entry to the host tier: gather
+        its blocks to host memory, release the pool blocks, keep the entry
+        alive under ``tier="host"``. The gather is queued, not waited for:
+        the serve loop goes on dispatching. False = the host tier could not
+        fit it (``_evict_one`` may destroy it later, as before)."""
+        if self.host_tier is None or entry.pins or not entry.blocks:
+            return False
+        planes, ready = self.gather_blocks(kv, entry.blocks)
+        stored, reaped = self.host_tier.put(
+            entry.key, planes, entry.n_tokens, len(entry.blocks),
+            skip=self._host_pin_guard, ready=ready)
+        self._reap_to_peer(reaped)
+        if not stored:
+            return False
+        self.prefix_cache.spill_to_host(entry)
+        self.downpages += 1
+        return True
+
+    def _host_pin_guard(self, key: bytes) -> bool:
+        """Host-tier reap skip predicate: a pinned host entry has an
+        up-page in flight; its planes must not vanish mid-copy."""
+        ent = self.prefix_cache._entries.get(key)
+        return ent is not None and ent.pins > 0
+
+    def uppage_planes(self, entry) -> Optional[dict]:
+        """The host planes backing a host-tier entry (None = lost a race
+        with a host reap; the caller recomputes)."""
+        if self.host_tier is None:
+            return None
+        ent = self.host_tier.get(entry.key)
+        return None if ent is None else ent["planes"]
+
+    def complete_uppage(self, kv, entry, planes: dict) -> None:
+        """Finish an up-page: write the planes into freshly allocated
+        blocks in place and promote the entry back to device residency.
+        The entry is PINNED by the caller for the whole up-page, and the
+        caller keeps ``planes`` alive until this returns. Raises
+        :class:`PoolExhausted` when no block is free."""
+        blocks = self.alloc_blocks(len(entry.blocks) or
+                                   blocks_for(entry.n_tokens,
+                                              self.ecfg.kv_block_size))
+        try:
+            self.place_host_blocks(kv, planes, blocks)
+        except Exception:
+            self.allocator.release(blocks)
+            raise
+        self.prefix_cache.promote_to_device(entry, blocks)
+        if self.host_tier is not None:
+            self.host_tier.pop(entry.key)
+        self.uppages += 1
+
+    def _reap_to_peer(self, reaped: list) -> None:
+        """Score host-tier reap victims on the hits x recency clock;
+        winners serialize through kvwire onto the peer-spill queue, losers
+        die and their prefix-cache entries are journaled as evicted. Either
+        way the choice leaves a ``kv_tier`` decision record."""
+        now = time.monotonic()
+        for key, ent in reaped:
+            pe = self.prefix_cache._entries.get(key)
+            score = 0.0
+            if pe is not None:
+                age = max(0.0, now - pe.last_used)
+                score = pe.hits * 0.5 ** (age / PEER_SPILL_HALF_LIFE_S)
+            if score >= PEER_SPILL_SCORE:
+                payload = kvwire.encode_blocks(
+                    self._wire_meta(ent["n_blocks"], ent["n_tokens"], key),
+                    host_planes(ent))
+                self.peer_spill_queue.append(
+                    (key.hex()[:16], payload, ent["n_tokens"]))
+                self.peer_spills += 1
+                self.prefix_cache.drop(key, kind="peer")
+                self.kv_decisions.append(
+                    {"decision": "spill",
+                     "chosen": f"peer:{key.hex()[:16]}",
+                     "signals": {"score": round(score, 4),
+                                 "n_tokens": ent["n_tokens"]}})
+            else:
+                self.prefix_cache.drop(key, kind="evict")
+                self.kv_decisions.append(
+                    {"decision": "evict", "chosen": "drop",
+                     "rejected": [{"alternative": f"peer:{key.hex()[:16]}",
+                                   "reason": "score_below_spill_threshold"}],
+                     "signals": {"score": round(score, 4),
+                                 "n_tokens": ent["n_tokens"]}})
+
+    def drain_peer_spills(self) -> list:
+        """Hand the queued peer-cache payloads to the transport owner (the
+        runner). Destructive read; bounded by the deque cap."""
+        out = list(self.peer_spill_queue)
+        self.peer_spill_queue.clear()
+        return out
+
+    def tier_stats(self) -> dict:
+        """Flat occupancy/counter snapshot for the ``kvtier_`` stats family
+        (device bytes priced at the pool's block bytes, host bytes as the
+        planes' bytes)."""
+        bb = kv_block_bytes(self.cfg, self.ecfg.kv_block_size,
+                            self.kv_quant)
+        held = self.prefix_cache.held_blocks
+        out = {"device_blocks": held, "device_bytes": held * bb,
+               "downpages": self.downpages, "uppages": self.uppages,
+               "peer_spills": self.peer_spills,
+               "host_blocks": 0, "host_bytes": 0, "host_entries": 0,
+               "host_evictions": 0}
+        if self.host_tier is not None:
+            hs = self.host_tier.stats()
+            out.update({
+                "host_bytes": hs["bytes"], "host_entries": hs["entries"],
+                "host_blocks": sum(e["n_blocks"] for e in
+                                   self.host_tier._entries.values()),
+                "host_evictions": hs["evictions"]})
+        return out
+
+    # -- the block table ------------------------------------------------------
 
     def push_table(self, slot: int) -> torch.Tensor:
         """Refresh one slot's table row from its block list (trash-padded)

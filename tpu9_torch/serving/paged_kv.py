@@ -1,8 +1,8 @@
 """Host-side block allocator and prefix cache for the paged KV pool: the
 port's own copy of ``tpu9/serving/paged_kv.py`` (allocation, reservations,
-prefix lookup/insert, pins, LRU eviction and the tier-change journal the
-runner's heartbeat ships; the kvwire export/adopt and host-tier
-transitions are not in this slice, so every entry lives on the device).
+prefix lookup/insert, pins, LRU eviction, the kvwire export pin and
+adoption, the device/host tier transitions and the tier-change journal the
+runner's heartbeat ships).
 
 The device cache is a pool of fixed-size blocks that the paged decode
 kernel reads by table lookup; this allocator hands logical sequence
@@ -47,6 +47,13 @@ class PrefixEntry:
     # admissions holding this entry between lookup() and retaining its
     # blocks: eviction must not release blocks out from under them
     pins: int = 0
+    # which tier physically holds the KV: "device" (blocks index the pool)
+    # or "host" (blocks is empty; the planes live in the pool's HostKvTier
+    # until an up-page places them again)
+    tier: str = "device"
+    # lifetime lookup hits; with last_used this is the hits x recency
+    # clock the host tier scores peer-spill candidates by
+    hits: int = 0
 
 
 class BlockAllocator:
@@ -118,18 +125,20 @@ class PrefixCache:
         self.tokens_reused = 0
         self.evictions = 0
         self.pinned = 0         # live lookup pins
-        # kept at 0 until kvwire adoption and the host tier are ported;
-        # the stats surface carries them as the reference does
-        self.adopted = 0
-        self.spills = 0
+        self.adopted = 0        # entries imported off the wire
+        self.spills = 0         # device → host down-pages (prefix survives)
         self.hits_device = 0    # lookup hits by serving tier
         self.hits_host = 0
         # tier-change journal for the fleet's prefix directory: every
-        # eviction appends (seq, kind, key-hex16), so the next heartbeat
-        # retracts the advertisement. Bounded; a consumer that falls
-        # behind resyncs from the full digest.
+        # eviction, spill or peer hand-off appends (seq, kind, key-hex16),
+        # so the next heartbeat retracts or re-tiers the advertisement.
+        # Bounded; a consumer that falls behind resyncs from the full digest.
         self._delta_seq = 0
         self._deltas: collections.deque = collections.deque(maxlen=512)
+        # set by KvPool when host tiering is on: called with the entry key
+        # when a host-tier copy must be discarded (the entry went back to
+        # device residency)
+        self.on_host_drop = None
 
     def _note_delta(self, kind: str, key: bytes) -> None:
         self._delta_seq += 1
@@ -167,9 +176,13 @@ class PrefixCache:
             if entry is not None:
                 entry.last_used = time.monotonic()
                 entry.pins += 1
+                entry.hits += 1
                 self.pinned += 1
                 self.hits += 1
-                self.hits_device += 1
+                if entry.tier == "host":
+                    self.hits_host += 1
+                else:
+                    self.hits_device += 1
                 self.tokens_reused += entry.n_tokens
                 return entry
             nb -= 1
@@ -181,6 +194,46 @@ class PrefixCache:
         self.pinned -= 1
         if entry.pins < 0:
             raise AssertionError("unbalanced prefix-cache pin release")
+
+    # -- kvwire export / adopt -----------------------------------------------
+
+    def acquire_for_export(self,
+                           tokens: list[int]) -> Optional[PrefixEntry]:
+        """Longest cached block-aligned prefix of ``tokens`` held on the
+        device, PINNED for the duration of the payload gather (an eviction
+        interleaved with it must not recycle a block). Separate from
+        :meth:`lookup`: export traffic is not admission traffic and leaves
+        the hit/miss/tokens_reused signals alone. Non-strict: a
+        whole-prompt entry is what a handoff wants to ship. Balance with
+        :meth:`release_pin`."""
+        bs = self.allocator.block_s
+        nb = len(tokens) // bs
+        while nb > 0:
+            entry = self._entries.get(self._key(tokens[:nb * bs]))
+            # host-tier entries hold no pool blocks to gather: walk down
+            # to the longest device-resident prefix
+            if entry is not None and entry.tier == "device":
+                entry.last_used = time.monotonic()
+                entry.pins += 1
+                self.pinned += 1
+                return entry
+            nb -= 1
+        return None
+
+    def adopt(self, key: bytes, blocks: list[int], n_tokens: int) -> bool:
+        """Register an imported prefix under the exporter's key, taking
+        ownership of freshly allocated blocks (ref already 1 from the
+        alloc). False = an entry under this key exists or the entry cannot
+        fit the budget: the caller releases its blocks."""
+        nb = len(blocks)
+        if (nb == 0 or self.max_blocks <= 0 or nb > self.max_blocks
+                or key in self._entries):
+            return False
+        self._entries[key] = PrefixEntry(key=key, blocks=list(blocks),
+                                         n_tokens=n_tokens)
+        self.adopted += 1
+        self._evict_to_budget()
+        return True
 
     def insert(self, prompt: list[int], slot_blocks: list[int]) -> None:
         """Register the prompt's full-block prefix, sharing the slot's
@@ -196,6 +249,17 @@ class PrefixCache:
         ent = self._entries.get(key)
         if ent is not None:
             ent.last_used = time.monotonic()
+            # a host-tier entry prefilled again on the device (recompute
+            # beat the up-page): upgrade it in place, sharing the fresh
+            # slot blocks, and drop the redundant host copy
+            if ent.tier == "host" and not ent.blocks:
+                blocks = slot_blocks[:nb]
+                self.allocator.retain(blocks)
+                ent.blocks = blocks
+                ent.tier = "device"
+                ent.n_tokens = nb * bs
+                if self.on_host_drop is not None:
+                    self.on_host_drop(key)
             return
         blocks = slot_blocks[:nb]
         self.allocator.retain(blocks)
@@ -208,10 +272,12 @@ class PrefixCache:
             pass
 
     def _evict_one(self) -> bool:
-        """Evict the LRU unpinned entry; pinned entries (a lookup handed
-        their blocks to an admission that has not retained them yet) are
-        untouchable."""
-        victims = [e for e in self._entries.values() if e.pins == 0]
+        """Evict the LRU unpinned device entry. Pinned entries (a lookup
+        handed their blocks to an admission that has not retained them
+        yet) are untouchable; host-tier entries hold no pool blocks, so
+        the HostKvTier's byte budget reaps those instead."""
+        victims = [e for e in self._entries.values()
+                   if e.pins == 0 and e.tier == "device"]
         if not victims:
             return False
         oldest = min(victims, key=lambda e: e.last_used)
@@ -220,6 +286,49 @@ class PrefixCache:
         self.evictions += 1
         self._note_delta("evict", oldest.key)
         return True
+
+    # -- host tier transitions -----------------------------------------------
+
+    def spill_candidates(self, n: int) -> list[PrefixEntry]:
+        """Up to ``n`` LRU unpinned device entries: what a window-boundary
+        down-page moves to host DRAM instead of letting ``_evict_one``
+        destroy them."""
+        victims = [e for e in self._entries.values()
+                   if e.pins == 0 and e.tier == "device" and e.blocks]
+        victims.sort(key=lambda e: e.last_used)
+        return victims[:n]
+
+    def spill_to_host(self, entry: PrefixEntry) -> None:
+        """A device entry becomes host-resident: its pool blocks are
+        released (the host tier holds the planes, gathered before any later
+        write to those blocks), the entry survives for lookup."""
+        if entry.pins or entry.tier != "device":
+            raise AssertionError("spill of a pinned or host-tier entry")
+        self.allocator.release(entry.blocks)
+        entry.blocks = []
+        entry.tier = "host"
+        self.spills += 1
+        self._note_delta("spill", entry.key)
+
+    def promote_to_device(self, entry: PrefixEntry,
+                          blocks: list[int]) -> None:
+        """Complete an up-page: freshly allocated blocks (ref already 1)
+        back the entry on the device again. The pool drops the host copy."""
+        if entry.tier != "host" or entry.blocks:
+            raise AssertionError("promote of a device-tier entry")
+        entry.blocks = list(blocks)
+        entry.tier = "device"
+
+    def drop(self, key: bytes, kind: str = "evict") -> None:
+        """Destroy an entry outright (host-tier reap, or a lost host copy),
+        journaling the loss for the directory."""
+        ent = self._entries.pop(key, None)
+        if ent is None:
+            return
+        if ent.blocks:
+            self.allocator.release(ent.blocks)
+        self.evictions += 1
+        self._note_delta(kind, key)
 
     def evict_for_space(self, blocks_needed: int) -> None:
         """Free cache-held blocks until the allocator can satisfy an

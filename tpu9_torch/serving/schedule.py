@@ -1,8 +1,9 @@
 """Window scheduling (counterpart of ``tpu9/serving/schedule.py``): the
-decode-window size and the admission-can-proceed check. Pure host
-arithmetic over the engine's scheduling state; it dispatches nothing, and
-records why it chose a window in ``engine._pick_reason`` (the flight
-recorder's "why was K small" answer)."""
+decode-window size, the admission-can-proceed check and the host tier's
+down-page quota at a window boundary. Pure host arithmetic over the
+engine's scheduling state; it dispatches nothing, and records why it chose
+a window in ``engine._pick_reason`` (the flight recorder's "why was K
+small" answer)."""
 
 from __future__ import annotations
 
@@ -55,3 +56,23 @@ class WindowScheduler:
             if k <= limit:
                 return k
         return e.ecfg.decode_steps[0]
+
+    def downpage_quota(self) -> int:
+        """How many prefix-cache entries this window boundary should
+        down-page to host DRAM: 0 unless the free list has sunk under the
+        low-water mark, where the next burst of admissions would push
+        ``evict_for_space`` into destroying prefixes the host tier could
+        keep. Bounded per boundary, so a pressure spike spreads over
+        windows."""
+        e = self.engine
+        pool = e.pool
+        if pool is None or not pool.tiered:
+            return 0
+        alloc = pool.allocator
+        # low water: an eighth of the pool, or at least two admission
+        # chunks' worth of blocks
+        chunk_blocks = max(1, e._chunk // e.ecfg.kv_block_size)
+        low = max(2 * chunk_blocks, alloc.n_blocks // 8)
+        if alloc.free_count >= low:
+            return 0
+        return 2

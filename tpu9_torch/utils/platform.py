@@ -1,4 +1,4 @@
-"""Device selection for the port.
+"""Device selection and environment gates for the port.
 
 Counterpart of ``tpu9/utils/platform.py`` (``device_kind``/``on_tpu``). Entry
 points run on the GPU unless the caller names another device: a missing GPU
@@ -6,6 +6,8 @@ with no explicit device is an error, never a quiet fall back to the CPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -43,3 +45,25 @@ def host_to_device(dst: torch.Tensor, src: np.ndarray) -> None:
         dst.copy_(src.pin_memory(), non_blocking=True)
     else:
         dst.copy_(src)
+
+
+def env_kv_tier_on() -> bool:
+    """``TPU9_KV_TIER=0`` master-gates KV tiering off: the engine's host
+    tier (the runner's directory extras and the router's prefix directory
+    read the same variable). Unset or anything else leaves it armed; it
+    still only activates where a host pool is sized. Copy of
+    ``tpu9/config.py:env_kv_tier_on``."""
+    return os.environ.get("TPU9_KV_TIER", "") != "0"
+
+
+def env_kv_host_pool_mb(default: int = 0) -> int:
+    """``TPU9_KV_HOST_POOL_MB``: host-DRAM KV tier capacity in MB (0 = no
+    host tier). Overrides ``EngineConfig.kv_host_pool_mb`` at engine
+    construction. Copy of ``tpu9/config.py:env_kv_host_pool_mb``."""
+    raw = os.environ.get("TPU9_KV_HOST_POOL_MB", "").strip()
+    if not raw:
+        return default
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return default
