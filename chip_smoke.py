@@ -29,10 +29,14 @@ Phases, each of which must pass or the script exits non-zero:
    sequence, the flash kernel over causal prefills of 128, 512 and 2048
    tokens, one non-causal shape, and B=2 sequences of 320 tokens (not a
    multiple of its 128-row tiles), causal and not, read from buffers
-   whose sequence after the last is NaN; times the kernel, the twin and
-   one library call with CUDA events, as a host-bound step sees them and
-   on the device alone, and the kernel wrapper's host time per call,
-   beside the bound;
+   whose sequence after the last is NaN; and the paged verify route
+   (``paged_verify_attention`` on a CUDA tensor: a window's B*T queries as
+   one-token rows through B1 or B2) at B=8, T=9 with the window ending at
+   the decode lengths, bf16 and int8 pool, at the three models' heads,
+   against the reference's gather + chunk attention; times the kernel,
+   the twin and one library call with CUDA events, as a host-bound step
+   sees them and on the device alone, and the kernel wrapper's host time
+   per call, beside the bound;
 4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
    (random weights from a seed), ``warmup()`` (which captures each decode
    window size as a CUDA graph: the three must be captured), six
@@ -66,16 +70,30 @@ up-page, no pool tensor moved and no graph built after warmup; then
 export, adopt, down-page and up-page of the prefix timed beside a plain
 pinned copy of the same bytes.
 
+After phases 4, 5 and 6, speculative decoding (``phase_spec``): over the
+phase's weights, an engine of its configuration with ``spec_len=8`` and
+one without (both warmed; the spec engine's verify window must be a
+captured CUDA graph) serve the phase's six prompts (the dense phase: two)
+and two prompts of a repeated short segment, 64 new tokens each: verify
+windows with drafts must run, no graph may be built after warmup, and each
+spec-on stream must equal the spec-off stream up to its first fork, which
+must be a tie; it prints the acceptance rate and decode tokens/s on
+against off.
+
 The kernel launch counts are zeroed just before each engine phase's
-requests (and the KV-motion phase's) and read just after: each decode
-kernel of the phase's path must have launched ``n_layers x decode steps``
-times (a replayed window adds the launches its capture counted), the flash
-kernel (dense path) ``n_layers x prefills``, and every other kernel never.
+requests (and the KV-motion and spec phases') and read just after: each
+decode kernel of the phase's path must have launched ``n_layers x decode
+steps`` times (a replayed window adds the launches its capture counted),
+plus, in a paged spec phase, ``n_layers x verify windows`` (one call a
+layer for a window's B*T rows), the flash kernel (dense path) ``n_layers x
+prefills``, and every other kernel never.
 
 With ``--profile``, one replay of each engine's captured 8-step decode
 window and one fused admission group of each paged engine (one bucket-2048
 prefill of the dense engine) are profiled with ``torch.profiler`` (wall and
-device-busy time, top kernels; full tables under ``build/profile/``).
+device-busy time, top kernels; full tables under ``build/profile/``), and
+after each spec phase one replay of its captured verify window beside its
+8-step decode window, from the same lane state.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device and the rest of
@@ -527,6 +545,97 @@ def phase_decode_kernel(name: str, label: str, head_dim: int,
     return kernel_row(name, label, max_err, times, c["bound"])
 
 
+# a verify window of spec_len 8: T = 9 queries a slot, the window's last
+# position one short of each decode row's length (at least T long)
+VERIFY_T = 9
+VERIFY_LENS = [max(n, VERIFY_T) for n in PAGED_LENS]
+
+
+def verify_route_case(quant: bool, head_dim: int, heads: tuple[int, int],
+                      seed: int) -> dict:
+    """``paged_verify_attention`` on the card at a verify window's shapes:
+    B=8 slots of T=9 queries at positions [len - 9, len), the pool's
+    blocks past each prefix poisoned as in ``paged_case``. The route is
+    B*T one-token rows through B1 (bf16 pool) or B2 (int8 pool); its twin
+    is the reference's gather + chunk attention over a copy whose poisoned
+    blocks are zeroed (for the int8 pool at f32 q, rounded to bf16 once, as
+    the kernel rounds). ``library_ms``: SDPA over the densified cache with
+    the position mask as ``attn_mask``. Bound: each slot's prefix rows
+    (and scales) read once, q read and the output written once, the
+    valid table entries and the positions read once; 4 flops per (q head,
+    dim, attended pair)."""
+    import torch.nn.functional as F
+    from tpu9_torch.ops import attention as at
+    from tpu9_torch.ops import paged_attention as pa
+    case = paged_case(batch=8, q_heads=heads[0], kv_heads=heads[1],
+                      head_dim=head_dim, block_s=128,
+                      max_blocks=2048 // 128 + 1, lens=VERIFY_LENS,
+                      seed=seed, quant=quant)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    q = torch.randn((8, VERIFY_T, heads[0], head_dim), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    k, v, table = case["k"], case["v"], case["table"]
+    positions = (torch.tensor(VERIFY_LENS, dtype=torch.int32,
+                              device=DEVICE)[:, None] - VERIFY_T
+                 + torch.arange(VERIFY_T, dtype=torch.int32, device=DEVICE))
+    scales = (case["ks"], case["vs"]) if quant else ()
+    clean = {n: case[n].clone() for n in ("k", "v", "ks", "vs") if n in case}
+    for t in clean.values():
+        t[case["poison"]] = 0
+    cscales = (clean["ks"], clean["vs"]) if quant else ()
+    qt = q.float() if quant else q
+
+    def twin():
+        return at.xla_paged_verify_attention(qt, clean["k"], clean["v"],
+                                             table, positions, *cscales)
+    dense = [pa.gather_paged(clean[n], table, clean[s] if quant else None)
+             for n, s in (("k", "ks"), ("v", "vs"))]
+    kd, vd = (x.transpose(1, 2).contiguous() for x in dense)
+    qd = q.transpose(1, 2)
+    s_max = kd.shape[2]
+    mask = (torch.arange(s_max, device=DEVICE)[None, None, :]
+            <= positions[:, :, None].long())[:, None]          # [B,1,T,S]
+    pos = sum(VERIFY_LENS)
+    per_vec = head_dim * k.element_size() + (4 if quant else 0)
+    attended = int((positions.long() + 1).sum())
+    bound = roofline_ms(
+        pos * heads[1] * per_vec * 2 + 2 * q.numel() * 2
+        + sum(-(-n // 128) for n in VERIFY_LENS) * 4 + positions.numel() * 4,
+        4 * attended * heads[0] * head_dim)
+    return dict(
+        kernel=lambda: at.paged_verify_attention(q, k, v, table, positions,
+                                                 *scales),
+        twin=twin, want=twin().to(torch.bfloat16).float(),
+        library=lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True),
+        bound=bound)
+
+
+def phase_verify_route(quant: bool, label: str, head_dim: int = 128,
+                       heads: tuple[int, int] = LLAMA_HEADS) -> dict:
+    """The verify route at one shape: one call must launch its decode
+    kernel once (one call for all B*T rows), be finite over the poisoned
+    blocks and within one bf16 ulp of its twin; then timed beside the twin,
+    SDPA and its bound."""
+    name = "paged_decode_attention" + ("_quant" if quant else "")
+    c = verify_route_case(quant, head_dim, heads,
+                          seed=head_dim + sum(heads) + int(quant))
+    launcher = wrapper(name)
+    before = launcher.launches
+    got = c["kernel"]()
+    torch.cuda.synchronize()
+    check(launcher.launches == before + 1,
+          f"paged_verify_attention did not launch {name} once")
+    max_err = check_twin(name, label, got, c["want"])
+    print(f"kernel {name} [{label}]: max_abs_err {max_err:.3e} (tolerance "
+          f"|err| <= 2^-7*|twin| + 1e-4)")
+    times = measure(c["kernel"], c["twin"], c["library"])
+    print_times(name, label, times, c["bound"],
+                "sdpa over the dense cache with the position mask")
+    return kernel_row(name, label, max_err, times, c["bound"])
+
+
 def print_split_plans() -> None:
     from tpu9_torch.ops import paged_attention as pa
     for what, batch, max_blocks, block_s in (
@@ -704,6 +813,18 @@ def phase_kernels() -> list[dict]:
         for causal in (True, False):
             phase_flash_tails(causal, head_dim=head_dim, heads=heads)
     decode("ragged_decode_attention", "dense decode {} S=2048", "BS=256")
+    # the paged verify route: B*T rows through B1 / B2, the spec phases'
+    # paths at llama's heads, gemma's heads checked and printed
+    for quant, path in ((False, "spec-bf16"), (True, "spec-int8")):
+        pool = "int8 pool" if quant else "bf16 pool"
+        keep(phase_verify_route(
+            quant, f"llama3-8b verify B=8 T={VERIFY_T} {pool} QH=32 KH=8 "
+            f"D=128 BS=128 MB=17"), path)
+        for model, heads in GEMMA_HEADS.items():
+            phase_verify_route(
+                quant, f"{model} verify B=8 T={VERIFY_T} {pool} "
+                f"QH={heads[0]} KH={heads[1]} D=256 BS=128 MB=17", 256,
+                heads)
     return rows
 
 
@@ -1345,6 +1466,127 @@ def phase_kv_motion(engine, card: str, kind: str) -> None:
     del e, dev, host
 
 
+# -- after phases 4 to 6: speculative decoding -------------------------------
+
+SPEC_LEN = 8
+
+
+def spec_prompts(vocab: int, kind: str) -> list[list[int]]:
+    """The engine phase's six prompts (the dense phase: two of them) and two
+    made of a short segment repeated, which prompt lookup drafts from at
+    once."""
+    rng = np.random.default_rng(3)
+    cyclers = [(rng.integers(0, vocab, 7).tolist() * 40)[:270],
+               (rng.integers(0, vocab, 13).tolist() * 20)[:200]]
+    prompts = make_prompts(vocab, seed=1)
+    return (prompts[2:4] if kind == "dense" else prompts) + cyclers
+
+
+def _launch_want(kind: str, cfg, steps: int, windows: int,
+                 prefills: int) -> dict:
+    """Each kernel's launches on the spec engine's path: a paged engine's
+    decode kernel once a layer per decode step and once a layer per verify
+    window (all B*T rows in one call); the dense engine's ragged kernel
+    once a layer per decode step and its flash kernel once a layer per
+    prefill (its verify windows take the plain chunk attention)."""
+    want = {name: 0 for name in KERNELS}
+    for name in ENGINES[kind][2]:
+        want[name] = cfg.n_layers * (
+            prefills if name == "flash_attention" else
+            steps if name == "ragged_decode_attention" else steps + windows)
+    return want
+
+
+def phase_spec(engine, card: str, kind: str):
+    """Speculative decoding on the ``kind`` engine's weights: an engine of
+    the phase's configuration with ``spec_len=8`` (the default gate) and
+    one without, both warmed (the spec engine's verify window must be
+    captured), serve the same prompts concurrently, 64 new tokens each.
+    Checks: no graph built after warmup; verify windows ran with real
+    drafts; the path's kernels launched as ``_launch_want`` says (counts
+    zeroed just before the spec engine's requests, read just after); each
+    spec-on stream equals the spec-off stream up to its first fork, and a
+    fork is a tie (``judge_resume``). Prints the acceptance rate and decode
+    tokens/s on against off. Returns the kernels' launches and the spec
+    engine."""
+    import dataclasses
+    from tpu9_torch.serving.engine import InferenceEngine
+    from tpu9_torch.serving.graphs import CapturedWindow
+    cfg = engine.cfg
+    engines = {}
+    for label, s_len in (("off", 0), ("on", SPEC_LEN)):
+        t0 = time.perf_counter()
+        e = InferenceEngine(engine.params, cfg, dataclasses.replace(
+            engine.ecfg, spec_len=s_len), device=DEVICE)
+        e.warmup()
+        torch.cuda.synchronize()
+        engines[label] = (e, time.perf_counter() - t0)
+    on, off = engines["on"][0], engines["off"][0]
+    verify = on.graphs.compiled.get(("verify", SPEC_LEN))
+    check(isinstance(verify, CapturedWindow), f"spec {kind}: the verify "
+          f"window was not captured: {verify}")
+    prompts = spec_prompts(cfg.vocab_size, kind)
+
+    def serve(e, count: bool):
+        async def go():
+            await e.start()
+            try:
+                if count:
+                    for name in KERNELS:
+                        wrapper(name).launches = 0
+                out = await _serve(e, prompts, MAX_NEW)
+                return out, {name: wrapper(name).launches for name in KERNELS}
+            finally:
+                await e.stop()
+        return asyncio.run(go())
+
+    (want_outs, *off_t), _ = serve(off, False)
+    (outs, t_submit, t_firsts, t_end), launches = serve(on, True)
+    torch.cuda.synchronize()
+    stats, off_stats = on.stats(), off.stats()
+    for st, label in ((stats, "on"), (off_stats, "off")):
+        check(st["graph_compiles_post_warmup"] == 0, f"spec {kind}: the spec-"
+              f"{label} engine built {st['graph_compiles_post_warmup']} graphs "
+              f"after warmup")
+    check(stats["spec_enabled"] and stats["spec_windows"] > 0
+          and stats["spec_proposed"] > 0, f"spec {kind}: no verify window "
+          f"with drafts ran: {stats['spec_windows']} windows, "
+          f"{stats['spec_proposed']} drafts")
+    steps, windows = stats["decode_steps"], stats["spec_windows"]
+    want = _launch_want(kind, cfg, steps, windows, len(prompts))
+    check(launches == want, f"spec {kind}: launches {launches}, expected "
+          f"{want} ({cfg.n_layers} layers, {steps} decode steps, {windows} "
+          f"verify windows, {len(prompts)} prefills)")
+    judged = [judge_resume(on, p, w, g)
+              for p, w, g in zip(prompts, want_outs, outs)]
+    forks = sum(j != "identical" for j in judged)
+
+    def decode_tps(outs, t_firsts, t_end):
+        return (sum(len(o) for o in outs) - len(outs)) / (t_end - min(t_firsts))
+
+    tps_on = decode_tps(outs, t_firsts, t_end)
+    tps_off = decode_tps(want_outs, off_t[1], off_t[2])
+    print(f"spec {kind}: spec_len {SPEC_LEN}, gate {on.ecfg.spec_min_accept}; "
+          f"warmup on {engines['on'][1]:.2f} s (verify capture "
+          f"{on.graphs.capture_s.get(('verify', SPEC_LEN), float('nan')):.3f}"
+          f" s), off "
+          f"{engines['off'][1]:.2f} s; {len(prompts)} requests, prompt "
+          f"lengths {[len(p) for p in prompts]}, {MAX_NEW} new tokens each")
+    print(f"spec {kind}: {windows} verify windows, {steps} classic decode "
+          f"steps (spec off: {off_stats['decode_steps']}); drafts proposed "
+          f"{stats['spec_proposed']}, accepted {stats['spec_accepted']}, "
+          f"acceptance rate {stats['spec_acceptance_rate']:.4f}; decode "
+          f"{tps_on:.1f} tokens/s spec on against {tps_off:.1f} spec off "
+          f"({tps_on / tps_off:.3f}x) ({card})")
+    print(f"spec {kind}: launches {launches} ({cfg.n_layers} layers, "
+          f"{steps} decode steps, {windows} verify windows, {len(prompts)} "
+          f"prefills); streams against spec off: "
+          f"{len(prompts) - forks} identical, {forks} forked at a tie: "
+          f"{[j for j in judged if j != 'identical']}")
+    del engines, off
+    return {name: launches[name] for name in ENGINES[kind][2]}, on
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -1390,6 +1632,50 @@ def _profile(fn, label: str, per: int, out_dir: Path) -> None:
           f"{1 - busy_ms / wall_ms:.1%}); top device ms: {top}")
 
 
+PROFILE_LENS = [600, 1212, 128, 1536, 777, 1000, 1800, 400]
+
+
+def _profile_lanes(e) -> list[int]:
+    """All 8 lanes live at ``PROFILE_LENS`` (paged: each lane on its own
+    pool blocks, written into the engine's table in place). Five replays of
+    an 8-step window, or of a 9-position verify window, keep every lane
+    inside its 2048 positions."""
+    b = e.ecfg.max_batch
+    if e.paged:
+        mb = e.pool.mb
+        per_row = mb - 1                            # the last column is trash
+        check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
+        table = e.kv_cache["table"]
+        table.zero_()
+        table[:, :per_row] = 1 + torch.arange(
+            b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
+    e.cache_len.copy_(torch.tensor(PROFILE_LENS, dtype=torch.int32))
+    e._active_dev.fill_(True)
+    e.last_token.zero_()
+    return PROFILE_LENS
+
+
+def profile_spec(engine, card: str, kind: str) -> None:
+    """One replay of the spec engine's captured verify window (B=8, 8
+    drafts a lane, every lane live) beside one of its 8-step decode window,
+    per step, from the same lane state. The engine is done serving."""
+    e = engine
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    b = e.ecfg.max_batch
+    lens = _profile_lanes(e)
+    e._drafts.copy_(torch.randint(0, e.cfg.vocab_size, e._drafts.shape,
+                                  dtype=torch.int32))
+    _profile(e.graphs.verify_fn(SPEC_LEN),
+             f"{kind}_spec_verify_window_B{b}_s{SPEC_LEN}", 1, out_dir)
+    _profile_lanes(e)
+    _profile(e.graphs.decode_k(8), f"{kind}_spec_decode_step_B{b}", 8,
+             out_dir)
+    print(f"profile {kind}: one verify window ({SPEC_LEN} drafts, "
+          f"{SPEC_LEN + 1} positions a lane) and per decode step (B={b}, "
+          f"lengths {lens}) ({card})")
+
+
 def phase_profile(engine, card: str, kind: str) -> None:
     """A replay of the engine's captured 8-step decode window with all 8
     lanes live at the engine phase's prompt lengths (paged: each lane on
@@ -1402,19 +1688,7 @@ def phase_profile(engine, card: str, kind: str) -> None:
     out_dir = ROOT / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
     b = e.ecfg.max_batch
-    lens = [600, 1212, 128, 1536, 777, 1000, 1800, 400]
-    if e.paged:
-        mb = e.pool.mb
-        per_row = mb - 1                            # the last column is trash
-        check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
-        table = e.kv_cache["table"]
-        table.zero_()
-        table[:, :per_row] = 1 + torch.arange(
-            b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
-    # five replays of 8 steps keep every lane inside its 2048 positions
-    e.cache_len.copy_(torch.tensor(lens, dtype=torch.int32))
-    e._active_dev.fill_(True)
-    e.last_token.zero_()
+    lens = _profile_lanes(e)
     k = 8
     _profile(e.graphs.decode_k(k), f"{kind}_decode_step_B{b}", k, out_dir)
     if not e.paged:
@@ -1460,13 +1734,20 @@ def main() -> int:
         phase_build(["paged_decode_attention", "flash_attention"])
         rows = phase_kernels()
         launches = {}
+        profiling = "--profile" in sys.argv[1:]
         for kind in ENGINES:
             launches[kind], engine = phase_engine(card, kind)
             if kind == "bf16":
                 phase_sampled(engine, card)
             if kind in ("bf16", "int8"):
                 phase_kv_motion(engine, card, kind)
-            if "--profile" in sys.argv[1:]:
+            if kind in ("bf16", "int8", "dense"):
+                launches[f"spec-{kind}"], spec = phase_spec(engine, card,
+                                                            kind)
+                if profiling:
+                    profile_spec(spec, card, kind)
+                del spec
+            if profiling:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads
             del engine

@@ -1,10 +1,11 @@
 """The port's graph factory (``tpu9_torch.serving.graphs``) against the JAX
 ``GraphFactory`` on llama-tiny: the compile sentinel counts as the
-reference's does, warmup builds the reference's key set (verify keys
-aside), serving adds no build after it, and a key outside the sealed set
-is one counted and timed miss. The decode window's static device state
-keeps its addresses, sampled windows draw anew each window in the eager
-engine's order, and a replayed window adds the launches its capture
+reference's does, warmup builds the reference's key set (with speculation
+on, its verify keys too), serving adds no build after it, and a key
+outside the sealed set is one counted and timed miss. The window's static
+device state keeps its addresses (the verify buffers too), sampled
+windows draw anew each window in the eager engine's order (a verify window
+one [B, t] draw), and a replayed window adds the launches its capture
 counted (a stand-in graph object: there is no card here)."""
 
 import asyncio
@@ -143,6 +144,37 @@ def test_warmup_keys_equal_the_jax_factory(tiny, mode):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
+def test_warmup_keys_with_spec_equal_the_jax_factory(tiny, mode):
+    """With ``spec_len=8`` warmup builds every key the reference's does,
+    ``("verify", 8)`` among them, and serving speculatively builds no
+    other."""
+    jcfg, jparams, _, _ = tiny
+    ecfg = dict(MODES[mode], spec_len=8)
+    jeng = JaxEngine(jparams, jcfg, JaxEngineConfig(**ecfg))
+    teng = _engine(tiny, ecfg)
+    jeng.warmup()
+    timings = teng.warmup()
+    assert set(teng.graphs.compiled) == set(jeng.graphs.compiled)
+    assert ("verify", 8) in teng.graphs.compiled
+    assert "verify_s8_s" in timings
+    assert teng.graphs.compiles == len(jeng.graphs.compiled)
+    outs = asyncio.run(_serve(teng, _spec_traffic()))
+    assert [len(o) for o in outs] == [n for _, n in _spec_traffic()]
+    stats = teng.stats()
+    assert stats["spec_windows"] > 0
+    assert stats["graph_compiles_post_warmup"] == 0
+    assert set(teng.graphs.compiled) == set(jeng.graphs.compiled)
+
+
+def _spec_traffic():
+    """Two cyclic prompts (prompt lookup proposes at once) and one random
+    one."""
+    rng = np.random.default_rng(9)
+    return [([7, 8, 9] * 6, 40), (rng.integers(1, 500, 30).tolist(), 24),
+            ([4, 5, 6, 7] * 5, 33)]
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 def test_serving_after_warmup_builds_nothing_then_a_forced_key_is_timed(
         tiny, mode):
     teng = _engine(tiny, MODES[mode])
@@ -199,6 +231,118 @@ def test_window_state_keeps_its_addresses(tiny, mode):
         assert teng.kv_cache["table"] is teng.pool.table
         # every slot retired: each table row is back to trash, in place
         assert not teng.pool.table.any()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_verify_buffers_keep_their_addresses(tiny, mode):
+    """The verify window replays the drafts, out and n_acc buffers: speculative
+    serving writes them (and the rest of the window state) in place."""
+    teng = _engine(tiny, dict(MODES[mode], spec_len=8))
+    st = teng.graphs.window
+    assert (st.drafts, st.out, st.n_acc) == (teng._drafts, teng._spec_out,
+                                             teng._n_acc)
+    assert st.drafts.shape == (2, 8) and st.out.shape == (2, 9)
+    assert st.n_acc.shape == (2,)
+    names = ("last_token", "cache_len", "_active_dev", "_toks", "_drafts",
+             "_spec_out", "_n_acc")
+
+    def ptrs():
+        out = {n: getattr(teng, n).data_ptr() for n in names}
+        out.update({f"kv_{n}": t.data_ptr()
+                    for n, t in teng.kv_cache.items()})
+        return out
+
+    before = ptrs()
+    teng.warmup()
+    asyncio.run(_serve(teng, _spec_traffic()))
+    assert teng.stats()["spec_windows"] > 0
+    assert ptrs() == before
+    assert (st.drafts, st.out, st.n_acc) == (teng._drafts, teng._spec_out,
+                                             teng._n_acc)
+
+
+def test_sampled_verify_window_draws_b_by_t_in_the_eager_order(tiny):
+    """temperature > 0: one verify window draws one [B, t, V] uniform from
+    the engine's generator, as the eager forward and ``sample_logits`` over
+    every row would, and the next window draws anew."""
+    import copy
+    _, _, tcfg, tparams = tiny
+    ecfg = EngineConfig(**dict(PAGED, spec_len=4), temperature=0.8,
+                        top_k=50)
+    teng = InferenceEngine(tparams, tcfg, ecfg, device="cpu")
+    teng.warmup()
+    window = teng.graphs.verify_fn(4)
+    b, t = ecfg.max_batch, 5
+
+    def set_state():
+        teng.last_token.copy_(torch.tensor([[7], [11]], dtype=torch.int32))
+        teng.cache_len.copy_(torch.tensor([3, 9], dtype=torch.int32))
+        teng._drafts.copy_(torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]],
+                                        dtype=torch.int32))
+        teng._active_dev.fill_(True)
+
+    set_state()
+    cache = copy.deepcopy(teng.kv_cache)
+    gen = torch.Generator().manual_seed(0)
+    gen.set_state(teng._gen.get_state())
+    window()
+    got = teng._spec_out[:, :t].clone()
+    tokens = torch.tensor([[7, 1, 2, 3, 4], [11, 5, 6, 7, 8]])
+    positions = torch.tensor([[3], [9]]) + torch.arange(t)[None]
+    logits, _ = decoder_forward(tparams, tokens, tcfg, positions=positions,
+                                kv_cache=cache, cache_len=positions[:, 0] + t)
+    want = sample_logits(logits, gen, temperature=0.8, top_k=50)
+    assert want.shape == (b, t)
+    assert torch.equal(got, want.to(torch.int32))
+    assert torch.equal(teng._gen.get_state(), gen.get_state())
+    agree = (tokens[:, 1:] == want[:, :-1]).int().cumprod(1).sum(1)
+    assert torch.equal(teng._n_acc, agree.to(torch.int32))
+    assert torch.equal(teng.cache_len,
+                       torch.tensor([3, 9], dtype=torch.int32) + agree + 1)
+    set_state()
+    window()
+    assert not torch.equal(teng._spec_out[:, :t], got)
+
+
+def test_verify_replay_adds_the_launches_its_capture_counted(tiny,
+                                                            monkeypatch):
+    """On the card the verify window calls each layer's decode wrapper once
+    (the B*T rows in one call; modelled here by the card route in place of
+    the CPU's twin): a capture counts those calls, takes them back, and
+    each replay of the stand-in graph adds them, bf16 pool and int8 pool."""
+    from tpu9_torch.models import transformer
+    from tpu9_torch.ops.attention import verify_as_decode
+    _, _, tcfg, tparams = tiny
+    for kv_quant, name in (("", "paged_decode_attention"),
+                           ("int8", "paged_decode_attention_quant")):
+        wrapped = getattr(pa, name)
+
+        def counting(*args, _w=wrapped):
+            _w.launches += 1             # a CPU call counts nothing itself
+            return _w(*args)
+
+        monkeypatch.setattr(pa, name, counting)
+        monkeypatch.setattr(transformer, "paged_verify_attention",
+                            verify_as_decode)
+        teng = InferenceEngine(tparams, tcfg, EngineConfig(
+            **dict(PAGED, spec_len=4, kv_quant=kv_quant)), device="cpu")
+        start = pa.launch_counts()
+        counted = pa.captured_launches(teng.graphs.verify_fn(4))
+        assert counted == {name: tcfg.n_layers}
+        assert pa.launch_counts() == start
+
+        class StandIn:
+            def replay(self):
+                pass
+
+        window = CapturedWindow(StandIn(), counted)
+        for _ in range(3):
+            window()
+        got = pa.launch_counts()
+        assert got[name] == start[name] + 3 * tcfg.n_layers
+        pa.add_launches({name: -3 * tcfg.n_layers})
+        assert pa.launch_counts() == start
+        monkeypatch.undo()
 
 
 def test_sampled_windows_draw_anew_in_the_eager_order(tiny):

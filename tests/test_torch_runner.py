@@ -4,14 +4,16 @@ from the JAX ones by ``params_from_jax``), paged and dense.
 
 ``stats()`` carries exactly the JAX engine's key set, the ``kvwire_``
 family included and, with a host tier, the ``kvtier_`` family, with the
-fields of ``[surface.engine_stats]`` in ``tpu9/analysis/contracts.toml``; a
+fields of ``[surface.engine_stats]`` in ``tpu9/analysis/contracts.toml``,
+and with speculation on the same spec counters; verify windows' flight
+records carry the reference's ``spec_*`` fields; a
 cancelled stream frees its slot and blocks; flight records, the profiling
 hook, the black box and the tiering hooks of the pressure heartbeat answer
 as the reference's do. The own copies of the flight recorder and of the
 latency summaries behave as the reference modules. Two LocalStack e2es
 serve the torch engine (on the CPU) behind the real runner: one with the
-default environment, KV tiering armed: buffered and SSE greed equal to the
-JAX engine's, the pressure heartbeat in the router table, a client
+default environment, KV tiering armed and speculative decoding on:
+buffered and SSE greed equal to the JAX engine's, the pressure heartbeat in the router table, a client
 disconnect that frees the slot, ``/flight`` and ``/profile``; the other
 with a shared ``TPU9_KV_CACHE_DIR``, where a JAX replica publishes a
 prefix after prefill and the torch replica serves a request that carries
@@ -139,6 +141,57 @@ def test_stats_keys_equal_the_jax_engine(tiny, mode, monkeypatch):
     assert ts["windows_processed"] > 0
     assert ts["last_dispatch_age_s"] >= 0.0
     assert ts["flight"]["records"] == len(teng.flight_records())
+
+
+SPEC_PROMPTS = [[7, 8, 9] * 5, [4, 5, 6, 7] * 4]
+
+
+@pytest.mark.parametrize("mode", ["paged", "dense"])
+def test_spec_stats_keys_equal_the_jax_engine(tiny, mode):
+    """A spec-on engine's ``stats()`` carries the JAX spec-on engine's key
+    set, and its spec counters equal the reference's on the same
+    streams."""
+    jeng, teng = _pair(tiny, dict(MODES[mode], spec_len=8))
+    for e in (jeng, teng):
+        e.warmup()
+    jout = asyncio.run(_serve(jeng, SPEC_PROMPTS, 24, sequential=True))
+    tout = asyncio.run(_serve(teng, SPEC_PROMPTS, 24, sequential=True))
+    assert tout == jout
+    js, ts = jeng.stats(), teng.stats()
+    assert set(ts) == set(js)
+    for nested in ("latency", "flight", "profile"):
+        assert set(ts[nested]) == set(js[nested]), nested
+    assert ts["spec_enabled"] is True
+    assert ts["spec_windows"] > 0
+    for key in ("spec_windows", "spec_proposed", "spec_accepted",
+                "spec_acceptance_rate", "spec_enabled", "decode_steps",
+                "graph_compiles", "graph_compiles_post_warmup"):
+        assert ts[key] == js[key], key
+
+
+@pytest.mark.parametrize("mode", ["paged", "dense"])
+def test_verify_flight_records_carry_the_spec_fields(tiny, mode):
+    """A verify window's flight record has the reference's keys, the four
+    ``spec_*`` fields among them, and the same values."""
+    jeng, teng = _pair(tiny, dict(MODES[mode], spec_len=8))
+    for e in (jeng, teng):
+        asyncio.run(_serve(e, SPEC_PROMPTS, 24, sequential=True))
+    jrec = [r for r in jeng.flight_records() if r["kind"] == "verify"]
+    trec = [r for r in teng.flight_records() if r["kind"] == "verify"]
+    assert trec and len(trec) == len(jrec)
+    assert all(set(t) == set(j) for t, j in zip(trec, jrec))
+    spec_keys = ("spec_proposed", "spec_accepted", "spec_rollback",
+                 "spec_len", "k", "pick", "tokens")
+    for t, j in zip(trec, jrec):
+        assert {k: t[k] for k in spec_keys} == {k: j[k] for k in spec_keys}
+        assert t["spec_rollback"] == t["spec_proposed"] - t["spec_accepted"]
+        assert t["spec_len"] == 8 and t["k"] == 9 and t["pick"] == "spec"
+    # past each admission's first token, every token came from a decode
+    # window or a verify window
+    delivered = sum(n for r in teng.flight_records()
+                    if r["kind"] in ("decode", "verify")
+                    for n in r["tokens"].values())
+    assert delivered == teng.stats()["tokens_generated"]
 
 
 def test_cancel_request_frees_a_streaming_slot_and_its_blocks(tiny):
@@ -367,6 +420,9 @@ def load_engine():
     return InferenceEngine(params, tcfg, EngineConfig(**{E2E!r}),
                            device="cpu")
 """
+# the same torch engine with speculative decoding on
+TORCH_SPEC_APP = TORCH_LLM_APP.replace("EngineConfig(**",
+                                       "EngineConfig(spec_len=8, **")
 
 
 async def _jax_greedy(prompts_and_budgets):
@@ -435,7 +491,7 @@ async def test_torch_engine_serves_behind_the_runner():
     want_short, want_long = await _jax_greedy([(short, 8), (long_, 24)])
     async with LocalStack() as stack:
         dep = await stack.deploy_endpoint(
-            "llm-torch", {"app.py": TORCH_LLM_APP}, "app:load_engine",
+            "llm-torch", {"app.py": TORCH_SPEC_APP}, "app:load_engine",
             config_extra={"timeout_s": 240.0, "extra": {"runner": "llm"},
                           "keep_warm_seconds": 120.0,
                           "runtime": {"cpu_millicores": 1000,

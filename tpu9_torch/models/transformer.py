@@ -6,7 +6,8 @@ projection stored [in, out], so the forward is ``x @ w``, or an int8
 ``{q, scale}`` entry, see ``ops/quant.py``); a JAX param tree converts with
 :func:`tpu9_torch.bridge.params_from_jax`. ``decoder_forward``
 runs the no-cache forward, dense prefill, chunked prefill into a dense
-scratch, dense decode and paged decode. KV writes go into the cache tensors
+scratch (also the dense engine's speculative verify), dense decode, paged
+decode and the paged speculative verify. KV writes go into the cache tensors
 in place where the JAX graphs donated the buffer.
 """
 
@@ -20,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import (attention, chunk_prefill_attention,
-                             decode_attention, paged_attention_dispatch)
+                             decode_attention, paged_attention_dispatch,
+                             paged_verify_attention)
 from ..ops.norms import rms_norm
 from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
@@ -172,8 +174,29 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
             out = paged_attention_dispatch(q, k_pool, v_pool, table,
                                            cache_len)
     elif "table" in kv_cache:
-        raise NotImplementedError(
-            "paged multi-token verify (speculative decoding): ROADMAP queue A6")
+        # paged multi-token verify (speculative decoding): write all T
+        # window tokens' k/v into the slots' pool blocks at once, then each
+        # query attends its own absolute-position prefix. Rejected draft
+        # positions keep garbage KV: attention masks it by position and
+        # the next window overwrites it. In place, as the decode write
+        table = kv_cache["table"]                        # [B, MB]
+        k_pool = kv_cache["k"][layer_idx]                # [N, BS, KH, D]
+        v_pool = kv_cache["v"][layer_idx]
+        bs = k_pool.shape[1]
+        pos = positions.long()                           # [B, T]
+        bi = torch.gather(table, 1, pos // bs).long()
+        oi = pos % bs
+        if "k_scale" in kv_cache:
+            k_sc = kv_cache["k_scale"][layer_idx]        # [N, BS, KH]
+            v_sc = kv_cache["v_scale"][layer_idx]
+            k_pool[bi, oi], k_sc[bi, oi] = quantize_kv(k)
+            v_pool[bi, oi], v_sc[bi, oi] = quantize_kv(v)
+            out = paged_verify_attention(q, k_pool, v_pool, table, positions,
+                                         k_sc, v_sc)
+        else:
+            k_pool[bi, oi] = k
+            v_pool[bi, oi] = v
+            out = paged_verify_attention(q, k_pool, v_pool, table, positions)
     elif decode:
         # dense decode: write this token's k/v at each row's position of the
         # contiguous cache, then attend over the prefix (the ragged kernel
@@ -248,6 +271,8 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
       cache_len [B] → (logits [B,1,V], kv_cache); ``kv_cache`` is the
       contiguous cache, or a pool with ``"table"`` (and ``"k_scale"``/
       ``"v_scale"`` planes for an int8 pool)
+    - paged verify:   a pool with ``"table"``, ``decode=False``, tokens and
+      positions [B,T] → (logits [B,T,V], kv_cache)
 
     The returned cache is ``kv_cache`` itself, written in place. ``rope`` is
     an optional precomputed ``rope_table(cfg.max_seq_len, ...)`` pair.

@@ -8,7 +8,10 @@ conditions (``uses_flash``, ``uses_ragged``): block-aligned shapes go to the
 flash kernel and long aligned caches to the ragged decode kernel, everything
 else to the plain path, as the JAX package does. Each kernel wrapper
 launches its kernel on a CUDA tensor (or raises for operands it cannot
-take) and computes its plain twin on a CPU tensor.
+take) and computes its plain twin on a CPU tensor. ``paged_verify_attention``
+(a speculative verify window over the paged pool) runs on the card as one
+call of the block-table decode kernels over every (slot, window position)
+row.
 """
 
 from __future__ import annotations
@@ -192,6 +195,78 @@ def chunk_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     key_pos = torch.arange(s_max, device=q.device)[None, None, :]   # [1,1,S]
     mask = key_pos <= positions[:, :, None]                          # [B,C,S]
     return _softmax_attend(q, k_cache, v_cache, mask[:, None, :, :])
+
+
+def xla_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_table: torch.Tensor,
+                               positions: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The reference's form of the verify attention, and the card route's
+    twin: densify each slot's table row (dequantizing an int8 pool to q's
+    dtype right after the gather), then the chunk attention with the
+    absolute-position mask. Every table entry is read, garbage included;
+    the mask hides it."""
+    from .paged_attention import gather_paged
+    k = gather_paged(k_pool, block_table, k_scale, q.dtype)
+    v = gather_paged(v_pool, block_table, v_scale, q.dtype)
+    return chunk_prefill_attention(q, k, v, positions)
+
+
+def verify_as_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, block_table: torch.Tensor,
+                     positions: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The verify attention as ``B*T`` one-token decodes through the
+    block-table decode kernels: query (b, t) becomes row ``b*T + t`` with
+    slot b's table row and ``cache_len = positions[b, t] + 1``. A key at
+    position p is visible to it iff ``p < t + 1``, the decode kernels'
+    length rule and the reference's mask, and the kernels read only the
+    ``ceil((t + 1) / BS)`` blocks a row needs, so table padding and
+    garbage past the prefix are never read. On a CUDA ``q`` the wrappers
+    launch B1 (bf16 pool) or B2 (int8 pool) or raise for operands the
+    kernels cannot take; on a CPU ``q`` they compute their plain twins,
+    which is how the tests model this route."""
+    from .paged_attention import (paged_decode_attention,
+                                  paged_decode_attention_quant)
+    b, t, q_heads, head_dim = q.shape
+    rows = q.reshape(b * t, 1, q_heads, head_dim)
+    table = block_table.repeat_interleave(t, dim=0)
+    cache_len = (positions + 1).reshape(-1).to(torch.int32)
+    if k_scale is not None:
+        out = paged_decode_attention_quant(rows, k_pool, v_pool, k_scale,
+                                           v_scale, table, cache_len)
+    else:
+        out = paged_decode_attention(rows, k_pool, v_pool, table, cache_len)
+    return out.reshape(b, t, q_heads, head_dim)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           positions: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Multi-token attention against the paged pool for one speculative
+    verify pass: q [B, T, QH, D] are the window's queries at absolute
+    ``positions`` [B, T]; k/v_pool [N, BS, KH, D] already hold the window's
+    keys (the caller scattered them); ``k_scale``/``v_scale`` [N, BS, KH]
+    mark an int8 pool.
+
+    A CUDA ``q`` runs :func:`verify_as_decode` (the decode kernels over
+    ``B*T`` rows; they raise for operands they cannot take, and nothing
+    falls back to the gather); a CPU ``q`` computes the plain twin
+    :func:`xla_paged_verify_attention`."""
+    if q.device.type == "cpu":
+        return xla_paged_verify_attention(q, k_pool, v_pool, block_table,
+                                          positions, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged verify path for device {q.device}")
+    return verify_as_decode(q, k_pool, v_pool, block_table, positions,
+                            k_scale, v_scale)
 
 
 def paged_attention_dispatch(q: torch.Tensor, k_pool: torch.Tensor,

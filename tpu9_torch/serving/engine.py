@@ -19,6 +19,15 @@ mask, the window's token buffer, the pool and its block table (or the
 dense cache). Nothing the window reads is ever reassigned, only written in
 place.
 
+With ``spec_len > 0`` the engine decodes speculatively, as the reference
+does: each slot drafts up to ``spec_len`` tokens by prompt lookup
+(``spec.py``), and a verify window (``GraphFactory.verify_fn``, one CUDA
+graph per draft length on the card) runs one forward over the last token
+and the drafts for the whole batch and keeps the drafts the model agrees
+with, plus the model's own next token. A per-slot acceptance EWMA, fed by
+verify windows and by shadow drafts graded in classic windows, decides
+between verify and classic windows (``schedule.py``).
+
 The paged pool is bf16, or int8 with f32 per-vector scales (``kv_quant``).
 Its KV can leave the card: a cached prefix, or an in-flight stream's,
 exports to kvwire bytes and another replica adopts them into its pool
@@ -30,8 +39,8 @@ The runner's surface is the reference's: ``generate(..., trace=)``,
 ``cancel_request``, ``active_stream_requests``, ``flight_records``,
 ``arm_profile`` (``torch.profiler``), ``blackbox``/``last_postmortem``, the
 kvwire and tiering hooks, and the ``[surface.engine_stats]`` key set of
-``stats()``. This port leaves out speculative decoding, the tracer's engine
-spans and sharding (ROADMAP queue A).
+``stats()``. This port leaves out the tracer's engine spans and sharding
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from .graphs import GraphFactory, WindowState
 from .kvpool import KvPool, PoolExhausted
 from .paged_kv import PrefixCache, blocks_for
 from .schedule import WindowScheduler
+from .spec import build_drafts, make_slot_state
 
 Params = dict[str, Any]
 
@@ -98,19 +108,36 @@ class EngineConfig:
     # TPU9_KV_HOST_POOL_MB overrides it at engine construction, and
     # TPU9_KV_TIER=0 forces tiering off regardless
     kv_host_pool_mb: int = 0
+    # speculative decoding: at most this many prompt-lookup drafts per
+    # verify window; 0 disables it
+    spec_len: int = 0
+    # the floor of the mean effective acceptance EWMA over active slots
+    # (a slot with nothing to propose counts 0) under which classic
+    # windows run instead of verify windows
+    spec_min_accept: float = 0.35
+    # below the floor, force one verify window every N classic windows;
+    # 0 leaves recovery to the shadow drafts graded in classic windows
+    spec_probe_every: int = 0
 
 
 @dataclass
 class _Window:
-    """One dispatched decode window whose host fan-out is deferred.
-    ``mask``/``reqs`` snapshot the active set at dispatch: a window delivers
-    tokens only to the request that held the slot when it was dispatched.
-    The rest is what its flight record needs, all host state."""
-    k: int
-    toks: torch.Tensor        # [k, B] on the host (filled by a copy in flight)
+    """One dispatched decode or verify window whose host fan-out is
+    deferred. ``mask``/``reqs`` snapshot the active set at dispatch: a
+    window delivers tokens only to the request that held the slot when it
+    was dispatched. The rest is what its flight record needs, all host
+    state."""
+    k: int                    # device steps (verify: 1 + spec_len)
+    toks: torch.Tensor        # decode [k, B], verify the model's [B, k],
+                              # on the host (filled by a copy in flight)
     ready: Any                # CUDA event recorded after the copy, or None
     mask: Any
     reqs: tuple
+    kind: str = "decode"      # "decode" or "verify"
+    n_acc: Any = None         # verify: accepted drafts [B] on the host
+    spec_len: int = 0         # verify: drafts per slot
+    n_real: Any = None        # verify: real (unpadded) drafts [B]
+    spec_stats: tuple = ()    # verify: (proposed, accepted) at processing
     t_mono: float = 0.0       # dispatch stamp
     pick: str = ""            # why this k
     kv_snap: tuple = ()       # (used, free, reserved) at dispatch (paged)
@@ -197,11 +224,25 @@ class InferenceEngine:
                                  dtype=torch.int32, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        # speculative decoding: one verify bucket, the full draft length.
+        # A shorter bucket streams the same weights for fewer tokens, so
+        # adaptivity lives in the acceptance gate, not in the window size
+        self._spec_lens: tuple = ((engine_cfg.spec_len,)
+                                  if engine_cfg.spec_len > 0 else ())
+        self._spec_slots: list = [None] * b      # per-slot SlotSpecState
+        self._spec_disabled_windows = 0
+        s_max = max(self._spec_lens, default=0)
+        self._drafts = torch.zeros((b, s_max), dtype=torch.int32,
+                                   device=self.device)
+        self._spec_out = torch.zeros((b, 1 + s_max), dtype=torch.int32,
+                                     device=self.device)
+        self._n_acc = torch.zeros((b,), dtype=torch.int32, device=self.device)
         self.graphs = GraphFactory(
             cfg, engine_cfg, self._chunk, self.device,
             window=WindowState(params, self.kv_cache, self.last_token,
                                self.cache_len, self._active_dev, self._toks,
-                               self._gen))
+                               self._gen, self._drafts, self._spec_out,
+                               self._n_acc))
         self.scheduler = WindowScheduler(self)
         # dense prefill buckets, clamped to the cache: a bucket wider than
         # max_seq_len would splice past the slot's lanes
@@ -224,7 +265,6 @@ class InferenceEngine:
         # hitting the same host entry awaits the first up-page instead of
         # filling fresh blocks twice
         self._uppage_inflight: dict = {}
-        # spec_* stay 0 until speculative decoding is ported (queue A6)
         self._stats = {"active_streams": 0, "queued": 0,
                        "tokens_generated": 0, "decode_steps": 0,
                        "admit_dispatches": 0,
@@ -310,8 +350,12 @@ class InferenceEngine:
 
     def _worst_case_tokens(self, req: _Request) -> int:
         # prompt + generation budget + in-flight overshoot slack, clamped
-        # to the cache
+        # to the cache. With speculation up to two verify windows can be in
+        # flight past the budget check (the overlap window and the one
+        # being dispatched), so the slack covers 2 * (1 + spec_len)
         slack = max(self.ecfg.decode_steps) + 1
+        if self._spec_lens:
+            slack = max(slack, 2 * (self._spec_lens[-1] + 1) + 1)
         return min(len(req.prompt) + req.max_new_tokens + slack,
                    self.ecfg.max_seq_len)
 
@@ -354,9 +398,9 @@ class InferenceEngine:
         once with all lanes inactive (paged writes land in the trash block,
         no slot advances), then seal the factory: the first request pays no
         kernel build, library set-up or capture, and a later build counts
-        as a post-warmup compile. On the card each decode window is
-        captured here (``graphs.capture_s`` has the seconds) and replayed
-        once."""
+        as a post-warmup compile. On the card each decode window and each
+        verify window is captured here (``graphs.capture_s`` has the
+        seconds) and replayed once."""
         timings: dict[str, float] = {}
         if self.paged:
             self._warmup_paged(timings)
@@ -368,6 +412,13 @@ class InferenceEngine:
             self.graphs.decode_k(k)()
             self._sync(self._toks)
             timings[f"decode_k{k}_s"] = time.perf_counter() - t0
+        for s in self._spec_lens:
+            # zero drafts, every lane inactive: no slot advances
+            t0 = time.perf_counter()
+            self._drafts.zero_()
+            self.graphs.verify_fn(s)()
+            self._sync(self._spec_out)
+            timings[f"verify_s{s}_s"] = time.perf_counter() - t0
         self.graphs.seal()
         return timings
 
@@ -693,8 +744,12 @@ class InferenceEngine:
         out["hbm_peak_gb_per_chip"] = self._hbm_peak_gb
         out["hbm_predicted_gb_per_chip"] = self.hbm_predicted_gb_per_chip
         out["hbm_limit_gb_per_chip"] = self._hbm_limit_gb
-        out["spec_enabled"] = False
-        out["spec_acceptance_rate"] = 0.0
+        # speculation: proposed and accepted are cumulative; the rate is
+        # the fleet-comparable signal the runner forwards
+        out["spec_enabled"] = bool(self._spec_lens)
+        prop = self._stats["spec_proposed"]
+        out["spec_acceptance_rate"] = (
+            self._stats["spec_accepted"] / prop if prop else 0.0)
         out["flight"] = self.flight.summary()
         out["profile"] = {"armed": self._profile_remaining,
                           "active": self._profile_active,
@@ -838,6 +893,10 @@ class InferenceEngine:
                "tokens": win.delivered or {},
                "wait_s": round(max(t_host0 - win.t_mono, 0.0), 6),
                "host_s": round(max(now_m - t_host0, 0.0), 6)}
+        if win.kind == "verify":
+            prop, acc = win.spec_stats or (0, 0)
+            rec.update(spec_proposed=prop, spec_accepted=acc,
+                       spec_rollback=prop - acc, spec_len=win.spec_len)
         if win.kv_snap:
             used, free, reserved = win.kv_snap
             rec.update(kv_used=used, kv_free=free, kv_reserved=reserved,
@@ -847,7 +906,7 @@ class InferenceEngine:
             rec.update(prefix_evictions=ev - self._flight_evictions,
                        prefix_pinned=self.prefix_cache.pinned)
             self._flight_evictions = ev
-        self.flight.record("decode", **rec)
+        self.flight.record(win.kind, **rec)
 
     def _obs_first_token(self, req: _Request) -> None:
         req.t_first_mono = time.monotonic()
@@ -979,6 +1038,8 @@ class InferenceEngine:
         req.slot = slot
         self.active[slot] = True
         self.slot_req[slot] = req
+        if self._spec_lens:
+            self._spec_slots[slot] = make_slot_state(req.prompt)
 
     async def _admit_paged(self, req: _Request, slot: int):
         """Paged admission: reserve the worst case, reuse cached prefix
@@ -1215,6 +1276,9 @@ class InferenceEngine:
     def _deliver_first(self, req: _Request, first: int) -> None:
         req.generated.append(first)
         self._obs_first_token(req)
+        st = self._spec_slots[req.slot]
+        if st is not None:
+            st.proposer.append(first)
         if req.queue is not None:
             req.queue.put_nowait(first)
         if (req.max_new_tokens <= 1
@@ -1225,6 +1289,7 @@ class InferenceEngine:
         req = self.slot_req[slot]
         self.active[slot] = False
         self.slot_req[slot] = None
+        self._spec_slots[slot] = None
         self.cache_len[slot] = 0
         self._host_len[slot] = 0
         if self.paged:
@@ -1382,9 +1447,13 @@ class InferenceEngine:
             # pool nears eviction pressure (no-op without a host tier)
             if self.paged and self.pool.tiered:
                 self._kvtier_tick()
+            # one window for the whole batch: a verify window when the
+            # acceptance EWMAs justify it, a classic k-step window otherwise
             self._profile_window_start()
-            self._deferred_windows.append(self._dispatch_window())
-            self._profile_window_dispatched()
+            win = self._dispatch_window()
+            if win is not None:
+                self._profile_window_dispatched()
+                self._deferred_windows.append(win)
             # keep exactly one window in flight: the host fan-out of the
             # older one runs while the new one computes
             while len(self._deferred_windows) > 1:
@@ -1404,22 +1473,52 @@ class InferenceEngine:
         self.graphs.decode_k(k)()
         self._stats["decode_steps"] += k
         self._inflight_steps += k
-        toks = self._toks[:k]
-        if toks.is_cuda:
-            # queued behind the window: the next window's writes to the
-            # token buffer come after this copy on the stream
-            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host, ready = toks.clone(), None
+        (host,), ready = _to_host(self._toks[:k])
         return self._obs_stamp_window(
             _Window(k=k, toks=host, ready=ready, mask=self.active.copy(),
                     reqs=tuple(self.slot_req)))
 
-    def _dispatch_window(self) -> _Window:
+    def _dispatch_window(self) -> Optional[_Window]:
+        s = self.scheduler.spec_room_len()
+        if s > 0:
+            s = self.scheduler.spec_gate(s)
+        if s > 0:
+            # drafts must continue the delivered history: drain the window
+            # in flight first, so the proposers see what the device's last
+            # tokens continue (a verify window pays this sync once for up
+            # to 1 + s tokens a slot)
+            self._drain_windows()
+            if not self.active.any():
+                return None
+            drafts, n_real = build_drafts(self._spec_slots, self.active, s)
+            if int(n_real.sum()) > 0:
+                return self._dispatch_verify(s, drafts, n_real)
+            # nothing to propose anywhere: a classic window
         return self._launch_window(self.scheduler.pick_steps())
+
+    def _dispatch_verify(self, s: int, drafts: np.ndarray,
+                         n_real: np.ndarray) -> _Window:
+        """Grow every active slot's blocks for the window's ``1 + s``
+        writes (paged), write the drafts into the device buffer, replay the
+        verify window and start the copy of its tokens and accepted counts
+        to the host."""
+        t = s + 1
+        for slot in range(self.ecfg.max_batch):
+            if self.paged and self.active[slot]:
+                self._ensure_slot_blocks(
+                    slot, min(int(self._host_len[slot]) + t + 1,
+                              self.ecfg.max_seq_len))
+        host_to_device(self._active_dev, self.active)
+        host_to_device(self._drafts[:, :s], drafts)
+        self.graphs.verify_fn(s)()
+        self._stats["spec_windows"] += 1
+        self._inflight_steps += t
+        self._pick_reason = "spec"
+        (out, n_acc), ready = _to_host(self._spec_out[:, :t], self._n_acc)
+        return self._obs_stamp_window(
+            _Window(k=t, toks=out, ready=ready, mask=self.active.copy(),
+                    reqs=tuple(self.slot_req), kind="verify", n_acc=n_acc,
+                    spec_len=s, n_real=n_real))
 
     def _drain_windows(self) -> None:
         wins, self._deferred_windows = self._deferred_windows, []
@@ -1427,33 +1526,105 @@ class InferenceEngine:
             self._process_window(w)
 
     def _process_window(self, win: _Window) -> None:
-        """Host fan-out of one window's [k, B] tokens, after its copy has
-        landed (the one host sync per window)."""
+        """Host fan-out of one window, after its copy has landed (the one
+        host sync per window): a decode window's [k, B] tokens, or a verify
+        window's model tokens [B, 1 + s] and accepted counts, 1 to 1 + s
+        tokens a slot."""
         if win.ready is not None:
             win.ready.synchronize()
         window = win.toks.numpy()
         t_host0 = time.monotonic()
         self._inflight_steps -= win.k
-        delivered = [0] * self.ecfg.max_batch
+        if win.kind == "verify":
+            self._process_verify(win, window, win.n_acc.numpy())
+        else:
+            self._process_decode(win, window)
+        self._obs_window(win, t_host0)
+
+    def _retire_if_gone(self, slot: int) -> bool:
+        """Retire a slot whose client went away (cancel) or whose deadline
+        passed mid-generation; True if it did."""
+        req = self.slot_req[slot]
+        if req.cancelled:
+            # client gone mid-stream: free the slot for live work
+            self._retire(slot)
+            return True
+        if self._req_expired(req):
+            # deadline passed mid-generation: free the slot now
+            self._stats["deadline_expired"] += 1
+            req.error = f"{DEADLINE_ERROR}: budget exhausted mid-decode"
+            self._retire(slot)
+            return True
+        return False
+
+    def _process_decode(self, win: _Window, window: np.ndarray) -> None:
+        shadow: dict[int, list[int]] = {}
+        if self._spec_lens:
+            # shadow drafts: what prompt lookup would have proposed for
+            # this window, graded against its real tokens below, a free
+            # acceptance estimate that reopens the gate once a stream turns
+            # repetitive. Proposed here, before any of the window's tokens
+            # are appended, so the history is the pre-window state
+            m = min(win.k, self._spec_lens[-1])
+            for slot in range(self.ecfg.max_batch):
+                st = self._spec_slots[slot]
+                if st is not None and self._slot_live(win, slot):
+                    shadow[slot] = st.proposer.propose(m)
+        delivered: list[list[int]] = [[] for _ in range(self.ecfg.max_batch)]
         for step in range(win.k):
             for slot in range(self.ecfg.max_batch):
-                if not self._slot_live(win, slot):
+                if not self._slot_live(win, slot) or self._retire_if_gone(
+                        slot):
                     continue
-                req = self.slot_req[slot]
-                if req.cancelled:
-                    # client gone mid-stream: free the slot for live work
-                    self._retire(slot)
-                    continue
-                if self._req_expired(req):
-                    # deadline passed mid-generation: free the slot now
-                    self._stats["deadline_expired"] += 1
-                    req.error = f"{DEADLINE_ERROR}: budget exhausted mid-decode"
-                    self._retire(slot)
-                    continue
-                delivered[slot] += 1
-                self._deliver_token(slot, int(window[step, slot]))
-        win.delivered = {slot: n for slot, n in enumerate(delivered) if n}
-        self._obs_window(win, t_host0)
+                tok = int(window[step, slot])
+                delivered[slot].append(tok)
+                self._deliver_token(slot, tok)
+        for slot, sh in shadow.items():
+            m = min(len(sh), len(delivered[slot]))
+            if m == 0:
+                continue
+            acc = 0
+            while acc < m and sh[acc] == delivered[slot][acc]:
+                acc += 1
+            st = self._spec_slots[slot]
+            if st is not None:
+                st.observe(m, acc)
+        win.delivered = {slot: len(toks)
+                         for slot, toks in enumerate(delivered) if toks}
+
+    def _process_verify(self, win: _Window, out: np.ndarray,
+                        n_acc: np.ndarray) -> None:
+        """Deliver each live slot's accepted drafts and the model's token
+        after them, stopping at EOS, budget or cache room. The EWMA and the
+        counters see only the drafts a slot really proposed: padding (and a
+        padded tail) accepted by chance is delivered, being the model's own
+        output, but not counted."""
+        win.delivered = {}
+        win_proposed = win_accepted = 0
+        for slot in range(self.ecfg.max_batch):
+            if not self._slot_live(win, slot):
+                continue
+            acc = int(n_acc[slot])
+            n_real = int(win.n_real[slot])
+            if n_real > 0:
+                win_proposed += n_real
+                win_accepted += min(acc, n_real)
+                st = self._spec_slots[slot]
+                if st is not None:
+                    st.observe(n_real, min(acc, n_real))
+                    self._stats["spec_proposed"] += n_real
+                    self._stats["spec_accepted"] += min(acc, n_real)
+            if self._retire_if_gone(slot):
+                continue
+            req = self.slot_req[slot]
+            n_delivered = 0
+            for i in range(acc + 1):
+                self._deliver_token(slot, int(out[slot, i]))
+                n_delivered += 1
+                if self.slot_req[slot] is not req:
+                    break           # EOS, budget or room inside the run
+            win.delivered[slot] = n_delivered
+        win.spec_stats = (win_proposed, win_accepted)
 
     def _slot_live(self, win: _Window, slot: int) -> bool:
         """A window's tokens belong to a slot only if the request that held
@@ -1466,6 +1637,9 @@ class InferenceEngine:
         req.generated.append(tok)
         self._host_len[slot] += 1
         self._stats["tokens_generated"] += 1
+        st = self._spec_slots[slot]
+        if st is not None:
+            st.proposer.append(tok)
         if req.queue is not None:
             req.queue.put_nowait(tok)
         hit_eos = self.ecfg.eos_id >= 0 and tok == self.ecfg.eos_id
@@ -1473,6 +1647,24 @@ class InferenceEngine:
         if len(req.generated) >= req.max_new_tokens or hit_eos or out_of_room:
             # the rest of the window's tokens for this slot are discarded
             self._retire(slot)
+
+
+def _to_host(*tensors: torch.Tensor):
+    """Start copies of ``tensors`` to the host. On CUDA they go to pinned
+    buffers, queued behind the window on the stream (the next window's
+    writes to the device buffers come after them), and the returned event
+    marks their landing; on the CPU they are clones and the event is
+    None."""
+    if not tensors[0].is_cuda:
+        return tuple(t.clone() for t in tensors), None
+    hosts = []
+    for t in tensors:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    ready = torch.cuda.Event()
+    ready.record()
+    return tuple(hosts), ready
 
 
 def _tensor_leaves(tree):

@@ -1,8 +1,9 @@
 """The engine's device computations (counterpart of
-``tpu9/serving/graphs.py``): the decode window; for the paged engine one
-chunked-prefill step, the scratch → pool block splice, the pool → scratch
-prefix gather and the fused admission group; for the dense engine the
-bucketed prefill and the splice of its KV into a slot's lanes.
+``tpu9/serving/graphs.py``): the decode window and the speculative verify
+window; for the paged engine one chunked-prefill step, the scratch → pool
+block splice, the pool → scratch prefix gather and the fused admission
+group; for the dense engine the bucketed prefill and the splice of its KV
+into a slot's lanes.
 
 The factory keeps every computation the serve loop dispatches in one cache,
 under the JAX factory's keys, with one miss path (``_build``). It counts
@@ -10,10 +11,11 @@ misses, is sealed once warmup has built every key the serve loop can reach
 (``seal``), and counts and times every miss after that: the engine's
 ``graph_compiles*`` stats, the compile sentinel of the reference.
 
-On a CUDA engine a decode window is one CUDA graph per window size,
-captured once over the engine's static device state (``WindowState``) and
-replayed; all of an engine's window graphs share one memory pool. On a CPU
-engine it is the same k-step loop run eagerly. The admission computations
+On a CUDA engine a decode window is one CUDA graph per window size, and a
+verify window one per draft length, each captured once over the engine's
+static device state (``WindowState``) and replayed; all of an engine's
+window graphs share one memory pool. On a CPU engine each is the same
+computation run eagerly. The admission computations
 run eagerly on both and write the pool and scratch in place (the JAX graphs
 donated them).
 """
@@ -51,13 +53,19 @@ class WindowState:
     active: torch.Tensor        # [B] bool
     toks: torch.Tensor          # [max k, B] int32: a k-window writes toks[:k]
     generator: torch.Generator
+    # speculative verify (0 columns when speculation is off): the host
+    # writes a window's drafts into drafts[:, :s] before it runs; it writes
+    # the model's tokens into out[:, :s + 1] and the accepted counts
+    drafts: torch.Tensor        # [B, max s] int32
+    out: torch.Tensor           # [B, 1 + max s] int32
+    n_acc: torch.Tensor         # [B] int32
 
 
 @dataclass
 class CapturedWindow:
-    """One decode window captured as a CUDA graph. A call replays it and
-    adds to the decode wrappers' ``.launches`` the launches its capture
-    counted (a replay runs no Python)."""
+    """One decode or verify window captured as a CUDA graph. A call
+    replays it and adds to the decode wrappers' ``.launches`` the launches
+    its capture counted (a replay runs no Python)."""
     graph: Any                  # torch.cuda.CUDAGraph, or a stand-in
     launches: dict = field(default_factory=dict)
 
@@ -91,9 +99,9 @@ class GraphFactory:
         # the first call
         self.post_seal_stall_s = 0.0
         self._sealed = False
-        # CUDA only: the window graphs' shared memory pool, each window
-        # size's capture seconds, and the device memory the captures
-        # reserved
+        # CUDA only: the window graphs' shared memory pool, the capture
+        # seconds of each window size k (and of each ("verify", s)), and
+        # the device memory the captures reserved
         self._graph_pool = None
         self._reserved_before = 0
         self.capture_s: dict[int, float] = {}
@@ -189,9 +197,80 @@ class GraphFactory:
             return window
         return self._capture(k, window)
 
-    def _capture(self, k: int, window) -> CapturedWindow:
-        """Capture ``window`` as a CUDA graph in the shared pool. A failed
-        capture raises: the card never runs the eager loop."""
+    # -- speculative verify window --------------------------------------------
+
+    def build_verify(self, s: int):
+        """One forward over ``t = 1 + s`` positions per slot as a plain
+        function of its state: column 0 is the slot's last token, columns
+        1..s the host's drafts. The model emits its own token at every
+        position; a draft survives only while it equals the model's output
+        at the position before it, so the stream is the one classic decode
+        would give. Returns (bonus [B, 1], kv_cache, new cache_len [B], out
+        [B, t], n_acc [B]): the accepted-prefix length, the model's token
+        after it, and cache_len advanced past the accepted positions of
+        active slots only. Rejected positions keep garbage KV that
+        attention masks and the next window overwrites."""
+        cfg, ecfg, rope = self.cfg, self.ecfg, self.rope
+        t = s + 1
+
+        @torch.no_grad()
+        def verify(params, kv_cache, last_token, drafts, cache_len, active,
+                   generator):
+            tokens = torch.cat([last_token, drafts.to(torch.int32)], dim=1)
+            positions = cache_len[:, None] + torch.arange(
+                t, dtype=torch.int32, device=cache_len.device)[None, :]
+            logits, kv_cache = decoder_forward(
+                params, tokens, cfg, positions=positions, kv_cache=kv_cache,
+                cache_len=cache_len + t, decode=False, rope=rope)
+            out = sample_logits(logits, generator,
+                                temperature=ecfg.temperature,
+                                top_k=ecfg.top_k,
+                                top_p=ecfg.top_p).to(torch.int32)   # [B, t]
+            # the longest agreeing prefix of the drafts, per slot
+            agree = (tokens[:, 1:] == out[:, :-1]).to(torch.int32)
+            n_acc = torch.cumprod(agree, dim=1).sum(dim=1,
+                                                    dtype=torch.int32)
+            # the model's own token after the accepted run
+            bonus = torch.gather(out, 1, n_acc[:, None].long())
+            new_len = cache_len + (n_acc + 1) * active.to(torch.int32)
+            return bonus, kv_cache, new_len, out, n_acc
+
+        return verify
+
+    def verify_fn(self, s: int):
+        """The verify window for ``s`` drafts over ``self.window``, as a
+        call with no arguments: it reads ``drafts[:, :s]`` and writes
+        last_token, cache_len, ``out[:, :s + 1]`` and ``n_acc`` in place.
+        A captured CUDA graph on the card, the eager forward on the
+        CPU."""
+        return self._build(("verify", s), lambda: self._verify_window(s))
+
+    def _verify_window(self, s: int):
+        st = self.window
+        if st is None:
+            raise RuntimeError("verify_fn needs the engine's WindowState")
+        if s > st.drafts.shape[1]:
+            raise ValueError(f"verify window of {s} drafts, the window state "
+                             f"holds {st.drafts.shape[1]}")
+        verify = self.build_verify(s)
+
+        def window() -> None:
+            last, _, clen, out, n_acc = verify(
+                st.params, st.kv_cache, st.last_token, st.drafts[:, :s],
+                st.cache_len, st.active, st.generator)
+            st.last_token.copy_(last)
+            st.cache_len.copy_(clen)
+            st.out[:, :s + 1].copy_(out)
+            st.n_acc.copy_(n_acc)
+
+        if self.device.type != "cuda":
+            return window
+        return self._capture(("verify", s), window)
+
+    def _capture(self, key, window) -> CapturedWindow:
+        """Capture ``window`` as a CUDA graph in the shared pool; ``key``
+        names it in ``capture_s``. A failed capture raises: the card never
+        runs the eager window."""
         if not self._sealed:
             # warmup, every lane inactive: one eager run loads the kernels
             # and the libraries' handles before the capture. A post-seal
@@ -213,7 +292,7 @@ class GraphFactory:
                 window()
 
         launches = captured_launches(capture)
-        self.capture_s[k] = time.perf_counter() - t0
+        self.capture_s[key] = time.perf_counter() - t0
         # the capture context empties the allocator's cache on entry, so
         # the growth of reserved memory since the first capture is the
         # graphs' pool

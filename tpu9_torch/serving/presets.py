@@ -70,6 +70,8 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
                 prefix_cache_blocks: Optional[int] = None,
                 quantize: Optional[str] = None,
                 kv_quant: Optional[str] = None,
+                spec_len: int = 0,
+                spec_min_accept: float = 0.35,
                 engine_cfg: Optional[EngineConfig] = None,
                 seed: int = 0) -> InferenceEngine:
     """Build the serving engine for a preset on ``device`` (the current
@@ -83,7 +85,10 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
     ``prefix_cache_blocks=0`` disables the prefix cache (None = one
     sequence's worth of blocks when paged, 0 when dense). ``quantize`` and
     ``kv_quant`` are the int8 knobs of the module docstring; int8 weights
-    serve on either engine, the int8 pool only on the paged one."""
+    serve on either engine, the int8 pool only on the paged one.
+    ``spec_len > 0`` turns on speculative decoding with that many
+    prompt-lookup drafts a verify window, gated by ``spec_min_accept``
+    (see ``EngineConfig``)."""
     resolve_preset(name, quantize)           # a bad name or mode fails first
     kv_quant = validate_quant_mode(kv_quant, "kv_quant")
     if engine_cfg is not None and kv_quant \
@@ -113,7 +118,8 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
         prefix_cache_blocks=prefix_cache_blocks
         if prefix_cache_blocks is not None
         else (max_seq_len // block if paged else 0),
-        kv_quant=kv_quant)
+        kv_quant=kv_quant, spec_len=spec_len,
+        spec_min_accept=spec_min_accept)
     params, cfg = build_params(name, seed=seed, device=device,
                                quantize=quantize)
     return InferenceEngine(params, cfg, ecfg, device=device)

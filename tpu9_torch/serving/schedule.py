@@ -1,6 +1,7 @@
 """Window scheduling (counterpart of ``tpu9/serving/schedule.py``): the
-decode-window size, the admission-can-proceed check and the host tier's
-down-page quota at a window boundary. Pure host arithmetic over the
+decode-window size, the admission-can-proceed check, the speculative
+verify window's room and acceptance gate, and the host tier's down-page
+quota at a window boundary. Pure host arithmetic over the
 engine's scheduling state; it dispatches nothing, and records why it chose
 a window in ``engine._pick_reason`` (the flight recorder's "why was K
 small" answer)."""
@@ -56,6 +57,66 @@ class WindowScheduler:
             if k <= limit:
                 return k
         return e.ecfg.decode_steps[0]
+
+    def spec_room_len(self) -> int:
+        """The largest spec bucket the batch has room for, or 0 when
+        speculation is off or blocked: an admission that could proceed
+        (its latency wins, as for K), a slot near its cache limit (a dense
+        write past max_seq_len would clamp back over valid KV), or budgets
+        with fewer than two tokens left."""
+        e = self.engine
+        if not e._spec_lens:
+            return 0
+        if self.admission_can_proceed():
+            return 0
+        min_room = e.ecfg.max_seq_len
+        max_remaining = 0
+        any_active = False
+        for slot in range(e.ecfg.max_batch):
+            req = e.slot_req[slot]
+            if req is None or not e.active[slot]:
+                continue
+            any_active = True
+            min_room = min(min_room, e.ecfg.max_seq_len - 1
+                           - int(e._host_len[slot]) - e._inflight_steps)
+            max_remaining = max(max_remaining,
+                                req.max_new_tokens - len(req.generated)
+                                - e._inflight_steps)
+        if not any_active or max_remaining < 2:
+            return 0
+        for s in sorted(e._spec_lens, reverse=True):
+            if s + 1 <= min_room:
+                return s
+        return 0
+
+    def spec_gate(self, s: int) -> int:
+        """The acceptance gate: ``s`` when the mean effective acceptance
+        EWMA over active slots clears ``spec_min_accept``, else 0.
+        Effective: a slot with nothing to propose right now counts 0 (a
+        verify window gives it one token where a classic window gives it
+        K), whatever its EWMA. Below the floor, one window in every
+        ``spec_probe_every`` is let through as a probe."""
+        e = self.engine
+        total = 0.0
+        n = 0
+        for slot in range(e.ecfg.max_batch):
+            if e.slot_req[slot] is None or not e.active[slot]:
+                continue
+            n += 1
+            st = e._spec_slots[slot]
+            if st is not None and st.proposer.propose(1):
+                total += st.ewma
+        if n == 0:
+            return 0
+        if total / n >= e.ecfg.spec_min_accept:
+            e._spec_disabled_windows = 0
+            return s
+        e._spec_disabled_windows += 1
+        pe = e.ecfg.spec_probe_every
+        if pe > 0 and e._spec_disabled_windows >= pe:
+            e._spec_disabled_windows = 0
+            return s
+        return 0
 
     def downpage_quota(self) -> int:
         """How many prefix-cache entries this window boundary should
