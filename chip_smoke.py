@@ -80,6 +80,25 @@ spec-on stream must equal the spec-off stream up to its first fork, which
 must be a tie; it prints the acceptance rate and decode tokens/s on
 against off.
 
+After phases 4 and 5, after the spec phase, weights and restore
+(``phase_restore``): the phase's params saved as ``.tpu9w`` shards by
+``tpu9_torch.runner.ckpt.save_params`` under ``build/`` (v1 for bf16, v2
+with int8 pairs; the free disk space is checked first), restored onto the
+card by the port's ``stream_shards`` and ``default_device_put`` (a ring of
+pinned staging buffers and a copy stream) from a chunk stream of the shard
+files, first from the page cache and then after each shard's pages are dropped
+(with ``O_DIRECT`` reads where the filesystem takes them; labelled
+"cold" only where the bytes then come from a local disk, "host" where
+they come from a shared filesystem's host, whose cache is unseen, else
+"page cache"), and loaded the runner's way (``ckpt.load_params``
+to host tensors, then to the card): every restored leaf ``torch.equal`` to
+the live one. An engine over the restored weights serves the reference
+prompt alone, 16 greedy tokens equal to those of an engine over the live
+weights, with no graph built after warmup and its decode kernel's launches
+counted. It prints seconds and GB/s of each step beside a plain pinned
+copy of the same bytes, and the cold start (the second restore, engine
+build and warmup, first token); the directory is deleted after.
+
 The kernel launch counts are zeroed just before each engine phase's
 requests (and the KV-motion and spec phases') and read just after: each
 decode kernel of the phase's path must have launched ``n_layers x decode
@@ -106,6 +125,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1587,6 +1607,356 @@ def phase_spec(engine, card: str, kind: str):
     return {name: launches[name] for name in ENGINES[kind][2]}, on
 
 
+# -- after phases 4 and 5: weights leave the card and come back ---------------
+
+RESTORE_CHUNK = 4 << 20            # the worker's snapshot chunk size
+RESTORE_NEW = 16                   # greedy tokens served from restored weights
+COPY_BYTES = 1 << 30               # the plain pinned copy's buffer
+
+
+async def _shard_chunks(path: str, index: dict, direct: bool = False):
+    """The chunk stream the worker feeds from its cache, read from the
+    shard files instead: each file in order, in chunks of the worker's
+    size, so a chunk never straddles a file. It yields to the loop after
+    each chunk, as a fetch from the cache does, so the consumer of the
+    shard before runs meanwhile. ``direct`` reads with ``O_DIRECT`` into
+    one page-aligned buffer (the stream copies each chunk out before it
+    asks for the next), so the bytes come from the disk whatever the page
+    cache holds."""
+    for entry in index["leaves"]:
+        name = os.path.join(path, entry["file"])
+        if direct:
+            for off, data in direct_chunks(name, RESTORE_CHUNK):
+                yield f"{entry['file']}@{off}", data
+                await asyncio.sleep(0)
+            continue
+        with open(name, "rb", buffering=0) as f:
+            off = 0
+            while data := f.read(RESTORE_CHUNK):
+                yield f"{entry['file']}@{off}", data
+                off += len(data)
+                await asyncio.sleep(0)
+
+
+DIRECT_ALIGN = 4096
+FS_NAMES = {0xEF53: "ext4", 0x58465342: "xfs", 0x9123683E: "btrfs",
+            0x01021994: "tmpfs", 0x858458F6: "ramfs", 0x794C7630: "overlay",
+            0x65735546: "fuse", 0x6969: "nfs", 0x01021997: "9p",
+            0x2FC12FC1: "zfs"}
+MEMORY_FS = ("tmpfs", "ramfs")
+LOCAL_FS = ("ext4", "xfs", "btrfs", "zfs")
+
+
+def direct_chunks(name: str, chunk: int):
+    """``(offset, memoryview)`` chunks of a file read with ``O_DIRECT``,
+    all through one page-aligned buffer of ``chunk`` bytes (a multiple of
+    ``DIRECT_ALIGN``); a short read ends the file."""
+    import mmap
+    buf = mmap.mmap(-1, chunk)
+    fd = os.open(name, os.O_RDONLY | os.O_DIRECT)
+    try:
+        off = 0
+        while n := os.preadv(fd, [buf], off):
+            yield off, memoryview(buf)[:n]
+            off += n
+            if n % DIRECT_ALIGN:
+                break
+    finally:
+        os.close(fd)
+
+
+def direct_reads_work(name: str) -> bool:
+    """Whether this file's filesystem takes ``O_DIRECT`` reads."""
+    try:
+        next(direct_chunks(name, DIRECT_ALIGN), None)
+        return True
+    except OSError:
+        return False
+
+
+def fs_type(path: str) -> str:
+    """The filesystem under ``path``, from ``statfs``'s magic number."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    buf = ctypes.create_string_buffer(256)
+    if libc.statfs(os.fsencode(path), buf) != 0:
+        return "unknown"
+    magic = int.from_bytes(buf.raw[:8], sys.byteorder) & 0xFFFFFFFF
+    return FS_NAMES.get(magic, hex(magic))
+
+
+def page_cache_share(names: list[str]) -> float:
+    """The share of these files' pages that sit in the page cache
+    (``mincore`` over a read-only map of each, which faults nothing in)."""
+    import ctypes
+    import mmap
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_char_p]
+    page = mmap.PAGESIZE
+    resident = pages = 0
+    for name in names:
+        size = os.path.getsize(name)
+        if not size:
+            continue
+        n = (size + page - 1) // page
+        fd = os.open(name, os.O_RDONLY)
+        try:
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED,
+                             fd, 0)
+            check(addr not in (None, ctypes.c_void_p(-1).value),
+                  f"mmap of {name} failed: errno {ctypes.get_errno()}")
+            vec = ctypes.create_string_buffer(n)
+            rc = libc.mincore(addr, size, vec)
+            libc.munmap(addr, size)
+            check(rc == 0, f"mincore of {name} failed: errno "
+                  f"{ctypes.get_errno()}")
+        finally:
+            os.close(fd)
+        resident += sum(b & 1 for b in vec.raw)
+        pages += n
+    return resident / pages if pages else 0.0
+
+
+def _drop_pages(path: str, index: dict) -> dict:
+    """Write each shard back and drop its pages from the page cache (needs
+    no root), then say where the next restore's bytes come from; that
+    restore reads with ``O_DIRECT`` where the filesystem takes it. The
+    label is "cold" on a local block filesystem (``LOCAL_FS``) read with
+    ``O_DIRECT`` or with no page left cached: the disk. It is "host" on
+    another filesystem read the same way: what serves it (a 9p or FUSE
+    host) may hold the bytes in a cache this machine cannot see. Else it
+    is "page cache". Returns ``{"label", "direct", "source", "resident",
+    "fs"}``."""
+    names = [os.path.join(path, e["file"]) for e in index["leaves"]]
+    for name in names:
+        fd = os.open(name, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    fs = fs_type(path)
+    resident = page_cache_share(names)
+    direct = fs not in MEMORY_FS and direct_reads_work(names[0])
+    uncached = direct or (fs not in MEMORY_FS and resident < 0.01)
+    label = ("page cache" if not uncached else
+             "cold" if fs in LOCAL_FS else "host")
+    source = f"O_DIRECT on {fs}" if direct else f"buffered reads on {fs}"
+    return {"label": label, "direct": direct, "source": source,
+            "resident": resident, "fs": fs}
+
+
+def _stream_restore(path: str, index: dict, direct: bool = False):
+    """The port's ``stream_shards`` over the shard files (``O_DIRECT``
+    reads with ``direct``), each shard put on the card by
+    ``default_device_put``; returns the tree and the stream's metrics."""
+    from tpu9_torch.serving import weights as wfmt
+    from tpu9_torch.worker.weightstream import default_device_put, stream_shards
+    leaves, st = asyncio.run(stream_shards(
+        index["leaves"], _shard_chunks(path, index, direct),
+        default_device_put))
+    torch.cuda.synchronize()
+    return wfmt.assemble(index, leaves), st
+
+
+def _check_equal(kind: str, label: str, live, got) -> None:
+    """Every leaf of ``got`` on the card and ``torch.equal`` to the live
+    param at the same path."""
+    from tpu9_torch.serving import weights as wfmt
+    want, have = wfmt.flatten_tree(live)[1], wfmt.flatten_tree(got)[1]
+    check([k for k, _ in want] == [k for k, _ in have], f"restore {kind} "
+          f"{label}: the restored tree's paths differ from the live one's")
+    for (key, w), (_, h) in zip(want, have):
+        check(h.device == w.device, f"restore {kind} {label}: {key} is on "
+              f"{h.device}, not {w.device}")
+        check(h.dtype == w.dtype and torch.equal(h, w), f"restore {kind} "
+              f"{label}: {key} differs from the live param")
+
+
+def _pinned_copy_s(total: int) -> float:
+    """Seconds of plain pinned ``copy_`` host to device of ``total`` bytes,
+    through one pinned buffer of ``COPY_BYTES`` copied again and again."""
+    host = torch.empty(COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dev.copy_(host, non_blocking=True)              # warm the path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, total, COPY_BYTES):
+        n = min(COPY_BYTES, total - off)
+        dev[:n].copy_(host[:n], non_blocking=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _serve_alone(engine, prompt: list[int], count: bool):
+    """Serve ``prompt`` alone, ``RESTORE_NEW`` greedy tokens, streamed;
+    returns the tokens, the seconds to the first token, the decode steps
+    and (with ``count``) the kernels' launches, zeroed just before."""
+    async def go():
+        await engine.start()
+        try:
+            steps0 = engine.stats()["decode_steps"]
+            if count:
+                for name in KERNELS:
+                    wrapper(name).launches = 0
+            t0 = time.perf_counter()
+            req = await engine.generate(prompt, max_new_tokens=RESTORE_NEW,
+                                        stream=True)
+            toks, t_first = [], None
+            while (tok := await req.queue.get()) is not None:
+                t_first = t_first or time.perf_counter() - t0
+                toks.append(tok)
+            check(not req.error, f"request failed: {req.error}")
+            launches = {name: wrapper(name).launches for name in KERNELS}
+            return (toks, t_first, engine.stats()["decode_steps"] - steps0,
+                    launches)
+        finally:
+            await engine.stop()
+    return asyncio.run(go())
+
+
+def phase_restore(engine, card: str, kind: str) -> dict:
+    """The cold-start chain on the ``kind`` engine's weights: save them as
+    ``.tpu9w`` shards with the port's ``ckpt.save_params`` (under a
+    ``TPU9_WORKDIR`` in ``build/``), restore them through the port's
+    ``stream_shards`` and ``default_device_put`` from the page cache and
+    then after dropping the shards' pages (labelled by where the bytes
+    came from, ``_drop_pages``), load them the runner's way (``ckpt.load_params``
+    to host tensors, then to the card), hold every restored leaf
+    ``torch.equal`` to the live one, and serve the reference prompt from
+    an engine over the restored weights: the same 16 greedy tokens as an
+    engine over the live weights serving it alone, no graph built after warmup and the
+    path's decode kernel launched ``n_layers x decode steps`` times. Prints
+    each step's seconds and GB/s beside a plain pinned copy of the same
+    bytes, and the cold start (the second restore, engine build and
+    warmup, first token). Returns the kernels' launches."""
+    import shutil
+    from tpu9_torch.ops.quant import quantized_bytes
+    from tpu9_torch.runner import ckpt
+    from tpu9_torch.serving import weights as wfmt
+    from tpu9_torch.serving.engine import InferenceEngine
+    from tpu9_torch.worker.weightstream import default_consumer
+
+    cfg = engine.cfg
+    live = engine.params
+    total = quantized_bytes(live)
+    workdir = ROOT / "build" / f"restore-{kind}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    free = shutil.disk_usage(workdir).free
+    need = total + (256 << 20)
+    print(f"restore {kind}: {total / 1e9:.3f} GB of weights to save; "
+          f"{free / 1e9:.1f} GB free under {workdir.parent}")
+    check(free >= need, f"restore {kind}: the save needs {need / 1e9:.2f} GB "
+          f"free under {workdir.parent}, there are {free / 1e9:.2f} GB")
+    env_before = os.environ.get("TPU9_WORKDIR")
+    os.environ["TPU9_WORKDIR"] = str(workdir)
+    try:
+        # 1. save
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save_params(live)
+        t_save = time.perf_counter() - t0
+        index = wfmt.read_index(path)
+        want_v = 2 if kind == "int8" else 1
+        check(index["version"] == want_v and index.get("quantized", False)
+              == (want_v == 2), f"restore {kind}: index version "
+              f"{index['version']}, quantized {index.get('quantized')}")
+        check(index["total_bytes"] == total, f"restore {kind}: the index "
+              f"holds {index['total_bytes']} bytes, the params {total}")
+        print(f"restore {kind}: saved v{index['version']} "
+              f"({len(index['leaves'])} shards, quantized "
+              f"{index.get('quantized', False)}) in {t_save:.3f} s, "
+              f"{total / t_save / 1e9:.3f} GB/s ({card})")
+        pinned_s = _pinned_copy_s(total)
+
+        def report(label: str, st: dict) -> None:
+            print(f"restore {kind} {label}: stream_shards wall "
+                  f"{st['wall_s']:.3f} s, {st['bytes'] / st['wall_s'] / 1e9:.3f}"
+                  f" GB/s; fetch_s {st['fetch_s']:.3f}, put_s "
+                  f"{st['put_s']:.3f} (blocked on the consumer), consume_s "
+                  f"{st['consume_s']:.3f}; pinned ring "
+                  f"{default_consumer().pinned_bytes} bytes; a plain pinned "
+                  f"copy_ of the same bytes {pinned_s:.3f} s, "
+                  f"{total / pinned_s / 1e9:.3f} GB/s ({card})")
+
+        # 2. restore from the page cache
+        tree, st = _stream_restore(path, index)
+        check(st["bytes"] == total, f"restore {kind}: streamed {st['bytes']}"
+              f" bytes of {total}")
+        _check_equal(kind, "warm", live, tree)
+        report("warm", st)
+        del tree
+        # 3. restore after dropping the shards' pages
+        drop = _drop_pages(path, index)
+        label = drop["label"]
+        print(f"restore {kind}: after fsync and posix_fadvise(DONTNEED) "
+              f"{drop['resident']:.2%} of the shards' pages stay cached on "
+              f"{drop['fs']}; the next restore ({label}) reads through "
+              f"{drop['source']}")
+        tree, cold = _stream_restore(path, index, drop["direct"])
+        _check_equal(kind, label, live, tree)
+        report(f"{label} through {drop['source']}", cold)
+        # 4. the runner's path: host tensors, then the card
+        t0 = time.perf_counter()
+        host = ckpt.load_params(mmap=False, device="cpu")
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moved = ckpt.to_device(host, DEVICE)
+        torch.cuda.synchronize()
+        t_move = time.perf_counter() - t0
+        _check_equal(kind, "runner", live, moved)
+        del host, moved
+        print(f"restore {kind} runner: ckpt.load_params(mmap=False) "
+              f"{t_host:.3f} s ({total / t_host / 1e9:.3f} GB/s), to the card "
+              f"{t_move:.3f} s ({total / t_move / 1e9:.3f} GB/s) ({card})")
+        # 5. serve from the restored weights
+        ref_prompt = make_prompts(cfg.vocab_size, seed=1)[2][:127]
+        twin = InferenceEngine(live, cfg, engine.ecfg, device=DEVICE)
+        twin.warmup()
+        want, *_ = _serve_alone(twin, ref_prompt, count=False)
+        del twin
+        t0 = time.perf_counter()
+        restored = InferenceEngine(tree, cfg, engine.ecfg, device=DEVICE)
+        restored.warmup()
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        check_captured(restored, f"restore {kind}")
+        got, t_first, steps, launches = _serve_alone(restored, ref_prompt,
+                                                     count=True)
+        check(got == want, f"restore {kind}: the restored engine served "
+              f"{got}, the live one {want}")
+        post = restored.stats()["graph_compiles_post_warmup"]
+        check(post == 0, f"restore {kind}: {post} graphs built after warmup")
+        want_l = {name: 0 for name in KERNELS}
+        for name in ENGINES[kind][2]:
+            want_l[name] = cfg.n_layers * steps
+        check(steps > 0 and launches == want_l, f"restore {kind}: launches "
+              f"{launches}, expected {want_l} ({cfg.n_layers} layers, {steps} "
+              f"decode steps)")
+        print(f"restore {kind}: an engine over the restored weights served "
+              f"the reference prompt's {RESTORE_NEW} greedy tokens as the "
+              f"live one; launches {launches} ({steps} decode steps); cold "
+              f"start {cold['wall_s'] + t_build + t_first:.3f} s = {label} "
+              f"restore through {drop['source']} {cold['wall_s']:.3f} + "
+              f"engine build and warmup {t_build:.3f} + first token "
+              f"{t_first:.3f} ({card})")
+        del restored, tree
+    finally:
+        if env_before is None:
+            os.environ.pop("TPU9_WORKDIR", None)
+        else:
+            os.environ["TPU9_WORKDIR"] = env_before
+        # 6. clean up before the next phase
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {name: launches[name] for name in ENGINES[kind][2]}
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -1747,6 +2117,8 @@ def main() -> int:
                 if profiling:
                     profile_spec(spec, card, kind)
                 del spec
+            if kind in ("bf16", "int8"):
+                launches[f"restore-{kind}"] = phase_restore(engine, card, kind)
             if profiling:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads

@@ -40,6 +40,20 @@ from tpu9_torch.serving.presets import load_engine
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def jax_table_copies(monkeypatch):
+    """The JAX paged engine's block table handed over as a copy at each
+    push: ``jnp.asarray`` may wrap the pool's host table, which each push
+    rewrites in place, so a window dispatched before an admission could
+    read the admitted slot's new row (``tests/test_torch_spec.py`` says
+    how). The port copies its table."""
+    from tpu9.serving.shard.policy import SingleDevicePolicy
+    monkeypatch.setattr(
+        SingleDevicePolicy, "device_table",
+        lambda policy, table: jnp.asarray(np.array(table, copy=True)))
+
+
 ENGINE = dict(max_batch=4, max_seq_len=128, prefill_buckets=(16, 64),
               decode_steps=(1, 4), kv_block_size=16, prefill_chunk=16,
               prefix_cache_blocks=16, admit_group_chunks=2)
@@ -80,6 +94,7 @@ async def _serve(engine, prompts, max_new):
     return outs, again
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 def test_greedy_streams_identical_to_jax_engine(engines):
     jeng, teng = engines
     prompts = _prompts()
@@ -202,6 +217,7 @@ def int8_engines():
                             device="cpu"))
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 def test_int8_greedy_streams_match_jax_engine(int8_engines):
     jparams, jcfg, jeng, teng = int8_engines
     prompts = _prompts()

@@ -67,6 +67,20 @@ from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def jax_table_copies(monkeypatch):
+    """The JAX paged engine's block table handed over as a copy at each
+    push: ``jnp.asarray`` may wrap the pool's host table, which each push
+    rewrites in place, so a window dispatched before an admission could
+    read the admitted slot's new row (``tests/test_torch_spec.py`` says
+    how). The port copies its table."""
+    from tpu9.serving.shard.policy import SingleDevicePolicy
+    monkeypatch.setattr(
+        SingleDevicePolicy, "device_table",
+        lambda policy, table: jnp.asarray(np.array(table, copy=True)))
+
+
 ATOL = 2e-5          # kernels' twins, f32
 LOGIT_ATOL = 1e-4    # decoder logits, f32
 TEST = dict(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
@@ -627,6 +641,7 @@ async def _serve(engine, prompts, max_new):
     return list(outs), again
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 @pytest.mark.parametrize("mode", ["paged-bf16", "paged-int8", "dense"])
 def test_greedy_streams_identical_to_jax_engine(mode, routes):
     """The paged engine over a bf16 pool, the paged engine with int8
@@ -662,6 +677,7 @@ def test_greedy_streams_identical_to_jax_engine(mode, routes):
         assert teng.allocator.n_blocks == jeng.allocator.n_blocks
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 @pytest.mark.parametrize("mode", ["paged", "dense"])
 def test_stats_keys_equal_the_jax_gemma_engine(test256, mode):
     """The stats surface of a gemma engine: exactly the JAX engine's key

@@ -35,11 +35,14 @@ def _port_sources() -> list[Path]:
 def test_no_port_module_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
-    # the scan reaches every module: the int8 path's, and the kvwire
-    # format and host tier with the modules they extend
+    # the scan reaches every module: the int8 path's, the kvwire format
+    # and host tier with the modules they extend, and the checkpoint layer
+    # (the weight format and the runner and worker subpackages)
     for module in ("ops/quant.py", "serving/kvwire.py", "serving/kvpool.py",
                    "serving/paged_kv.py", "serving/schedule.py",
-                   "serving/engine.py", "utils/platform.py"):
+                   "serving/engine.py", "utils/platform.py",
+                   "serving/weights.py", "runner/ckpt.py",
+                   "worker/weightstream.py"):
         assert PORT / module in sources, module
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in sources}
@@ -48,7 +51,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 
 def test_importing_the_serving_stack_loads_no_jax():
     code = ("import sys, tpu9_torch.serving.presets, tpu9_torch.bridge, "
-            "tpu9_torch.serving.kvwire; "
+            "tpu9_torch.serving.kvwire, tpu9_torch.runner.ckpt, "
+            "tpu9_torch.worker.weightstream; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

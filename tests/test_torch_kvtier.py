@@ -49,6 +49,20 @@ from tpu9_torch.serving.paged_kv import BlockAllocator, PrefixCache
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def jax_table_copies(monkeypatch):
+    """The JAX paged engine's block table handed over as a copy at each
+    push: ``jnp.asarray`` may wrap the pool's host table, which each push
+    rewrites in place, so a window dispatched before an admission could
+    read the admitted slot's new row (``tests/test_torch_spec.py`` says
+    how). The port copies its table."""
+    from tpu9.serving.shard.policy import SingleDevicePolicy
+    monkeypatch.setattr(
+        SingleDevicePolicy, "device_table",
+        lambda policy, table: jnp.asarray(np.array(table, copy=True)))
+
+
 JTINY = JAX_PRESETS["llama-tiny"]
 TTINY = LLAMA_PRESETS["llama-tiny"]
 BS = 32
@@ -635,6 +649,7 @@ def _strip_times(decisions: list) -> list:
                          if not k.endswith("_s")}} for d in decisions]
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 def test_tiered_engine_under_pressure_matches_the_jax_engine(tiny_f32):
     """A small pool with a host tier: window-boundary down-pages under
     pressure and up-pages of returning prefixes give the JAX engine's

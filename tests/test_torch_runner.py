@@ -10,14 +10,17 @@ records carry the reference's ``spec_*`` fields; a
 cancelled stream frees its slot and blocks; flight records, the profiling
 hook, the black box and the tiering hooks of the pressure heartbeat answer
 as the reference's do. The own copies of the flight recorder and of the
-latency summaries behave as the reference modules. Two LocalStack e2es
+latency summaries behave as the reference modules. Three LocalStack e2es
 serve the torch engine (on the CPU) behind the real runner: one with the
 default environment, KV tiering armed and speculative decoding on:
 buffered and SSE greed equal to the JAX engine's, the pressure heartbeat in the router table, a client
 disconnect that frees the slot, ``/flight`` and ``/profile``; the other
 with a shared ``TPU9_KV_CACHE_DIR``, where a JAX replica publishes a
 prefix after prefill and the torch replica serves a request that carries
-``adopt_kv`` from it."""
+``adopt_kv`` from it; the third with checkpointing on, where the handler
+saves its params through ``tpu9_torch.runner.ckpt`` on the first boot and
+the container restored after scale to zero loads them without calling its
+init and streams the same tokens."""
 
 import asyncio
 import dataclasses
@@ -47,6 +50,20 @@ from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
 from tpu9_torch.serving.flight import FlightRecorder
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def jax_table_copies(monkeypatch):
+    """The JAX paged engine's block table handed over as a copy at each
+    push: ``jnp.asarray`` may wrap the pool's host table, which each push
+    rewrites in place, so a window dispatched before an admission could
+    read the admitted slot's new row (``tests/test_torch_spec.py`` says
+    how). The port copies its table."""
+    from tpu9.serving.shard.policy import SingleDevicePolicy
+    monkeypatch.setattr(
+        SingleDevicePolicy, "device_table",
+        lambda policy, table: jnp.asarray(np.array(table, copy=True)))
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PAGED = dict(max_batch=2, max_seq_len=128, prefill_buckets=(16, 64),
@@ -101,6 +118,7 @@ def _contract_fields() -> list[str]:
         return tomllib.load(f)["surface"]["engine_stats"]["fields"]
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 @pytest.mark.parametrize("mode", list(MODES))
 def test_stats_keys_equal_the_jax_engine(tiny, mode, monkeypatch):
     monkeypatch.delenv("TPU9_KV_TIER", raising=False)
@@ -623,3 +641,86 @@ async def test_torch_replica_adopts_a_prefix_the_jax_replica_published(
         assert int(float(seen["kvwire_import_fallbacks"])) == 0
         assert int(float(seen["kvwire_blocks_imported"])) == 2
         assert int(float(seen["prefix_hits"])) >= 1
+
+
+# a torch handler that restores its params through tpu9_torch.runner.ckpt:
+# the first boot draws them (the reference's llama-tiny weights at f32,
+# converted) and saves them as .tpu9w shards; a restored boot loads them.
+# Each boot appends a line to CKPT_LOG, and init one more
+TORCH_CKPT_APP = f"""
+import dataclasses
+import os
+
+
+def load_engine():
+    import torch
+    from tpu9_torch.models.llama import LLAMA_PRESETS
+    from tpu9_torch.runner import ckpt
+    from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
+
+    log = open(os.environ["CKPT_LOG"], "a")
+
+    def init():
+        import jax
+        import jax.numpy as jnp
+        import numpy as np
+        from tpu9.models import init_decoder
+        from tpu9.models.llama import LLAMA_PRESETS as JAX_PRESETS
+        from tpu9_torch.bridge import params_from_jax
+
+        log.write("init\\n")
+        jcfg = dataclasses.replace(JAX_PRESETS["llama-tiny"],
+                                   dtype=jnp.float32, max_seq_len=2048)
+        params = init_decoder(jax.random.PRNGKey(0), jcfg)
+        return params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                               "cpu")
+
+    torch.set_num_threads(1)
+    log.write("boot restored=" + os.environ.get("TPU9_RESTORED", "0") + "\\n")
+    params = ckpt.maybe_restore(init, device="cpu")
+    log.close()
+    tcfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"],
+                               dtype=torch.float32, max_seq_len=2048)
+    return InferenceEngine(params, tcfg, EngineConfig(**{E2E!r}),
+                           device="cpu")
+"""
+
+
+@pytest.mark.e2e
+async def test_torch_replica_cold_starts_from_its_saved_shards(tmp_path):
+    """The first container of a checkpointed ``runner="llm"`` deployment
+    inits its torch params and saves them; after scale to zero the next
+    container is restored (``TPU9_RESTORED=1``), loads the shards without
+    calling init, and streams the same greedy tokens, which are the JAX
+    engine's."""
+    from tpu9.testing.localstack import LocalStack
+
+    log = tmp_path / "boots.log"
+    prompt = list(range(11, 40))
+    (want,) = await _jax_greedy([(prompt, 16)])
+    async with LocalStack() as stack:
+        dep = await stack.deploy_endpoint(
+            "llm-torch-ckpt", {"app.py": TORCH_CKPT_APP}, "app:load_engine",
+            config_extra={"timeout_s": 240.0, "extra": {"runner": "llm"},
+                          "keep_warm_seconds": 120.0,
+                          "checkpoint": {"enabled": True},
+                          "runtime": {"cpu_millicores": 1000,
+                                      "memory_mb": 3072},
+                          "autoscaler": {"max_containers": 1},
+                          "env": {"CKPT_LOG": str(log)}})
+        body = {"tokens": prompt, "max_new_tokens": 16}
+        first, _ = await _sse_tokens(stack, "llm-torch-ckpt", body)
+        assert first == want
+        row = None
+        for _ in range(300):
+            row = await stack.backend.latest_checkpoint(dep["stub_id"])
+            if row:
+                break
+            await asyncio.sleep(0.1)
+        assert row, "checkpoint never became available"
+
+        await stack.scale_to_zero(dep)
+        second, _ = await _sse_tokens(stack, "llm-torch-ckpt", body)
+        assert second == first
+    assert log.read_text().splitlines() == ["boot restored=0", "init",
+                                            "boot restored=1"]

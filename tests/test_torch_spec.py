@@ -46,6 +46,27 @@ from tpu9_torch.serving.engine import (EngineConfig, InferenceEngine,
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def jax_table_copies(monkeypatch):
+    """The JAX paged engine's block table handed over as a copy at each
+    push, for the tests that hold its streams over interleaved admissions.
+
+    On the CPU ``jnp.asarray`` of a 64-byte-aligned numpy array may wrap
+    its memory without a copy, and the JAX pool rewrites its host table in
+    place at each push (``tpu9/serving/kvpool.py`` ``push_table``). A
+    window dispatched before an admission's push, which runs after it
+    under load (dispatch is asynchronous), then reads the admitted slot's
+    real blocks where its row was trash, and the inactive lane's write
+    lands in the new request's first block. The port copies its table
+    (``host_to_device``). Here the reference's policy hands the engine a
+    copy of the table, the value it means to install."""
+    from tpu9.serving.shard.policy import SingleDevicePolicy
+    monkeypatch.setattr(
+        SingleDevicePolicy, "device_table",
+        lambda policy, table: jnp.asarray(np.array(table, copy=True)))
+
+
 JCFG = dataclasses.replace(JAX_PRESETS["llama-tiny"], dtype=jnp.float32)
 TCFG = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], dtype=torch.float32)
 
@@ -532,10 +553,43 @@ def test_build_drafts_padding_and_counts():
 
 # -- the port's spec-on engine against the JAX spec-on engine --------------------
 
+def _fork_report(weights, got, want, jeng, teng) -> str:
+    """Where two streams part: for each request, the first differing step,
+    the top two logits of a plain no-cache forward of each package over
+    the common prefix (their margin says whether the step is a tie within
+    f32 rounding), the windows (kind, tokens a slot) of both engines, and
+    the thread counts."""
+    from tpu9.models.transformer import decoder_forward as jax_forward
+    from tpu9_torch.models.transformer import decoder_forward
+    jp, tp = weights
+    lines = [f"torch threads {torch.get_num_threads()}, interop "
+             f"{torch.get_num_interop_threads()}"]
+    for r, (prompt, g, w) in enumerate(zip(PROMPTS, got, want)):
+        if g == w:
+            continue
+        i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        seq = np.array([list(prompt) + list(w[:i])], dtype=np.int32)
+        jl = np.asarray(jax_forward(jp, jnp.asarray(seq), JCFG))[0, -1]
+        with torch.no_grad():
+            tl = decoder_forward(tp, torch.from_numpy(seq).long(),
+                                 TCFG)[0, -1].numpy()
+        top = [(int(k), float(v[k])) for v in (jl, tl)
+               for k in np.argsort(v)[-2:][::-1]]
+        lines.append(f"request {r}: step {i}, tokens {g[i:i + 1]} against "
+                     f"{w[i:i + 1]}; top-2 (id, logit) jax {top[:2]}, "
+                     f"torch {top[2:]}")
+    for name, eng in (("jax", jeng), ("torch", teng)):
+        lines.append(f"{name} windows: " + str(
+            [(f["kind"], f.get("tokens")) for f in eng.flight_records()]))
+    return "\n".join(lines)
+
+
 CROSS = {"dense": dict(), "paged": dict(paged=True),
          "paged-int8-pool": dict(paged=True, kv_quant="int8")}
 
 
+@pytest.mark.usefixtures("jax_table_copies")
 @pytest.mark.parametrize("mode", list(CROSS))
 def test_spec_streams_and_counters_equal_the_jax_engine(weights, mode):
     """Both engines admit both requests before their first window, so the
@@ -547,9 +601,9 @@ def test_spec_streams_and_counters_equal_the_jax_engine(weights, mode):
     teng = _engine(tp, **kw)
     want = _generate(jeng, PROMPTS, 120)
     got = _generate(teng, PROMPTS, 120)
-    assert got == want
-    assert got == _generate(_engine(tp, **dict(kw, spec_len=0)), PROMPTS,
-                            120)
+    assert got == want, _fork_report(weights, got, want, jeng, teng)
+    off = _generate(_engine(tp, **dict(kw, spec_len=0)), PROMPTS, 120)
+    assert got == off, _fork_report(weights, got, off, jeng, teng)
     js, ts = jeng.stats(), teng.stats()
     for key in ("spec_windows", "spec_proposed", "spec_accepted",
                 "spec_acceptance_rate", "spec_enabled", "decode_steps",

@@ -171,6 +171,7 @@ class InferenceEngine:
     def __init__(self, params: Params, cfg: DecoderConfig,
                  engine_cfg: EngineConfig = EngineConfig(), device=None):
         self.device = default_device(device)
+        _check_on_device(params, self.device)
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.params = params
@@ -1667,13 +1668,31 @@ def _to_host(*tensors: torch.Tensor):
     return tuple(hosts), ready
 
 
+def _named_leaves(tree, path: str = ""):
+    """Every ``(path, tensor)`` in a tree of dicts and lists (a param
+    tree, a cache), paths as the ``.tpu9w`` index keys them."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}".lstrip("/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}".lstrip("/"))
+
+
 def _tensor_leaves(tree):
     """Every tensor in a tree of dicts and lists (a param tree, a cache)."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensor_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensor_leaves(v)
+    for _, t in _named_leaves(tree):
+        yield t
+
+
+def _check_on_device(params, device: torch.device) -> None:
+    """Refuse a param tree with a leaf off ``device`` (a restored tree left
+    on the host, say) at construction, naming the leaf, instead of failing
+    at the first matmul."""
+    for path, t in _named_leaves(params):
+        if t.device.type != device.type or (
+                device.index is not None and t.device.index != device.index):
+            raise ValueError(f"param {path} is on {t.device}, the engine on "
+                             f"{device}: move the tree there first")
