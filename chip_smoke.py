@@ -37,9 +37,17 @@ Phases, each of which must pass or the script exits non-zero:
    the twin and one library call with CUDA events, as a host-bound step
    sees them and on the device alone, and the kernel wrapper's host time
    per call, beside the bound;
-4. engine, bf16: ``load_engine("llama3-8b", device="cuda")`` at full width
-   (random weights from a seed), ``warmup()`` (which captures each decode
-   window size as a CUDA graph: the three must be captured), six
+4. engine, bf16: ``load_engine("llama3-8b", device="cuda",
+   compile_ahead=True)`` at full width (random weights from a seed), the
+   runner's bring-up: the engine is built on the preset's abstract param
+   tree and precompiles (capturing each decode window size as a CUDA
+   graph over zero-filled weights: the three must be captured) while the
+   weights are drawn on a thread, then binds them in place; the four
+   ``bringup`` keys with the overlap inside the compile window, one
+   precompile timing for each key ``reachable_keys`` names, a KV state
+   with no NaN or inf after the captures, params bit-equal to
+   ``build_params``' draws from the same seed, and a ``warmup()`` that
+   builds nothing; then six
    concurrent ``generate`` requests (two share a 512-token prefix), a
    repeated greedy prompt, and a check of the generated tokens against a
    plain no-cache forward; then no post-warmup graph build, the
@@ -92,12 +100,20 @@ files, first from the page cache and then after each shard's pages are dropped
 they come from a shared filesystem's host, whose cache is unseen, else
 "page cache"), and loaded the runner's way (``ckpt.load_params``
 to host tensors, then to the card): every restored leaf ``torch.equal`` to
-the live one. An engine over the restored weights serves the reference
-prompt alone, 16 greedy tokens equal to those of an engine over the live
-weights, with no graph built after warmup and its decode kernel's launches
-counted. It prints seconds and GB/s of each step beside a plain pinned
-copy of the same bytes, and the cold start (the second restore, engine
-build and warmup, first token); the directory is deleted after.
+the live one. It prints seconds and GB/s of each step beside a plain
+pinned copy of the same bytes. Then two cold starts, each one wall from its
+start to the first token over a restore after the pages are dropped, in
+turns (bf16 serial first, int8 compile-ahead first): serial (restore,
+engine, warmup, serve) and compile-ahead (an engine on ``params_spec``
+precompiles beside the restore on a thread, then ``bind_params``, which
+must keep every param's ``data_ptr``, a ``warmup`` that builds nothing,
+serve), each serving the reference prompt alone, 16 greedy tokens equal
+to those of an engine over the live weights, with no graph built after
+warmup and its decode kernel's launches counted, and each printed with its
+decomposition (restore, ``fetch_s`` and
+``put_s`` with and without the captures beside them, ``compile_ahead_s``,
+``compile_overlap_s``, ``bind_s``) and its peak memory; the directory is
+deleted after.
 
 The kernel launch counts are zeroed just before each engine phase's
 requests (and the KV-motion and spec phases') and read just after: each
@@ -1083,6 +1099,55 @@ def phase_sampled(engine, card: str) -> None:
     del e
 
 
+BRINGUP_KEYS = {"load_s", "compile_ahead_s", "bind_s", "compile_overlap_s"}
+
+
+def pool_finite(engine) -> bool:
+    """No NaN or inf in the engine's floating KV state (pool and its scales,
+    or the dense cache, and the paged scratch)."""
+    trees = [engine.kv_cache] + ([engine._scratch] if engine.paged else [])
+    return all(bool(torch.isfinite(t).all()) for tree in trees
+               for t in tree.values() if t.is_floating_point())
+
+
+def check_bringup(engine, kind: str, preset: str) -> None:
+    """The compile-ahead bring-up of ``load_engine(compile_ahead=True)``:
+    the reference's four ``bringup`` keys with the overlap inside the
+    compile window, one precompile timing for each key the serve loop can
+    reach, no NaN or inf written into the KV state by the captures over
+    zero-filled weights, and params bit-equal to ``build_params``' draws
+    from the same seed."""
+    from tpu9_torch.serving import weights as wfmt
+    from tpu9_torch.serving.graphs import key_name
+    from tpu9_torch.serving.presets import build_params
+    b = engine.bringup
+    check(set(b) == BRINGUP_KEYS, f"{kind} engine: bringup keys {sorted(b)}")
+    check(b["compile_overlap_s"] <= b["compile_ahead_s"], f"{kind} engine: "
+          f"overlap {b['compile_overlap_s']} s past the compile window "
+          f"{b['compile_ahead_s']} s")
+    want = {f"compile_{key_name(k)}_s" for k in engine.graphs.reachable_keys(
+        engine._buckets, engine._spec_lens)}
+    got = set(engine.compile_ahead_timings)
+    check(got == want, f"{kind} engine: precompiled {sorted(got)}, the serve "
+          f"loop reaches {sorted(want)}")
+    check(pool_finite(engine), f"{kind} engine: the captures over zero "
+          f"weights wrote NaN or inf into the KV state")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref, _ = build_params(preset, seed=0, device=DEVICE)
+    have = dict(wfmt.flatten_tree(engine.params)[1])
+    for path, t in wfmt.flatten_tree(ref)[1]:
+        check(have[path].dtype == t.dtype and torch.equal(have[path], t),
+              f"{kind} engine: bound param {path} differs from build_params'")
+    del ref, have
+    torch.cuda.empty_cache()
+    print(f"engine {kind}: compile-ahead bring-up {b}; "
+          f"{len(engine.compile_ahead_timings)} computations precompiled in "
+          f"{sum(engine.compile_ahead_timings.values()):.3f} s, the key set "
+          f"of reachable_keys; params bit-equal to build_params(seed=0); "
+          f"KV state finite after the captures; peak memory of the bring-up "
+          f"{peak_gb:.2f} GB")
+
+
 def phase_engine(card: str, kind: str):
     """Serve the six prompts, the repeat and the reference prompt through
     the ``kind`` engine of ``ENGINES``, then check the runner's surface;
@@ -1096,13 +1161,17 @@ def phase_engine(card: str, kind: str):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = load_engine(preset, device=DEVICE, max_batch=8, max_seq_len=2048,
-                         seed=0, **knobs)
+                         seed=0, compile_ahead=True, **knobs)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
+    check_bringup(engine, kind, preset)
+    built = engine.graphs.compiles
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
+    check(engine.graphs.compiles == built, f"{kind} engine: warmup after "
+          f"precompile built {engine.graphs.compiles - built} computations")
     cfg, ecfg = engine.cfg, engine.ecfg
     check(engine.paged == knobs.get("paged", True), f"the {kind} engine has "
           f"paged={engine.paged}")
@@ -1754,13 +1823,14 @@ def _drop_pages(path: str, index: dict) -> dict:
 def _stream_restore(path: str, index: dict, direct: bool = False):
     """The port's ``stream_shards`` over the shard files (``O_DIRECT``
     reads with ``direct``), each shard put on the card by
-    ``default_device_put``; returns the tree and the stream's metrics."""
+    ``default_device_put``, which waits for its own copies (on its copy
+    stream: no device-wide synchronise, so captures on another thread run
+    on beside it); returns the tree and the stream's metrics."""
     from tpu9_torch.serving import weights as wfmt
     from tpu9_torch.worker.weightstream import default_device_put, stream_shards
     leaves, st = asyncio.run(stream_shards(
         index["leaves"], _shard_chunks(path, index, direct),
         default_device_put))
-    torch.cuda.synchronize()
     return wfmt.assemble(index, leaves), st
 
 
@@ -1795,8 +1865,9 @@ def _pinned_copy_s(total: int) -> float:
 
 def _serve_alone(engine, prompt: list[int], count: bool):
     """Serve ``prompt`` alone, ``RESTORE_NEW`` greedy tokens, streamed;
-    returns the tokens, the seconds to the first token, the decode steps
-    and (with ``count``) the kernels' launches, zeroed just before."""
+    returns the tokens, the seconds to the first token, the decode steps,
+    (with ``count``) the kernels' launches, zeroed just before, and the
+    ``perf_counter`` reading at the first token."""
     async def go():
         await engine.start()
         try:
@@ -1807,14 +1878,14 @@ def _serve_alone(engine, prompt: list[int], count: bool):
             t0 = time.perf_counter()
             req = await engine.generate(prompt, max_new_tokens=RESTORE_NEW,
                                         stream=True)
-            toks, t_first = [], None
+            toks, t_at = [], None
             while (tok := await req.queue.get()) is not None:
-                t_first = t_first or time.perf_counter() - t0
+                t_at = t_at or time.perf_counter()
                 toks.append(tok)
             check(not req.error, f"request failed: {req.error}")
             launches = {name: wrapper(name).launches for name in KERNELS}
-            return (toks, t_first, engine.stats()["decode_steps"] - steps0,
-                    launches)
+            return (toks, t_at - t0, engine.stats()["decode_steps"] - steps0,
+                    launches, t_at)
         finally:
             await engine.stop()
     return asyncio.run(go())
@@ -1828,13 +1899,17 @@ def phase_restore(engine, card: str, kind: str) -> dict:
     then after dropping the shards' pages (labelled by where the bytes
     came from, ``_drop_pages``), load them the runner's way (``ckpt.load_params``
     to host tensors, then to the card), hold every restored leaf
-    ``torch.equal`` to the live one, and serve the reference prompt from
-    an engine over the restored weights: the same 16 greedy tokens as an
-    engine over the live weights serving it alone, no graph built after warmup and the
-    path's decode kernel launched ``n_layers x decode steps`` times. Prints
-    each step's seconds and GB/s beside a plain pinned copy of the same
-    bytes, and the cold start (the second restore, engine build and
-    warmup, first token). Returns the kernels' launches."""
+    ``torch.equal`` to the live one, and time two cold starts over the
+    shards, each as one wall to the first token after dropping their
+    pages, in turns: serial (``_cold_serial``: restore, then an engine
+    over the restored tree, warmup, serve) and compile-ahead
+    (``_cold_ahead``: the restore beside an engine's precompile, then
+    bind, warmup, serve). Each must serve the reference prompt's 16 greedy
+    tokens as an engine over the live weights does, build nothing after
+    warmup and launch the path's decode kernel ``n_layers x decode
+    steps`` times. Prints each step's seconds and GB/s beside a plain
+    pinned copy of the same bytes, and each cold start's decomposition.
+    Returns the kernels' launches of the compile-ahead cold start."""
     import shutil
     from tpu9_torch.ops.quant import quantized_bytes
     from tpu9_torch.runner import ckpt
@@ -1902,6 +1977,7 @@ def phase_restore(engine, card: str, kind: str) -> dict:
         tree, cold = _stream_restore(path, index, drop["direct"])
         _check_equal(kind, label, live, tree)
         report(f"{label} through {drop['source']}", cold)
+        launches = {}
         # 4. the runner's path: host tensors, then the card
         t0 = time.perf_counter()
         host = ckpt.load_params(mmap=False, device="cpu")
@@ -1915,38 +1991,23 @@ def phase_restore(engine, card: str, kind: str) -> dict:
         print(f"restore {kind} runner: ckpt.load_params(mmap=False) "
               f"{t_host:.3f} s ({total / t_host / 1e9:.3f} GB/s), to the card "
               f"{t_move:.3f} s ({total / t_move / 1e9:.3f} GB/s) ({card})")
-        # 5. serve from the restored weights
+        del tree
+        # 5. the live engine's tokens, which the cold-started engines must
+        # serve
         ref_prompt = make_prompts(cfg.vocab_size, seed=1)[2][:127]
         twin = InferenceEngine(live, cfg, engine.ecfg, device=DEVICE)
         twin.warmup()
         want, *_ = _serve_alone(twin, ref_prompt, count=False)
         del twin
-        t0 = time.perf_counter()
-        restored = InferenceEngine(tree, cfg, engine.ecfg, device=DEVICE)
-        restored.warmup()
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
-        check_captured(restored, f"restore {kind}")
-        got, t_first, steps, launches = _serve_alone(restored, ref_prompt,
-                                                     count=True)
-        check(got == want, f"restore {kind}: the restored engine served "
-              f"{got}, the live one {want}")
-        post = restored.stats()["graph_compiles_post_warmup"]
-        check(post == 0, f"restore {kind}: {post} graphs built after warmup")
-        want_l = {name: 0 for name in KERNELS}
-        for name in ENGINES[kind][2]:
-            want_l[name] = cfg.n_layers * steps
-        check(steps > 0 and launches == want_l, f"restore {kind}: launches "
-              f"{launches}, expected {want_l} ({cfg.n_layers} layers, {steps} "
-              f"decode steps)")
-        print(f"restore {kind}: an engine over the restored weights served "
-              f"the reference prompt's {RESTORE_NEW} greedy tokens as the "
-              f"live one; launches {launches} ({steps} decode steps); cold "
-              f"start {cold['wall_s'] + t_build + t_first:.3f} s = {label} "
-              f"restore through {drop['source']} {cold['wall_s']:.3f} + "
-              f"engine build and warmup {t_build:.3f} + first token "
-              f"{t_first:.3f} ({card})")
-        del restored, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 6. the cold start as one wall each, serial and compile-ahead, in
+        # turns (bf16 serial first, int8 compile-ahead first), each over a
+        # restore after the shards' pages are dropped
+        pair = (_cold_serial, _cold_ahead)
+        for run in (pair if kind == "bf16" else pair[::-1]):
+            launches[run.__name__] = run(engine, card, kind, path, index,
+                                         ref_prompt, want)
     finally:
         if env_before is None:
             os.environ.pop("TPU9_WORKDIR", None)
@@ -1954,7 +2015,128 @@ def phase_restore(engine, card: str, kind: str) -> dict:
             os.environ["TPU9_WORKDIR"] = env_before
         # 6. clean up before the next phase
         shutil.rmtree(workdir, ignore_errors=True)
-    return {name: launches[name] for name in ENGINES[kind][2]}
+    return {name: launches["_cold_ahead"][name] for name in ENGINES[kind][2]}
+
+
+def _check_served(kind: str, label: str, engine, got, want, steps,
+                  launches) -> dict:
+    """A cold-started engine served the live engine's tokens, built nothing
+    after warmup and launched its path's decode kernel ``n_layers x decode
+    steps`` times."""
+    check(got == want, f"restore {kind} {label}: served {got}, the live "
+          f"engine {want}")
+    post = engine.stats()["graph_compiles_post_warmup"]
+    check(post == 0, f"restore {kind} {label}: {post} graphs built after "
+          f"warmup")
+    want_l = {name: 0 for name in KERNELS}
+    for name in ENGINES[kind][2]:
+        want_l[name] = engine.cfg.n_layers * steps
+    check(steps > 0 and launches == want_l, f"restore {kind} {label}: "
+          f"launches {launches}, expected {want_l}")
+    check_captured(engine, f"restore {kind} {label}")
+    return launches
+
+
+def _cold_serial(live, card: str, kind: str, path: str, index: dict,
+                 prompt: list[int], want: list[int]) -> dict:
+    """The cold start as the port ran it before compile-ahead, one wall
+    from the restore's start to the first token: restore the shards after
+    dropping their pages, build an engine over them, warm it up (its
+    captures), serve."""
+    from tpu9_torch.serving.engine import InferenceEngine
+    drop = _drop_pages(path, index)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, st = _stream_restore(path, index, drop["direct"])
+    t_restore = time.perf_counter() - t0
+    engine = InferenceEngine(tree, live.cfg, live.ecfg, device=DEVICE)
+    engine.warmup()
+    got, _, steps, launches, t_at = _serve_alone(engine, prompt, count=True)
+    wall = t_at - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_served(kind, "serial", engine, got, want, steps, launches)
+    print(f"restore {kind} cold start, serial: {wall:.3f} s to the first "
+          f"token ({drop['label']} through {drop['source']}): restore "
+          f"{t_restore:.3f} s (stream wall {st['wall_s']:.3f}, fetch_s "
+          f"{st['fetch_s']:.3f}, put_s {st['put_s']:.3f}), then build, "
+          f"warmup and first token {wall - t_restore:.3f}; peak memory "
+          f"{peak_gb:.2f} GB; launches {launches} ({card})")
+    del engine, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _cold_ahead(live, card: str, kind: str, path: str, index: dict,
+                prompt: list[int], want: list[int]) -> dict:
+    """The cold start with compile-ahead, one wall from the engine's
+    construction to the first token: an engine on ``params_spec``
+    (zero-filled weight storage) precompiles on the calling thread,
+    capturing every window, while a thread restores the shards after
+    dropping their pages (the sides of ``load_engine(compile_ahead=True)``:
+    the captures cost a fresh thread far more CPU, PERF.md §6); then the
+    join, ``bind_params`` (every ``data_ptr`` kept), ``warmup`` (nothing
+    built) and the first token."""
+    import threading
+
+    from tpu9_torch.observability.coldstart import interval_overlap_s
+    from tpu9_torch.serving import weights as wfmt
+    from tpu9_torch.serving.engine import InferenceEngine
+    from tpu9_torch.serving.presets import params_spec
+    spec, cfg = params_spec(ENGINES[kind][0])
+    drop = _drop_pages(path, index)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(spec, cfg, live.ecfg, device=DEVICE)
+    ptrs = [t.data_ptr() for _, t in wfmt.flatten_tree(engine.params)[1]]
+    loaded: dict = {}
+
+    def restore() -> None:
+        try:
+            loaded["tree"], loaded["st"] = _stream_restore(path, index,
+                                                           drop["direct"])
+        finally:
+            loaded["end"] = time.monotonic()
+
+    loader = threading.Thread(target=restore, name="tpu9-weight-load")
+    r0 = time.monotonic()
+    loader.start()
+    try:
+        c0 = time.monotonic()
+        timings = engine.precompile()
+        c1 = time.monotonic()
+    finally:
+        loader.join()
+    check("tree" in loaded, f"restore {kind} compile-ahead: the restore "
+          f"beside the captures failed")
+    r1, st = loaded["end"], loaded["st"]
+    tb = time.perf_counter()
+    engine.bind_params(loaded.pop("tree"))
+    bind_s = time.perf_counter() - tb
+    check(ptrs == [t.data_ptr()
+                   for _, t in wfmt.flatten_tree(engine.params)[1]],
+          f"restore {kind} compile-ahead: bind_params moved a param")
+    built = engine.graphs.compiles
+    engine.warmup()
+    check(engine.graphs.compiles == built, f"restore {kind} compile-ahead: "
+          f"warmup built {engine.graphs.compiles - built} computations")
+    got, _, steps, launches, t_at = _serve_alone(engine, prompt, count=True)
+    wall = t_at - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_served(kind, "compile-ahead", engine, got, want, steps, launches)
+    print(f"restore {kind} cold start, compile-ahead: {wall:.3f} s to the "
+          f"first token ({drop['label']} through {drop['source']}): restore "
+          f"{r1 - r0:.3f} s (stream wall {st['wall_s']:.3f}, fetch_s "
+          f"{st['fetch_s']:.3f}, put_s {st['put_s']:.3f}) beside "
+          f"compile_ahead_s {c1 - c0:.3f} ({len(timings)} "
+          f"computations), compile_overlap_s "
+          f"{interval_overlap_s((r0, r1), (c0, c1)):.3f}, bind_s "
+          f"{bind_s:.3f}; every data_ptr kept by the bind; peak memory "
+          f"{peak_gb:.2f} GB; launches {launches} ({card})")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- optional (--profile): where each engine's time goes ---------------------

@@ -42,7 +42,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "serving/paged_kv.py", "serving/schedule.py",
                    "serving/engine.py", "utils/platform.py",
                    "serving/weights.py", "runner/ckpt.py",
-                   "worker/weightstream.py"):
+                   "worker/weightstream.py", "observability/coldstart.py"):
         assert PORT / module in sources, module
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in sources}
@@ -52,7 +52,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 def test_importing_the_serving_stack_loads_no_jax():
     code = ("import sys, tpu9_torch.serving.presets, tpu9_torch.bridge, "
             "tpu9_torch.serving.kvwire, tpu9_torch.runner.ckpt, "
-            "tpu9_torch.worker.weightstream; "
+            "tpu9_torch.worker.weightstream, "
+            "tpu9_torch.observability.coldstart; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

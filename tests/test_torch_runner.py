@@ -20,7 +20,9 @@ prefix after prefill and the torch replica serves a request that carries
 ``adopt_kv`` from it; the third with checkpointing on, where the handler
 saves its params through ``tpu9_torch.runner.ckpt`` on the first boot and
 the container restored after scale to zero loads them without calling its
-init and streams the same tokens."""
+init and streams the same tokens; the fourth builds its engine the way the
+runner builds a preset's, ``load_engine(compile_ahead=True)`` with the
+runner's tracer, and its heartbeat carries the compile-ahead bring-up."""
 
 import asyncio
 import dataclasses
@@ -684,6 +686,75 @@ def load_engine():
     return InferenceEngine(params, tcfg, EngineConfig(**{E2E!r}),
                            device="cpu")
 """
+
+
+# a torch handler that brings its engine up as the runner brings up a
+# preset's: built on the preset's abstract tree, precompiled on a thread
+# beside the weight draws, bound in place, spans in the runner's tracer
+AHEAD = dict(max_batch=2, max_seq_len=512, prefill_buckets=(16, 64),
+             decode_steps=(1, 4), kv_block_size=16)
+TORCH_AHEAD_APP = f"""
+def load_engine():
+    import torch
+    from tpu9.observability.trace import tracer
+    from tpu9_torch.serving.presets import load_engine
+
+    torch.set_num_threads(1)
+    return load_engine("llama-tiny", device="cpu", compile_ahead=True,
+                       tracer=tracer, **{AHEAD!r})
+"""
+
+
+@pytest.mark.e2e
+async def test_torch_replica_brings_up_compile_ahead():
+    """A torch replica built by ``load_engine(compile_ahead=True,
+    tracer=<the runner's tracer>)`` serves the tokens of an engine built
+    the classic way over the same seed, and its pressure heartbeat carries
+    the compile-ahead decomposition (``coldstart_compile_ahead_s``,
+    ``coldstart_bind_s``, ``coldstart_compile_overlap_s``), which
+    ``/api/v1/coldstart`` folds into the replica's record."""
+    from tpu9.abstractions.llm import LlmRouter
+    from tpu9.testing.localstack import LocalStack
+    from tpu9_torch.serving.presets import load_engine
+
+    prompt = list(range(11, 40))
+    classic = load_engine("llama-tiny", device="cpu", **AHEAD)
+    await classic.start()
+    try:
+        want = await classic.generate(prompt, max_new_tokens=8)
+    finally:
+        await classic.stop()
+    async with LocalStack() as stack:
+        dep = await stack.deploy_endpoint(
+            "llm-torch-ahead", {"app.py": TORCH_AHEAD_APP},
+            "app:load_engine",
+            config_extra={"timeout_s": 240.0, "extra": {"runner": "llm"},
+                          "keep_warm_seconds": 120.0,
+                          "runtime": {"cpu_millicores": 1000,
+                                      "memory_mb": 3072},
+                          "autoscaler": {"max_containers": 1}})
+        status, out = await stack.api(
+            "POST", "/endpoint/llm-torch-ahead",
+            json_body={"tokens": prompt, "max_new_tokens": 8}, timeout=240)
+        assert status == 200, out
+        assert out["tokens"] == want
+        states = await stack.running_containers(dep["stub_id"])
+        assert len(states) == 1
+        cid = states[0].container_id
+        seen = await _pressure(LlmRouter(stack.store), cid,
+                               lambda p: "coldstart_compile_ahead_s" in p)
+        ahead = float(seen["coldstart_compile_ahead_s"])
+        assert ahead > 0
+        assert 0 <= float(seen["coldstart_compile_overlap_s"]) <= ahead
+        assert float(seen["coldstart_bind_s"]) >= 0
+        assert float(seen["coldstart_load_s"]) > 0
+        assert int(float(seen["graph_compiles_post_warmup"])) == 0
+        status, cold = await stack.api(
+            "GET", f"/api/v1/coldstart?container_id={cid}")
+        assert status == 200, cold
+        runner = cold["replicas"][cid]["runner"]
+        assert {"compile_ahead_s", "bind_s", "compile_overlap_s",
+                "load_s", "warmup_s", "ready_s"} <= set(runner)
 
 
 @pytest.mark.e2e

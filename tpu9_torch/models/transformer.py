@@ -71,7 +71,9 @@ def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
                  device) -> Params:
     """Random params drawn from ``generator`` on ``device`` (the generator
     must live on that device). The draws differ from ``jax.random``; tests
-    convert JAX params with ``params_from_jax`` instead."""
+    convert JAX params with ``params_from_jax`` instead. On ``"meta"``,
+    with ``generator=None``, nothing is drawn: the tree of shapes and
+    dtypes compile-ahead builds on (``presets.params_spec``)."""
     if cfg.n_experts:
         raise NotImplementedError("MoE decoder: ROADMAP queue A10")
     dt = cfg.dtype

@@ -128,7 +128,8 @@ def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
     ``device`` from ``generator`` (which must live there): the paths,
     shapes and dtypes of the JAX ``init_quantized_decoder``. The draws
     differ from ``jax.random``; tests carry JAX trees over with
-    ``params_from_jax`` instead."""
+    ``params_from_jax`` instead. On ``"meta"``, with ``generator=None``,
+    nothing is drawn: the abstract tree of ``presets.params_spec``."""
     if cfg.n_experts:
         raise _no_moe()
 

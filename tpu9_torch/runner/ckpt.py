@@ -24,6 +24,7 @@ device unless the caller passes ``device="cpu"`` (a missing card raises).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -32,6 +33,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..observability import coldstart as cs
 from ..serving import weights as wfmt
 from ..utils.platform import default_device
 from ..worker.weightstream import make_device_put
@@ -175,14 +177,18 @@ def _saved(name: str) -> str | None:
 
 
 def load_params(name: str = "params", template: Any = None,
-                mmap: bool = False, device=None) -> Any:
+                mmap: bool = False, device=None, tracer=None) -> Any:
     """Load saved params onto ``device`` (default: the current CUDA device,
     raising without one; ``"cpu"`` keeps host tensors): the ``.tpu9w`` dir
     first (``mmap=True`` maps shards instead of reading them up front), else
     the ``torch.save`` fallback. Both reproduce the saved tree exactly
     (tuples included), so ``template``, which shapes the reference's legacy
     orbax restores, is not read. Host leaves move to a card through a ring
-    of pinned buffers (``worker.weightstream``).
+    of pinned buffers on a copy stream of its own (``worker.weightstream``),
+    so a load can run beside captures on another thread. With a ``tracer``
+    (the reference's ``Tracer``, or anything with its ``span``) a
+    ``.tpu9w`` load, the move included, records the reference's
+    ``restore.load`` span under the caller's current span.
 
     A ``.pt`` fallback loads with ``weights_only=True``. A ``.pickle`` one
     (NamedTuple containers, object leaves) runs the full unpickler: it
@@ -194,24 +200,27 @@ def load_params(name: str = "params", template: Any = None,
     if path is None:
         raise FileNotFoundError(f"no saved params {name!r} under "
                                 f"{ckpt_dir()}")
-    if os.path.isdir(path):
-        tree = wfmt.load_params(path, mmap=mmap)
-    else:
+    if not os.path.isdir(path):
         tree = torch.load(path, map_location="cpu",
                           weights_only=path.endswith(FALLBACK_SUFFIX))
-    return to_device(tree, device)
+        return to_device(tree, device)
+    with (tracer.span(cs.SPAN_LOAD, attrs={"name": name, "source": "tpu9w",
+                                           "mmap": mmap})
+          if tracer is not None else contextlib.nullcontext()):
+        return to_device(wfmt.load_params(path, mmap=mmap), device)
 
 
 def maybe_restore(init_fn: Callable[[], Any], name: str = "params",
-                  device=None) -> Any:
+                  device=None, tracer=None) -> Any:
     """Restore saved params when running from a checkpoint; otherwise init
     and, with checkpointing on, save them so the next cold start restores.
     Either way the tensors come back on ``device`` (default: the current
-    CUDA device, raising without one; ``"cpu"`` for host tensors)."""
+    CUDA device, raising without one; ``"cpu"`` for host tensors).
+    ``tracer`` goes to :func:`load_params`."""
     device = default_device(device)
     if is_restored() and _saved(name) is not None:
         log.info("restoring %s from checkpoint", name)
-        return load_params(name, device=device)
+        return load_params(name, device=device, tracer=tracer)
     params = to_device(init_fn(), device)
     if env_checkpoint_enabled():
         log.info("saving %s for future restores", name)

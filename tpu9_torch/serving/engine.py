@@ -39,8 +39,19 @@ The runner's surface is the reference's: ``generate(..., trace=)``,
 ``cancel_request``, ``active_stream_requests``, ``flight_records``,
 ``arm_profile`` (``torch.profiler``), ``blackbox``/``last_postmortem``, the
 kvwire and tiering hooks, and the ``[surface.engine_stats]`` key set of
-``stats()``. This port leaves out the tracer's engine spans and sharding
-(ROADMAP queue A).
+``stats()``. Given a tracer (``InferenceEngine(..., tracer=)``, the
+reference's ``Tracer`` or anything with its methods), a request that
+carries a remote trace context records the reference's spans:
+``engine.request`` backdated to its enqueue, ``engine.queue_wait``,
+``engine.prefill`` and one ``engine.decode_window`` for each window that
+delivered it tokens; ``blackbox()`` ships the tracer's tail.
+
+Compile-ahead, as the reference's: an engine built on an abstract param
+tree (``abstract_params``: ``device="meta"`` leaves) gives every leaf
+zero-filled storage on its device, ``precompile()`` builds and captures
+every serving computation over it, and ``bind_params`` then copies the real
+weights into that storage in place, so every captured window reads them.
+Sharding is not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -76,6 +87,15 @@ Params = dict[str, Any]
 DEADLINE_ERROR = "deadline_exceeded"
 
 log = logging.getLogger("tpu9_torch.serving")
+
+
+def abstract_params(tree: Any) -> Any:
+    """A tree of tensors → the same tree of ``device="meta"`` tensors of the
+    same shapes and dtypes (the reference's ``jax.ShapeDtypeStruct`` tree):
+    all an engine needs to be built and precompiled before its weights
+    exist (:meth:`InferenceEngine.bind_params`)."""
+    return _map_leaves(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
 
 
 @dataclass(frozen=True)
@@ -139,6 +159,7 @@ class _Window:
     n_real: Any = None        # verify: real (unpadded) drafts [B]
     spec_stats: tuple = ()    # verify: (proposed, accepted) at processing
     t_mono: float = 0.0       # dispatch stamp
+    t_wall: float = 0.0       # its wall anchor (decode_window spans)
     pick: str = ""            # why this k
     kv_snap: tuple = ()       # (used, free, reserved) at dispatch (paged)
     delivered: Any = None     # {slot: tokens delivered} (host processing)
@@ -157,9 +178,13 @@ class _Request:
     cancelled: bool = False                 # client abandoned the request
     deadline_mono: float = 0.0              # 0 = no deadline
     # remote trace context (trace_id, parent span id) from the runner;
-    # kept for the runner's drain, which reads it (no engine spans here)
+    # span is the engine.request span opened at admission under it
     trace: Optional[tuple] = None
+    span: Any = None
+    span_id: str = ""    # survives _obs_done so the window that retires a
+    #                      request can still parent its decode_window span
     t_enqueue_mono: float = 0.0
+    t_enqueue_wall: float = 0.0
     t_first_mono: float = 0.0               # first token delivered
     admit_cached: int = 0                   # prefix-cache tokens reused
     admit_chunks: int = 0                   # prefill chunks dispatched
@@ -169,9 +194,18 @@ class InferenceEngine:
     """Continuous-batching engine around a decoder model."""
 
     def __init__(self, params: Params, cfg: DecoderConfig,
-                 engine_cfg: EngineConfig = EngineConfig(), device=None):
+                 engine_cfg: EngineConfig = EngineConfig(), device=None,
+                 tracer=None):
         self.device = default_device(device)
+        if all(t.is_meta for t in _tensor_leaves(params)):
+            # compile-ahead: zeros, not torch.empty, since the captures run
+            # a forward over this storage, and garbage weights could write
+            # NaN into the pool's trash block
+            params = _map_leaves(
+                lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                      device=self.device), params)
         _check_on_device(params, self.device)
+        self.tracer = tracer
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.params = params
@@ -293,8 +327,12 @@ class InferenceEngine:
         host state only, read by ``stats()`` at heartbeat cadence."""
         self.flight = FlightRecorder()
         self.metrics = Metrics()
-        # bring-up seconds, set by the runner; stats() forwards them flat
+        # bring-up seconds, set by load_engine and the runner; stats()
+        # forwards them flat
         self.bringup: dict = {}
+        # per-group readiness of a streaming restore (note_group_bound);
+        # total 0 = not a partial bring-up, reported fully ready
+        self._scaleout_groups: dict = {"total": 0, "bound": []}
         self._pick_reason = ""
         self._flight_kv_allocs = 0
         self._flight_evictions = 0
@@ -394,6 +432,59 @@ class InferenceEngine:
         # a clean shutdown must not strand callers
         self._fail_all_requests("engine stopped")
 
+    def precompile(self) -> dict:
+        """Build every serving computation and run each once with every
+        lane inactive, then seal the factory: on the card each decode and
+        verify window is captured here. ``self.params`` may still be the
+        zero-filled storage of an abstract tree, so bring-up can run this
+        on a thread while the weights load, and :meth:`bind_params` them
+        after. Returns the seconds of each computation under the
+        reference's ``compile_<key>_s`` names (``GraphFactory.precompile``)."""
+        return self.graphs.precompile(
+            self.params, self.kv_cache,
+            self._pool_dict() if self.paged else {},
+            self._scratch if self.paged else {},
+            self.pool.mb if self.paged else 0,
+            self._buckets, self._spec_lens)
+
+    def bind_params(self, params: Params) -> None:
+        """Copy ``params`` into the engine's param storage in place: every
+        path, shape and dtype must equal the storage's, or this raises
+        naming the first that differs, before anything is written. No
+        entry of ``self.params`` is rebound (every captured window reads
+        their addresses), so each ``data_ptr`` is the same after as before.
+        Returns once the copies have run."""
+        have = dict(_named_leaves(self.params))
+        got = dict(_named_leaves(params))
+        for path, t in have.items():
+            src = got.get(path)
+            if src is None:
+                raise ValueError(f"bind_params: param {path} is missing")
+            if src.shape != t.shape or src.dtype != t.dtype:
+                raise ValueError(
+                    f"bind_params: param {path} is {src.dtype} "
+                    f"{list(src.shape)}, the engine's {t.dtype} "
+                    f"{list(t.shape)}")
+        extra = [p for p in got if p not in have]
+        if extra:
+            raise ValueError(f"bind_params: param {extra[0]} is not one of "
+                             f"the engine's")
+        with torch.no_grad():
+            for path, t in have.items():
+                t.copy_(got[path])
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def note_group_bound(self, group: str, total: int) -> None:
+        """One weight group of a streaming restore has been bound: recorded
+        so the pressure heartbeat reports per-group readiness
+        (``scaleout_*``) and the router can admit matching requests before
+        the last group lands."""
+        sg = self._scaleout_groups
+        sg["total"] = max(int(total), sg["total"])
+        if group and group not in sg["bound"]:
+            sg["bound"].append(group)
+
     def warmup(self) -> dict:
         """Build every computation the serve loop can reach and run each
         once with all lanes inactive (paged writes land in the trash block,
@@ -401,7 +492,8 @@ class InferenceEngine:
         kernel build, library set-up or capture, and a later build counts
         as a post-warmup compile. On the card each decode window and each
         verify window is captured here (``graphs.capture_s`` has the
-        seconds) and replayed once."""
+        seconds) and replayed once. After :meth:`precompile` it builds
+        nothing: it replays what was built."""
         timings: dict[str, float] = {}
         if self.paged:
             self._warmup_paged(timings)
@@ -500,8 +592,9 @@ class InferenceEngine:
         """Generate up to ``max_new_tokens`` ids after ``prompt``. With
         ``stream=True`` returns the request at once; its ``queue`` yields
         each id and then ``None``. ``trace`` is the runner's remote span
-        context ``(trace_id, parent_span_id)``; it is kept on the request
-        (the runner's drain reads it) but no engine spans are recorded.
+        context ``(trace_id, parent_span_id)``: with a tracer the request's
+        spans are recorded under it (the module docstring names them), and
+        the runner's drain reads it.
         ``budget_s`` is the remaining deadline: a request still queued past
         it is never prefilled, and one still decoding is retired at the
         next window boundary."""
@@ -523,7 +616,7 @@ class InferenceEngine:
                        prompt=list(prompt), max_new_tokens=max_new_tokens,
                        queue=asyncio.Queue() if stream else None,
                        trace=trace if trace and trace[0] else None,
-                       t_enqueue_mono=now,
+                       t_enqueue_mono=now, t_enqueue_wall=time.time(),
                        deadline_mono=now + budget_s if budget_s else 0.0)
         await self._queue.put(req)
         if stream:
@@ -645,7 +738,7 @@ class InferenceEngine:
         """Raw forensic material for a post-mortem record: scalar stats,
         scheduler and KV-pool state, HBM, and the flight-recorder tail.
         Plain host reads only, safe next to a wedged or dead serve loop.
-        ``spans`` stays empty: the port records no engine spans."""
+        ``spans`` is the tracer's tail (``[]`` without a tracer)."""
         stats = self.stats()
         scheduler = {
             "active_slots": [int(i) for i in range(self.ecfg.max_batch)
@@ -688,7 +781,8 @@ class InferenceEngine:
             "kv_pool": kv_pool,
             "hbm": hbm,
             "flight": self.flight_records(limit=64),
-            "spans": [],
+            "spans": (self.tracer.export(limit=128)
+                      if self.tracer is not None else []),
         }
 
     def stats(self) -> dict:
@@ -759,11 +853,14 @@ class InferenceEngine:
         for k, v in self.bringup.items():
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 out[f"coldstart_{k}"] = v
-        # no streaming restore is ported (queue A8): every replica is a
-        # whole bring-up, fully ready
-        out["scaleout_groups_total"] = out["scaleout_groups_ready"] = 0
-        out["scaleout_ready_frac"] = 1.0
-        out["scaleout_ready_groups"] = ""
+        # per-group readiness, flat like coldstart_*; no partial bring-up
+        # in flight (total 0) reports fully ready
+        sg = self._scaleout_groups
+        out["scaleout_groups_total"] = sg["total"]
+        out["scaleout_groups_ready"] = len(sg["bound"])
+        out["scaleout_ready_frac"] = round(
+            len(sg["bound"]) / sg["total"], 4) if sg["total"] else 1.0
+        out["scaleout_ready_groups"] = ",".join(sg["bound"])
         lat = {}
         summaries = self.metrics.to_dict()["summaries"]
         for phase in ("ttft", "tbt", "queue_wait", "prefill",
@@ -854,22 +951,56 @@ class InferenceEngine:
 
     # -- observability hooks -------------------------------------------------
     # Host bookkeeping on state the loop already holds: latency observes
-    # per request and per window, never per token, and flight records.
+    # per request and per window, never per token, flight records, and,
+    # for a request carrying a remote trace context, spans in the tracer.
 
-    def _obs_admit_end(self, req: _Request, t0_mono: float,
+    def _obs_admit_start(self, req: _Request, t0_mono: float) -> None:
+        self.metrics.observe("tpu9_engine_queue_wait_s",
+                             max(t0_mono - req.t_enqueue_mono, 0.0))
+        if req.trace is None or self.tracer is None:
+            return
+        trace_id, parent = req.trace
+        req.span = self.tracer.start_span(
+            "engine.request", trace_id=trace_id, parent_id=parent,
+            attrs={"request_id": req.request_id,
+                   "prompt_tokens": len(req.prompt),
+                   "max_new_tokens": req.max_new_tokens,
+                   # one card: the reference's submesh attributes
+                   "tp": 1, "n_chips": 1})
+        req.span_id = req.span.span_id
+        # backdated to the enqueue: the request span covers queue wait,
+        # prefill and every decode window
+        req.span.start, req.span.start_mono = (req.t_enqueue_wall,
+                                               req.t_enqueue_mono)
+        self.tracer.record_span(
+            "engine.queue_wait", trace_id, req.span_id,
+            req.t_enqueue_wall, req.t_enqueue_mono,
+            attrs={"request_id": req.request_id}, end_mono=t0_mono)
+
+    def _obs_admit_end(self, req: _Request, t0_mono: float, t0_wall: float,
                        il0: int) -> None:
         dur = max(time.monotonic() - t0_mono, 0.0)
         self._last_progress_mono = time.monotonic()   # admission = progress
         self.metrics.observe("tpu9_engine_prefill_s", dur)
+        interleaved = self._stats["admit_interleaved_windows"] - il0
+        if req.span is not None:
+            self.tracer.record_span(
+                "engine.prefill", req.trace[0], req.span_id, t0_wall,
+                t0_mono,
+                attrs={"request_id": req.request_id,
+                       "prompt_tokens": len(req.prompt),
+                       "cached_tokens": req.admit_cached,
+                       "chunks": req.admit_chunks,
+                       "interleaved_windows": interleaved})
         self.flight.record(
             "admit", request_id=req.request_id, slot=req.slot,
             prompt_tokens=len(req.prompt), cached_tokens=req.admit_cached,
-            chunks=req.admit_chunks,
-            interleaved=self._stats["admit_interleaved_windows"] - il0,
+            chunks=req.admit_chunks, interleaved=interleaved,
             dur_s=round(dur, 6))
 
     def _obs_stamp_window(self, win: _Window) -> _Window:
         win.t_mono = time.monotonic()
+        win.t_wall = time.time()
         self._last_dispatch_mono = win.t_mono
         win.pick = self._pick_reason
         if self.paged:
@@ -908,6 +1039,14 @@ class InferenceEngine:
                        prefix_pinned=self.prefix_cache.pinned)
             self._flight_evictions = ev
         self.flight.record(win.kind, **rec)
+        for slot, n_tok in rec["tokens"].items():
+            req = win.reqs[slot]
+            if n_tok > 0 and req is not None and req.span_id:
+                self.tracer.record_span(
+                    "engine.decode_window", req.trace[0], req.span_id,
+                    win.t_wall, win.t_mono,
+                    attrs={"kind": win.kind, "k": win.k, "tokens": n_tok,
+                           "pick": win.pick})
 
     def _obs_first_token(self, req: _Request) -> None:
         req.t_first_mono = time.monotonic()
@@ -917,17 +1056,21 @@ class InferenceEngine:
 
     def _obs_done(self, req: _Request) -> None:
         """Idempotent: reachable from both _retire and _finish; only the
-        first call observes."""
-        if not req.t_enqueue_mono:
-            return
+        first call observes and finishes the request's span."""
         now = time.monotonic()
         n = len(req.generated)
-        self.metrics.observe("tpu9_engine_e2e_s",
-                             max(now - req.t_enqueue_mono, 0.0))
-        if req.t_first_mono and n > 1:
-            self.metrics.observe("tpu9_engine_tbt_s",
-                                 max(now - req.t_first_mono, 0.0) / (n - 1))
-        req.t_enqueue_mono = 0.0
+        if req.t_enqueue_mono:
+            self.metrics.observe("tpu9_engine_e2e_s",
+                                 max(now - req.t_enqueue_mono, 0.0))
+            if req.t_first_mono and n > 1:
+                self.metrics.observe(
+                    "tpu9_engine_tbt_s",
+                    max(now - req.t_first_mono, 0.0) / (n - 1))
+            req.t_enqueue_mono = 0.0
+        if req.span is not None:
+            sp, req.span = req.span, None     # exactly one finish a span
+            sp.attrs["tokens_generated"] = n
+            self.tracer.finish_span(sp, status="error" if req.error else "ok")
 
     # -- on-demand profiling -------------------------------------------------
 
@@ -1003,15 +1146,14 @@ class InferenceEngine:
         """Prefill and splice one request into ``slot`` and sample its first
         token. Returns the first token as a device value; the serve loop
         reads all admissions' first tokens in one copy."""
-        t0_mono = time.monotonic()
-        self.metrics.observe("tpu9_engine_queue_wait_s",
-                             max(t0_mono - req.t_enqueue_mono, 0.0))
+        t0_mono, t0_wall = time.monotonic(), time.time()
+        self._obs_admit_start(req, t0_mono)
         il0 = self._stats["admit_interleaved_windows"]
         if self.paged:
             first = await self._admit_paged(req, slot)
         else:
             first = self._admit_dense(req, slot)
-        self._obs_admit_end(req, t0_mono, il0)
+        self._obs_admit_end(req, t0_mono, t0_wall, il0)
         return first
 
     def _admit_dense(self, req: _Request, slot: int):
@@ -1685,6 +1827,16 @@ def _tensor_leaves(tree):
     """Every tensor in a tree of dicts and lists (a param tree, a cache)."""
     for _, t in _named_leaves(tree):
         yield t
+
+
+def _map_leaves(fn, tree):
+    """``fn`` of every tensor in a tree of dicts and lists, in the tree's
+    shape (lists for tuples, as the bridge builds them)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _check_on_device(params, device: torch.device) -> None:

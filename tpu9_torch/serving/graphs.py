@@ -18,6 +18,12 @@ window graphs share one memory pool. On a CPU engine each is the same
 computation run eagerly. The admission computations
 run eagerly on both and write the pool and scratch in place (the JAX graphs
 donated them).
+
+Compile-ahead: ``lowering_jobs`` enumerates every key with the inputs of one
+inactive run, ``precompile`` builds and runs each of them (capturing the
+windows on the card) and seals, and ``reachable_keys`` is the set the serve
+loop can request, which the enumeration must equal. The engine runs
+``precompile`` over zero-filled weight storage while its weights load.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from ..ops.paged_attention import add_launches, captured_launches
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
+from .kvpool import KvPool
 
 Params = dict[str, Any]
 
@@ -101,9 +108,8 @@ class GraphFactory:
         self._sealed = False
         # CUDA only: the window graphs' shared memory pool, the capture
         # seconds of each window size k (and of each ("verify", s)), and
-        # the device memory the captures reserved
+        # the device memory the pool holds
         self._graph_pool = None
-        self._reserved_before = 0
         self.capture_s: dict[int, float] = {}
         self.pool_bytes = 0
 
@@ -278,9 +284,6 @@ class GraphFactory:
             window()
         t0 = time.perf_counter()
         if self._graph_pool is None:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            self._reserved_before = torch.cuda.memory_reserved(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         # replays draw from the engine's generator and advance it
@@ -293,12 +296,19 @@ class GraphFactory:
 
         launches = captured_launches(capture)
         self.capture_s[key] = time.perf_counter() - t0
-        # the capture context empties the allocator's cache on entry, so
-        # the growth of reserved memory since the first capture is the
-        # graphs' pool
-        self.pool_bytes = (torch.cuda.memory_reserved(self.device)
-                           - self._reserved_before)
+        self.pool_bytes = self._pool_segment_bytes()
         return CapturedWindow(graph, launches)
+
+    def _pool_segment_bytes(self) -> int:
+        """The device memory of the window graphs' private pool: the sizes
+        of the allocator's segments that this pool owns, as its snapshot
+        tags them. Only the captures allocate there, so weights that load
+        on another thread beside them, which reserved memory as a whole
+        would count, are left out."""
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"]
+                   for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- dense prefill -------------------------------------------------------
 
@@ -439,3 +449,132 @@ class GraphFactory:
             return group
 
         return self._build(("chunkgroup", g), build)
+
+    # -- compile-ahead -------------------------------------------------------
+
+    def lowering_jobs(self, params, kv_cache: Params, pool: Params,
+                      scratch: Params, mb: int, buckets,
+                      spec_lens) -> Iterator[tuple]:
+        """Every steady-state serving computation as ``(key, build,
+        args)``: ``build()`` resolves ``key`` through its getter (so
+        through the one miss path) and ``args`` are the inputs of one run
+        with every lane inactive: zero tokens, every paged write to the
+        trash block (physical block 0, ``KvPool``), dense writes to slot
+        0's lanes, which no ``cache_len`` reaches. The windows take no
+        arguments: they run over ``self.window``. The one enumeration
+        :meth:`precompile` and the key-set check share (the JAX factory's
+        ``lowering_jobs``, which lowers where this one runs)."""
+        dev = self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        if self.chunk:
+            bs = self.ecfg.kv_block_size
+            c = self.chunk
+            trash = np.zeros((c // bs,), dtype=np.int32)
+            yield (("chunk", c), self.chunk_fn,
+                   (params, zeros(1, c), 0, scratch, 0))
+            yield ("splice", self.splice_fn,
+                   (pool, scratch["k"], scratch["v"], 0, trash))
+            yield ("gather", self.gather_fn,
+                   (pool, np.zeros((mb,), dtype=np.int32), scratch))
+            g = max(1, self.ecfg.admit_group_chunks)
+            if g > 1:
+                offs = np.minimum(np.arange(g) * c,
+                                  self.ecfg.max_seq_len - c).astype(np.int32)
+                yield (("chunkgroup", g), lambda: self.chunk_group_fn(g),
+                       (params, pool, scratch, zeros(g, c), offs,
+                        np.full((g,), c - 1, dtype=np.int32),
+                        np.zeros((g, c // bs), dtype=np.int32)))
+        else:
+            for bucket in buckets:
+                pre = init_kv_cache(self.cfg, 1, bucket, device=dev)
+                yield (bucket, lambda b=bucket: self.prefill_fn(b),
+                       (params, zeros(1, bucket), 1))
+                yield (("dsplice", bucket),
+                       lambda b=bucket: self.dense_splice_fn(b),
+                       (kv_cache["k"], kv_cache["v"], pre["k"], pre["v"], 0))
+        for k in self.ecfg.decode_steps:
+            yield (("decode", k), lambda k=k: self.decode_k(k), ())
+        for s in spec_lens:
+            yield (("verify", s), lambda s=s: self.verify_fn(s), ())
+
+    def reachable_keys(self, buckets, spec_lens) -> set:
+        """Every key the serve loop can request in steady state; must equal
+        the :meth:`lowering_jobs` key set (the reference's GRA005).
+
+        - ``("decode", k)``: window picks come from ``ecfg.decode_steps``.
+        - ``("verify", s)``: verify windows come from the engine's
+          ``spec_lens`` buckets.
+        - ``("chunk", c)`` / ``"splice"`` / ``"gather"``: paged admission,
+          one validated chunk length; partial tail groups reuse these.
+        - ``("chunkgroup", g)``: paged admission dispatches full groups
+          only.
+        - ``bucket`` / ``("dsplice", bucket)``: the dense buckets, clamped
+          to max_seq_len by the engine.
+        """
+        keys: set = {("decode", k) for k in self.ecfg.decode_steps}
+        keys |= {("verify", s) for s in spec_lens}
+        if self.chunk:
+            keys |= {("chunk", self.chunk), "splice", "gather"}
+            g = max(1, self.ecfg.admit_group_chunks)
+            if g > 1:
+                keys.add(("chunkgroup", g))
+        else:
+            for bucket in buckets:
+                keys |= {bucket, ("dsplice", bucket)}
+        return keys
+
+    def precompile(self, params, kv_cache: Params, pool: Params,
+                   scratch: Params, mb: int, buckets, spec_lens) -> dict:
+        """Build every :meth:`lowering_jobs` job and run it once with every
+        lane inactive, then seal. On the card each decode and verify
+        window is captured here (``_capture``: an eager run, then the
+        capture) and replayed once; each eager path runs once, which loads
+        its kernels and the libraries' handles. ``params`` may be the
+        zero-filled storage the weights are bound into later
+        (``InferenceEngine.bind_params``): a forward over zeros writes
+        zeros, no NaN. Waits on the calling thread's stream only, so a
+        weight load on another thread's stream runs on beside it. Returns
+        the seconds of each job under the reference's
+        ``compile_<key>_s`` names."""
+        timings: dict[str, float] = {}
+        self.window.active.zero_()
+        self.window.drafts.zero_()
+        for key, build, args in self.lowering_jobs(
+                params, kv_cache, pool, scratch, mb, buckets, spec_lens):
+            t0 = time.perf_counter()
+            build()(*args)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            timings[f"compile_{key_name(key)}_s"] = \
+                round(time.perf_counter() - t0, 4)
+        self.seal()
+        return timings
+
+
+def key_name(key) -> str:
+    """A cache key as the reference names it in its precompile timings:
+    ``("decode", 4)`` is ``decode_4``, a dense bucket ``128`` is ``128``."""
+    return "_".join(str(p) for p in key) if isinstance(key, tuple) \
+        else str(key)
+
+
+def abstract_state(cfg, ecfg, kv_quant: bool = False) -> dict:
+    """The serving state an engine of this (model, engine-config) pair
+    holds, as ``device="meta"`` trees: no byte is allocated. The shapes
+    come from the sources the engine allocates from (``KvPool`` for the
+    paged pool and table, ``init_kv_cache`` for the dense cache and the
+    scratch). Returns ``{"kv_cache", "pool", "scratch", "mb"}``; a dense
+    engine's pool and scratch are empty and its mb is 0."""
+    if ecfg.kv_block_size:
+        mgr = KvPool(cfg, ecfg, torch.device("meta"), kv_quant)
+        kv_cache = mgr.init_arrays()
+        pool = {k: v for k, v in kv_cache.items() if k != "table"}
+        scratch = init_kv_cache(cfg, 1, ecfg.max_seq_len, device="meta")
+        return {"kv_cache": kv_cache, "pool": pool, "scratch": scratch,
+                "mb": mgr.mb}
+    kv_cache = init_kv_cache(cfg, ecfg.max_batch, ecfg.max_seq_len,
+                             device="meta")
+    return {"kv_cache": kv_cache, "pool": {}, "scratch": {}, "mb": 0}

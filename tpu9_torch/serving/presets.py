@@ -9,10 +9,18 @@ projections, on the paged or the dense engine; ``kv_quant="int8"`` stores
 the paged pool as int8 with per-vector scales, auto-sized to the bytes a
 bf16 pool would take. The two knobs are independent; together they are
 quantized serving end to end.
+
+``compile_ahead=True`` builds the engine on the preset's abstract param
+tree (``params_spec``) and precompiles it while the weights are drawn on a
+thread, then binds them in place, as the reference's ``load_engine`` does
+with the two sides swapped.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
 from typing import Optional
 
 import torch
@@ -20,6 +28,7 @@ import torch
 from ..models.gemma import GEMMA_PRESETS
 from ..models.llama import LLAMA_PRESETS
 from ..models.transformer import init_decoder
+from ..observability import coldstart as cs
 from ..ops.quant import init_quantized_decoder, validate_quant_mode
 from ..utils.platform import default_device
 from .engine import EngineConfig, InferenceEngine
@@ -60,6 +69,21 @@ def build_params(name: str, seed: int = 0, device=None,
     return init(cfg, gen, device), cfg
 
 
+def abstract_params_for(cfg, quantized: bool = False):
+    """The ``device="meta"`` param tree of an explicit DecoderConfig: the
+    same init functions the real params come from, run on the meta device
+    without a generator, so spec and params cannot drift apart."""
+    init = init_quantized_decoder if quantized else init_decoder
+    return init(cfg, None, "meta")
+
+
+def params_spec(name: str, quantize: Optional[str] = None):
+    """The abstract (``device="meta"``) param tree of a preset and its
+    config: the shapes compile-ahead needs before a weight exists."""
+    cfg, quantized = resolve_preset(name, quantize)
+    return abstract_params_for(cfg, quantized), cfg
+
+
 def load_engine(name: str, *, device=None, max_batch: int = 8,
                 max_seq_len: int = 2048,
                 prefill_buckets: tuple = (128, 512, 2048),
@@ -73,7 +97,8 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
                 spec_len: int = 0,
                 spec_min_accept: float = 0.35,
                 engine_cfg: Optional[EngineConfig] = None,
-                seed: int = 0) -> InferenceEngine:
+                seed: int = 0, compile_ahead: bool = False,
+                tracer=None) -> InferenceEngine:
     """Build the serving engine for a preset on ``device`` (the current
     CUDA device when None; without one this raises).
 
@@ -88,7 +113,24 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
     serve on either engine, the int8 pool only on the paged one.
     ``spec_len > 0`` turns on speculative decoding with that many
     prompt-lookup drafts a verify window, gated by ``spec_min_accept``
-    (see ``EngineConfig``)."""
+    (see ``EngineConfig``).
+
+    ``compile_ahead=True`` takes the reference's bring-up, its two sides
+    swapped: the engine is built on ``params_spec`` (zero-filled storage),
+    ``precompile`` runs on the calling thread (on the card it captures
+    every window) while the weights are drawn on a thread named
+    ``tpu9-weight-load`` (on the card on a stream of their own), and
+    ``bind_params`` copies them in place.
+    ``engine.compile_ahead_timings`` holds the precompile's seconds and
+    ``engine.bringup`` ``load_s``, ``compile_ahead_s``, ``bind_s`` and
+    ``compile_overlap_s``, which ``stats()`` forwards as ``coldstart_*``.
+    With a ``tracer`` (the reference's ``Tracer``, or anything with its
+    ``record_window`` and ``span``) the ``restore.load``,
+    ``restore.compile_ahead`` and ``restore.bind`` spans are recorded
+    under the caller's current span. Unlike the reference, which logs a
+    failed precompile and compiles lazily, a precompile error is raised
+    after the join: a capture that fails beside a weight load must not be
+    hidden. ``tracer`` also goes to the engine (its request spans)."""
     resolve_preset(name, quantize)           # a bad name or mode fails first
     kv_quant = validate_quant_mode(kv_quant, "kv_quant")
     if engine_cfg is not None and kv_quant \
@@ -120,6 +162,89 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
         else (max_seq_len // block if paged else 0),
         kv_quant=kv_quant, spec_len=spec_len,
         spec_min_accept=spec_min_accept)
+    if compile_ahead:
+        return _load_compile_ahead(name, quantize, seed, ecfg, device,
+                                   tracer)
     params, cfg = build_params(name, seed=seed, device=device,
                                quantize=quantize)
-    return InferenceEngine(params, cfg, ecfg, device=device)
+    return InferenceEngine(params, cfg, ecfg, device=device, tracer=tracer)
+
+
+def _load_compile_ahead(name: str, quantize: Optional[str], seed: int,
+                        ecfg: EngineConfig, device: torch.device,
+                        tracer) -> InferenceEngine:
+    """``load_engine(compile_ahead=True)``: the reference's branch
+    (``tpu9/serving/presets.py``) with its two sides swapped. The weights
+    are drawn on a thread named ``tpu9-weight-load`` while the calling
+    thread precompiles: the captures are Python-bound, and on a fresh
+    thread they cost the card's host two to three times the CPU seconds
+    they cost the calling thread (``scripts/coldstart_overlap.py``,
+    PERF.md §6). An error on either side is raised after the join."""
+    spec, cfg = params_spec(name, quantize)
+    engine = InferenceEngine(spec, cfg, ecfg, device=device, tracer=tracer)
+    cuda = device.type == "cuda"
+    on_device = (lambda: torch.cuda.device(device)) if cuda \
+        else contextlib.nullcontext
+    loaded: dict = {}
+
+    def _load() -> None:
+        try:
+            # the draws go on a stream of their own: nothing of the load
+            # touches the streams the captures beside it use
+            stream = torch.cuda.Stream(device) if cuda else None
+            with on_device(), torch.cuda.stream(stream):
+                loaded["params"], _ = build_params(
+                    name, seed=seed, device=device, quantize=quantize)
+            if stream is not None:
+                stream.synchronize()
+        except Exception as exc:   # noqa: BLE001 — raised after the join
+            loaded["error"] = exc
+        finally:
+            loaded["end"] = time.monotonic()
+
+    wall_anchor = time.time()
+    anchor_mono = time.monotonic()
+    loader = threading.Thread(target=_load, name="tpu9-weight-load",
+                              daemon=True)
+    loader.start()
+    timings: dict = {}
+    failed = None
+    # the monotonic window of the precompile, recorded as the
+    # restore.compile_ahead span: its overlap with the load's window shows
+    # that bring-up paid max(compile, load)
+    compile_start = time.monotonic()
+    try:
+        with on_device():
+            timings = engine.precompile()
+    except Exception as exc:   # noqa: BLE001 — raised after the join
+        failed = exc
+    finally:
+        compile_end = time.monotonic()
+        loader.join()
+    load_end = loaded["end"]
+    if tracer is not None:
+        tracer.record_window(cs.SPAN_LOAD, wall_anchor, anchor_mono,
+                             anchor_mono, load_end,
+                             attrs={"preset": name, "source": "build"})
+        tracer.record_window(cs.SPAN_COMPILE_AHEAD, wall_anchor,
+                             anchor_mono, compile_start, compile_end,
+                             attrs={"preset": name, "graphs": len(timings),
+                                    "failed": failed is not None})
+    if failed is not None:
+        raise RuntimeError(f"compile-ahead of {name} failed: "
+                           f"{failed}") from failed
+    if "error" in loaded:
+        raise loaded["error"]
+    bind_start = time.monotonic()
+    with (tracer.span(cs.SPAN_BIND, attrs={"preset": name})
+          if tracer is not None else contextlib.nullcontext()):
+        engine.bind_params(loaded.pop("params"))
+    bind_end = time.monotonic()
+    engine.compile_ahead_timings = timings
+    engine.bringup = {
+        "load_s": round(load_end - anchor_mono, 4),
+        "compile_ahead_s": round(compile_end - compile_start, 4),
+        "bind_s": round(bind_end - bind_start, 4),
+        "compile_overlap_s": round(cs.interval_overlap_s(
+            (anchor_mono, load_end), (compile_start, compile_end)), 4)}
+    return engine

@@ -9,11 +9,12 @@ max(fetch, consume) instead of their sum.
 
 The consumer for the card (:func:`make_device_put`) stages each shard
 through a small ring of pinned host buffers, allocated once, and queues
-each piece's host-to-device copy on a stream of its own, so the copy of one
-piece overlaps the staging of the next and no leaf, however large, needs a
-pinned buffer of its size. The unchanged reference worker takes it as its
-``device_put`` (``CheckpointManager.restore_params``), which hands it numpy
-arrays.
+each piece's host-to-device copy on a stream of its own, into a destination
+allocated on that stream, so the copy of one piece overlaps the staging of
+the next, no leaf, however large, needs a pinned buffer of its size, and a
+restore runs beside graph captures on another thread. The unchanged
+reference worker takes it as its ``device_put``
+(``CheckpointManager.restore_params``), which hands it numpy arrays.
 """
 
 from __future__ import annotations
@@ -95,10 +96,13 @@ class DevicePut:
 
     def _put(self, src: torch.Tensor) -> torch.Tensor:
         n = src.numel()
-        dst = torch.empty(n, dtype=torch.uint8, device=self.device)
-        # the destination was allocated on the current stream: the copy
-        # stream must not write it before that stream reaches this point
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        # the destination is allocated on the copy stream, so the put
+        # touches no stream but its own (captures on another thread run
+        # beside it); its memory is not handed out again before the work
+        # the caller's stream has queued by the time it is freed
+        with torch.cuda.stream(self._stream):
+            dst = torch.empty(n, dtype=torch.uint8, device=self.device)
+        dst.record_stream(torch.cuda.current_stream(self.device))
         piece = 0
         for off in range(0, n, self.slot_bytes):
             m = min(self.slot_bytes, n - off)
@@ -154,6 +158,14 @@ def default_device_put(entry: dict, arr) -> torch.Tensor:
     """Blocking host→device transfer to the current CUDA device (runs in a
     worker thread); raises without one."""
     return default_consumer()(entry, arr)
+
+
+def _place_chunk(buf: np.ndarray, fill: int, data) -> None:
+    """Copy one chunk into the shard buffer at ``fill``. ``np.copyto``
+    releases the interpreter lock for the copy (a memoryview slice
+    assignment holds it), so Python threads beside a restore, such as an
+    engine capturing its windows, are not held behind each chunk's copy."""
+    np.copyto(buf[fill:fill + len(data)], np.frombuffer(data, dtype=np.uint8))
 
 
 async def stream_shards(
@@ -219,7 +231,6 @@ async def stream_shards(
         for i, entry in enumerate(entries):
             need = int(entry["nbytes"])
             buf = np.empty(need, dtype=np.uint8)  # no zeroing: fully overwritten
-            view = memoryview(buf)
             fill = 0
             while fill < need:
                 t0 = time.monotonic()
@@ -241,7 +252,7 @@ async def stream_shards(
                     raise IOError(
                         f"shard {entry['file']} overflows: {fill}+"
                         f"{len(data)} > {need} (chunk straddles shards?)")
-                view[fill:fill + len(data)] = data
+                _place_chunk(buf, fill, data)
                 fill += len(data)
             total += need
             arr = wfmt.shard_to_array(buf, entry)
