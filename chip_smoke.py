@@ -65,7 +65,22 @@ Phases, each of which must pass or the script exits non-zero:
 7. to 9. the same three engines for gemma (head_dim 256, tied embeddings,
    scaled embeddings): ``load_engine("gemma-7b")`` (paged bf16 pool),
    ``load_engine("gemma-2b-int8", kv_quant="int8")`` (int8 weights and
-   pool, GQA group 8) and ``load_engine("gemma-7b", paged=False)``.
+   pool, GQA group 8) and ``load_engine("gemma-7b", paged=False)``;
+10. mixtral, the sparse-MoE decoder (8 experts, top-2, llama's attention
+    shape): ``load_engine("mixtral-8x7b-int8", kv_quant="int8")`` at full
+    depth (int8 weights, experts int8 per expert, the int8 pool and B2);
+11. mixtral-8x7b in bf16 at 16 of its 32 layers, full width (the 32
+    layers take 93.4 GB), built from the preset's config through the
+    engine's constructor: the bf16 pool and B1.
+    Both come up serially (a compile-ahead bring-up would hold two copies
+    of their 47 GB of weights), so the bring-up's own checks are skipped;
+    their greedy tokens are checked against a reference that makes the
+    paged engine's MoE calls (the prompt in 128-token chunks at batch 1,
+    then one-token decode steps): the experts' capacity follows each
+    call's token count. The router's logits must not follow the process's
+    f32 matmul precision. Their decode window and chunk group are
+    profiled on every run, and no spec, KV-motion or restore phase
+    follows them. Each phase prints its seconds.
 
 After phases 4 and 5, KV motion (``phase_kv_motion``), on an engine over
 the same weights with a 1024 MB host tier armed through ``engine_cfg``: a
@@ -809,6 +824,9 @@ def phase_kernels() -> list[dict]:
                    "paged_decode_attention_quant": "int8",
                    "flash_attention": "dense",
                    "ragged_decode_attention": "dense"}
+    # mixtral-8x7b has llama3-8b's heads: its phases run the same instances
+    mixtral_paths = {"paged_decode_attention": "mixtral-bf16",
+                     "paged_decode_attention_quant": "mixtral-int8"}
     gemma_rows = {"paged_decode_attention": ("gemma-7b", "gemma-bf16"),
                   "paged_decode_attention_quant": ("gemma-2b", "gemma-int8"),
                   "ragged_decode_attention": ("gemma-7b", "gemma-dense")}
@@ -821,9 +839,14 @@ def phase_kernels() -> list[dict]:
         size (and table width)."""
         for batch, lens, n in ((8, PAGED_LENS, "B=8"),
                                (1, [2048], "B=1 len 2048")):
-            keep(phase_decode_kernel(
+            row = phase_decode_kernel(
                 name, f"llama3-8b {what.format(n)} QH=32 KH=8 D=128 {bs}",
-                128, batch=batch, lens=lens), llama_paths[name])
+                128, batch=batch, lens=lens)
+            keep(row, llama_paths[name])
+            if batch == 8 and name in mixtral_paths:
+                keep(dict(row, shape="mixtral-8x7b (as llama3-8b) "
+                          + row["shape"].removeprefix("llama3-8b ")),
+                     mixtral_paths[name])
         phase_decode_kernel(name, f"llama-1b {what.format('B=8')} QH=32 KH=8 "
                             f"D=64 {bs}", 64)
         for model, heads in GEMMA_HEADS.items():
@@ -881,7 +904,22 @@ ENGINES = {
                    ("paged_decode_attention_quant",)),
     "gemma-dense": ("gemma-7b", {"paged": False},
                     ("flash_attention", "ragged_decode_attention")),
+    # mixtral: the MoE FFN beside llama's attention shape (32/8 heads,
+    # head_dim 128), so B1 and B2 run their llama instances
+    "mixtral-int8": ("mixtral-8x7b-int8", {"kv_quant": "int8"},
+                     ("paged_decode_attention_quant",)),
+    "mixtral-bf16": ("mixtral-8x7b", {}, ("paged_decode_attention",)),
 }
+# engines brought up serially: a compile-ahead bring-up holds the
+# zero-filled storage and the drawn weights until the bind, two copies of
+# mixtral's 47 GB against the card's 80 GB
+SERIAL = {"mixtral-int8", "mixtral-bf16"}
+# depth cut, at full width: mixtral-8x7b's 32 bf16 layers take 93.4 GB
+CUT_LAYERS = {"mixtral-bf16": 16}
+# the prompts of make_prompts whose greedy tokens a MoE engine's reference
+# check reads beside the reference prompt: 600 tokens (five chunks, the
+# last padded) and 777, both admitted without a prefix hit
+MOE_CHECKED = (0, 4)
 
 
 def make_prompts(vocab: int, seed: int) -> list[list[int]]:
@@ -923,26 +961,74 @@ async def _serve(engine, prompts: list[list[int]], max_new: int):
     return [o[0] for o in outs], t_submit, [o[1] for o in outs], t_end
 
 
+def reference_logits(engine, prompt: list[int], generated: list[int],
+                     n_check: int) -> torch.Tensor:
+    """f32 logits [n_check, V]: row i the reference's logits after prompt +
+    generated[:i]. A plain no-cache forward of prompt + generated, except
+    for a MoE model: there the expert capacity follows each call's token
+    count, so the reference makes the paged engine's MoE calls (see
+    :func:`moe_reference_logits`)."""
+    from tpu9_torch.models.transformer import decoder_forward
+    if engine.cfg.n_experts:
+        return moe_reference_logits(engine, prompt, generated, n_check)
+    seq = prompt + generated[:n_check]
+    tokens = torch.tensor([seq], dtype=torch.int64, device=engine.device)
+    with torch.no_grad():
+        logits = decoder_forward(engine.params, tokens, engine.cfg)[0].float()
+    return logits[len(prompt) - 1:len(prompt) - 1 + n_check]
+
+
+def moe_reference_logits(engine, prompt: list[int], generated: list[int],
+                         n_check: int) -> torch.Tensor:
+    """The capacity-faithful reference of a paged MoE engine: the prompt
+    prefilled at batch 1 in chunks of the engine's chunk length into a
+    dense cache (the last chunk padded with token 0, as the engine pads
+    it: each MoE call sees the engine's 128 tokens and capacity), then one
+    token a decode step (1 token, capacity 8: nothing dropped, as in the
+    engine's B=8 steps). The cache's odd length keeps the decode steps on
+    the plain attention, so no kernel under test runs here."""
+    from tpu9_torch.models.transformer import decoder_forward, init_kv_cache
+    cfg, c, dev = engine.cfg, engine.ecfg.prefill_chunk, engine.device
+    n = len(prompt)
+    n_chunks = -(-n // c)
+    cache = init_kv_cache(cfg, 1, (n_chunks * c + n_check) | 1, device=dev)
+    toks = torch.zeros((1, n_chunks * c), dtype=torch.int64, device=dev)
+    toks[0, :n] = torch.tensor(prompt, dtype=torch.int64)
+    rows = []
+    with torch.no_grad():
+        for i in range(n_chunks):
+            pos = torch.arange(i * c, (i + 1) * c, device=dev)[None]
+            logits, cache = decoder_forward(
+                engine.params, toks[:, i * c:(i + 1) * c], cfg,
+                positions=pos, kv_cache=cache, cache_len=(i + 1) * c)
+        rows.append(logits[0, n - 1 - (n_chunks - 1) * c])
+        for j in range(n_check - 1):
+            logits, cache = decoder_forward(
+                engine.params,
+                torch.tensor([[generated[j]]], dtype=torch.int64, device=dev),
+                cfg, positions=torch.tensor([[n + j]], device=dev),
+                kv_cache=cache,
+                cache_len=torch.tensor([n + j + 1], device=dev), decode=True)
+            rows.append(logits[0, 0])
+    return torch.stack(rows).float()
+
+
 def reference_check(engine, prompt: list[int], generated: list[int],
                     n_check: int = 8) -> tuple[float, int]:
     """Hold the engine's greedy tokens (chunked prefill + paged decode
-    through the kernel) against a plain no-cache forward, over the same
-    weights, of prompt + generated. Both paths round in bf16 at different
-    places, and an int8 pool adds the noise of its quantized KV, which the
+    through the kernel) against the reference of :func:`reference_logits`,
+    over the same weights. Both paths round in bf16 at different places,
+    and an int8 pool adds the noise of its quantized KV, which the
     reference's dense bf16 KV does not have: so a token passes when it is
     the reference argmax or its reference logit is within 1% of the
     reference logit range of the maximum. Tokens are judged up to and
     including the first one that is not the reference argmax (a fork), as
     ``tests/test_quant_serving.py`` judges forks. Returns the worst
     relative gap and the index of the fork (-1 for none)."""
-    from tpu9_torch.models.transformer import decoder_forward
-    seq = prompt + generated[:n_check]
-    tokens = torch.tensor([seq], dtype=torch.int64, device=engine.device)
-    with torch.no_grad():
-        logits = decoder_forward(engine.params, tokens, engine.cfg)[0].float()
+    logits = reference_logits(engine, prompt, generated, n_check)
     worst = 0.0
     for i in range(n_check):
-        row = logits[len(prompt) - 1 + i]
+        row = logits[i]
         gap = float(row.max() - row[generated[i]])
         rel = gap / float(row.max() - row.min())
         worst = max(worst, rel)
@@ -1148,36 +1234,117 @@ def check_bringup(engine, kind: str, preset: str) -> None:
           f"{peak_gb:.2f} GB")
 
 
+def build_cut(kind: str, preset: str, n_layers: int, knobs: dict):
+    """``preset``'s config cut to ``n_layers`` layers at full width, its
+    weights drawn on the card from seed 0, served through the engine's
+    constructor with the engine config ``load_engine`` gives ``knobs``."""
+    import dataclasses
+    from tpu9_torch.models.transformer import init_decoder
+    from tpu9_torch.ops.quant import init_quantized_decoder, quantized_bytes
+    from tpu9_torch.serving.engine import InferenceEngine
+    from tpu9_torch.serving.presets import (abstract_params_for,
+                                            engine_config, resolve_preset)
+    full, quantized = resolve_preset(preset)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    init = init_quantized_decoder if quantized else init_decoder
+    params = init(cfg, gen, torch.device(DEVICE))
+    full_gb = quantized_bytes(abstract_params_for(full, quantized)) / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"engine {kind}: depth cut to {n_layers} of {full.n_layers} layers "
+          f"at full width: the {full.n_layers}-layer {preset} weights take "
+          f"{full_gb:.2f} GB against the card's {total_gb:.2f} GB")
+    return InferenceEngine(params, cfg, engine_config(
+        max_batch=8, max_seq_len=2048, **knobs), device=DEVICE)
+
+
+def check_router_precision(engine, kind: str) -> None:
+    """The MoE router's product does not follow the process's f32 matmul
+    precision: its logits are the same bits under "highest", "high" and
+    "medium" (TF32 and bf16 products), and within f32 rounding of a plain
+    f32 product; a plain product under "high" is printed beside them."""
+    from tpu9_torch.models.moe import _router_logits
+    router = engine.params["layers"][0]["moe"]["router"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    x = torch.randn((128, engine.cfg.dim), generator=gen, device=DEVICE
+                    ).to(engine.cfg.dtype)
+    was = torch.get_float32_matmul_precision()
+    got, plain = {}, {}
+    try:
+        for prec in ("highest", "high", "medium"):
+            torch.set_float32_matmul_precision(prec)
+            got[prec] = _router_logits(x, router)
+            plain[prec] = x.float() @ router
+    finally:
+        torch.set_float32_matmul_precision(was)
+    check(all(torch.equal(got["highest"], t) for t in got.values()),
+          f"{kind} engine: the router logits follow the f32 matmul precision")
+    err = float((got["highest"] - plain["highest"]).abs().max())
+    tf32 = float((plain["high"] - plain["highest"]).abs().max())
+    scale = float(plain["highest"].abs().max())
+    check(err <= 1e-5 * scale, f"{kind} engine: router logits {err} from a "
+          f"plain f32 product")
+    print(f"engine {kind}: router logits identical under f32 matmul "
+          f"precision highest, high and medium; {err:.3e} from a plain f32 "
+          f"product (max |logit| {scale:.3f}); a plain product under high "
+          f"(TF32) moves {tf32:.3e}")
+
+
 def phase_engine(card: str, kind: str):
     """Serve the six prompts, the repeat and the reference prompt through
     the ``kind`` engine of ``ENGINES``, then check the runner's surface;
-    returns (its kernels' launches, the engine)."""
+    returns (its kernels' launches, the engine). An engine of ``SERIAL``
+    comes up without compile-ahead, so the bring-up's own checks (the
+    ``bringup`` keys, params bit-equal to a second draw) are skipped; a
+    MoE engine's router precision and two more prompts' greedy tokens are
+    checked besides."""
     from tpu9_torch.ops.quant import quantized_bytes
     from tpu9_torch.serving.paged_kv import kv_block_bytes
     from tpu9_torch.serving.presets import load_engine
 
     preset, knobs, path_kernels = ENGINES[kind]
+    serial = kind in SERIAL
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = load_engine(preset, device=DEVICE, max_batch=8, max_seq_len=2048,
-                         seed=0, compile_ahead=True, **knobs)
+    if kind in CUT_LAYERS:
+        engine = build_cut(kind, preset, CUT_LAYERS[kind], knobs)
+    else:
+        engine = load_engine(preset, device=DEVICE, max_batch=8,
+                             max_seq_len=2048, seed=0,
+                             compile_ahead=not serial, **knobs)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
-    check_bringup(engine, kind, preset)
+    if serial:
+        total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+        w_gb = quantized_bytes(engine.params) / 1e9
+        print(f"engine {kind}: brought up serially: compile-ahead holds two "
+              f"copies of the weights until the bind, 2 x {w_gb:.2f} GB "
+              f"against the card's {total_gb:.2f} GB; the bring-up checks "
+              f"are skipped")
+    else:
+        check_bringup(engine, kind, preset)
     built = engine.graphs.compiles
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    check(engine.graphs.compiles == built, f"{kind} engine: warmup after "
-          f"precompile built {engine.graphs.compiles - built} computations")
+    check(serial or engine.graphs.compiles == built, f"{kind} engine: warmup "
+          f"after precompile built {engine.graphs.compiles - built} "
+          f"computations")
     cfg, ecfg = engine.cfg, engine.ecfg
     check(engine.paged == knobs.get("paged", True), f"the {kind} engine has "
           f"paged={engine.paged}")
     if preset.endswith("-int8"):
         check(engine.params["layers"][0]["wq"]["q"].dtype == torch.int8,
               "the int8 preset did not build int8 weights")
+        if cfg.n_experts:
+            check(engine.params["layers"][0]["moe"]["w_down"]["q"].dtype
+                  == torch.int8, "the int8 preset did not build int8 experts")
+    if cfg.n_experts:
+        check_router_precision(engine, kind)
     if knobs.get("kv_quant") == "int8":
         check(engine.kv_cache["k"].dtype == torch.int8, "the pool is not int8")
         # equal-bytes auto sizing: the bf16 pool's blocks x bf16 block bytes
@@ -1193,8 +1360,10 @@ def phase_engine(card: str, kind: str):
           f"{engine.pool.n_blocks} blocks" if engine.paged else
           f"dense cache {list(engine.kv_cache['k'].shape)} buckets "
           f"{engine._buckets}")
+    moe = (f" experts {cfg.n_experts} top-{cfg.moe_top_k} capacity factor "
+           f"{cfg.moe_capacity_factor}" if cfg.n_experts else "")
     print(f"engine {kind}: {preset} {cfg.dtype} dim {cfg.dim} layers "
-          f"{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} vocab "
+          f"{cfg.n_layers}{moe} heads {cfg.n_heads}/{cfg.n_kv_heads} vocab "
           f"{cfg.vocab_size}; weights {quantized_bytes(engine.params) / 1e9:.2f}"
           f" GB; {kv} ({engine.kv_cache['k'].dtype}, {kv_gb:.2f} GB); load "
           f"{t_load:.2f} s, warmup {t_warm:.2f} s")
@@ -1259,6 +1428,15 @@ def phase_engine(card: str, kind: str):
           f"{want} ({cfg.n_layers} layers, {steps} decode steps, "
           f"{n_prefills} prefills)")
     worst, fork = reference_check(engine, ref_prompt, ref_out)
+    if cfg.n_experts:
+        # longer prompts: several chunks, the last one padded
+        for i in MOE_CHECKED:
+            w, f = reference_check(engine, prompts[i], outs[i])
+            print(f"engine {kind}: the {len(prompts[i])}-token prompt's "
+                  f"greedy tokens against the chunked reference: worst gap "
+                  f"{w:.3%} of logit range, "
+                  f"{'no fork in 8 tokens' if f < 0 else f'fork at {f}'}")
+            worst = max(worst, w)
 
     ttft = sorted(t - t_submit for t in t_firsts)
     n_tokens = sum(len(o) for o in outs)
@@ -2288,6 +2466,7 @@ def main() -> int:
         launches = {}
         profiling = "--profile" in sys.argv[1:]
         for kind in ENGINES:
+            t_phase = time.perf_counter()
             launches[kind], engine = phase_engine(card, kind)
             if kind == "bf16":
                 phase_sampled(engine, card)
@@ -2301,12 +2480,16 @@ def main() -> int:
                 del spec
             if kind in ("bf16", "int8"):
                 launches[f"restore-{kind}"] = phase_restore(engine, card, kind)
-            if profiling:
+            # the MoE engines' window and chunk group are profiled on every
+            # run: their phases serve no spec, KV-motion or restore phase
+            if profiling or engine.cfg.n_experts:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads
             del engine
             gc.collect()
             torch.cuda.empty_cache()
+            print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
+                  f"({card})")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

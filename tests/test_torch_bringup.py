@@ -375,7 +375,8 @@ def test_a_load_error_is_raised_after_the_precompile(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["llama-tiny", "llama-tiny-int8",
-                                  "gemma-tiny", "gemma-tiny-int8"])
+                                  "gemma-tiny", "gemma-tiny-int8",
+                                  "mixtral-tiny", "mixtral-tiny-int8"])
 def test_params_spec_matches_build_params_and_the_jax_spec(name):
     spec, cfg = params_spec(name)
     assert all(t.is_meta for _, t in _leaves(spec))

@@ -34,7 +34,6 @@ from tpu9.serving.presets import load_engine as jax_load_engine
 from tpu9_torch.bridge import params_from_jax
 from tpu9_torch.models.llama import LLAMA_PRESETS
 from tpu9_torch.ops import paged_attention as tpaged
-from tpu9_torch.ops import quant as tquant
 from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
 from tpu9_torch.serving.presets import load_engine
 
@@ -164,11 +163,12 @@ SMALL = dict(max_batch=2, max_seq_len=64, prefill_buckets=(16,),
              decode_steps=(1, 4), kv_block_size=16)
 
 
-def test_int8_serving_raises_until_its_slice(int8_engines):
-    """Its slice is in: the int8 presets serve (int8 weights by the suffix
-    or by ``quantize=``, the int8 pool by ``kv_quant=``), int8 weights serve
-    on the dense engine too, as the JAX engine's, while the part still
-    queued, MoE (A10), raises naming its item."""
+def test_int8_serving_covers_dense_and_moe_models(int8_engines):
+    """The int8 presets serve (int8 weights by the suffix or by
+    ``quantize=``, the int8 pool by ``kv_quant=``), int8 weights serve on
+    the dense engine too, as the JAX engine's, and an int8 mixtral serves
+    over the int8 pool, its expert stacks int8 per expert (the reference's
+    ``test_moe_quantized_engine_serves``)."""
     for name, kw in (("llama-tiny-int8", {}),
                      ("llama-tiny", dict(quantize="int8"))):
         engine = load_engine(name, device="cpu", kv_quant="int8", **SMALL,
@@ -193,9 +193,12 @@ def test_int8_serving_raises_until_its_slice(int8_engines):
                                              EngineConfig(**kw),
                                              device="cpu"), prompt, 6))
     assert got == want
-    moe = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], n_experts=4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tquant.init_quantized_decoder(moe, torch.Generator(), "cpu")
+    moe = load_engine("mixtral-tiny-int8", device="cpu", kv_quant="int8",
+                      **SMALL)
+    assert moe.params["layers"][0]["moe"]["w_up"]["q"].dtype == torch.int8
+    assert moe.params["layers"][0]["moe"]["router"].dtype == torch.float32
+    assert moe.kv_cache["k"].dtype == torch.int8
+    assert len(asyncio.run(_serve(moe, [[3, 1, 4, 1, 5]], 8))[0][0]) == 8
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@
 package, on the CPU.
 
 - The presets field by field, ``resolve_preset`` for every gemma name and
-  its int8 forms, and a mixtral name that raises naming its queue item.
+  its int8 forms, and the mixtral presets field by field, plain and int8.
 - The tied trees (no ``lm_head``), bf16 and int8, against the JAX trees,
   and the bridge carrying them bit for bit.
 - The head_dim-256 twins of the four kernels against the JAX Pallas
@@ -175,18 +175,21 @@ def test_resolve_preset_matches_jax(name, quantize):
                for f in dataclasses.fields(cfg) if f.name != "dtype")
 
 
-def test_mixtral_names_raise_naming_their_item():
-    """The reference serves mixtral; the port names the queue item that
-    ports its MoE decoder, and still answers a truly unknown name with
-    ``KeyError``."""
-    assert set(tpresets.MIXTRAL_NAMES) == set(JAX_MIXTRAL)
+def test_mixtral_presets_resolve_as_the_references():
+    """The port resolves the reference's mixtral names, plain and int8,
+    field for field as the reference does, and still answers a truly
+    unknown name with ``KeyError``."""
+    assert set(JAX_MIXTRAL) <= set(tpresets.PRESETS)
     for name in JAX_MIXTRAL:
-        jax_resolve_preset(name)                     # the reference knows it
-        for form in (name, name + "-int8"):
-            with pytest.raises(NotImplementedError, match="A10"):
-                tpresets.resolve_preset(form)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpresets.load_engine("mixtral-8x7b", device="cpu")
+        for form, quantize in ((name, None), (name + "-int8", None),
+                               (name, "int8")):
+            cfg, quantized = tpresets.resolve_preset(form, quantize)
+            want, want_q = jax_resolve_preset(form, quantize)
+            assert quantized == want_q == (form != name or quantize == "int8")
+            assert cfg.n_experts == want.n_experts > 0
+            assert all(getattr(cfg, f.name) == getattr(want, f.name)
+                       for f in dataclasses.fields(cfg) if f.name != "dtype")
+            assert cfg.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     for unknown in ("gemma-99b", "mixtral", "gemma-7b-fp8"):
         with pytest.raises(KeyError, match="unknown model preset"):
             tpresets.resolve_preset(unknown)

@@ -37,8 +37,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert len(sources) > 15
     # the scan reaches every module: the int8 path's, the kvwire format
     # and host tier with the modules they extend, and the checkpoint layer
-    # (the weight format and the runner and worker subpackages)
-    for module in ("ops/quant.py", "serving/kvwire.py", "serving/kvpool.py",
+    # (the weight format and the runner and worker subpackages), and the
+    # MoE decoder with its presets
+    for module in ("models/moe.py", "models/mixtral.py",
+                   "ops/quant.py", "serving/kvwire.py", "serving/kvpool.py",
                    "serving/paged_kv.py", "serving/schedule.py",
                    "serving/engine.py", "utils/platform.py",
                    "serving/weights.py", "runner/ckpt.py",

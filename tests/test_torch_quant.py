@@ -197,13 +197,24 @@ def test_quantize_decoder_matches_jax_and_is_idempotent():
         jquant.quantize_decoder(jparams))
 
 
-def test_moe_trees_raise_naming_their_item():
-    cfg = dataclasses.replace(LLAMA_PRESETS["llama-tiny"], n_experts=4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tquant.init_quantized_decoder(cfg, torch.Generator(), "cpu")
-    tree = {"embed": torch.zeros(4, 2), "layers": [{"moe": {}}]}
-    with pytest.raises(NotImplementedError, match="A10"):
-        tquant.quantize_decoder(tree)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_quantizer_matches_jax(dtype):
+    """Per-expert int8 of an [E, in, out] stack: values and [E, 1, out]
+    scales bit for bit, an all-zero channel included, and the
+    dequantized stack bit for bit."""
+    w = np.random.default_rng(21).standard_normal((4, 48, 40)) * 0.05
+    w[1, :, 3] = 0.0
+    jw = jnp.asarray(w, jnp.float32).astype(getattr(jnp, dtype))
+    want = jquant.quantize_weight_stacked(jw)
+    got = tquant.quantize_weight_stacked(params_from_jax(np.asarray(jw),
+                                                         "cpu"))
+    assert got["q"].dtype == torch.int8 and got["scale"].shape == (4, 1, 40)
+    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(got["scale"].numpy(),
+                                  np.asarray(want["scale"]))
+    np.testing.assert_array_equal(
+        tquant.dequantize_weight(got, torch.float32).numpy(),
+        np.asarray(jquant.dequantize_weight(want, jnp.float32)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,139 @@
+"""Sparse mixture-of-experts FFN (counterpart of ``tpu9/models/moe.py``).
+
+GShard/Switch routing with a static expert capacity: each token picks its
+top-k experts in f32, each (token, slot) pair takes the next free position
+in its expert's buffer in token-major, slot-minor order (earlier tokens win
+capacity), and pairs at or past the capacity are dropped: they add zero,
+so the caller's residual stream carries the token through unchanged.
+
+The reference moves tokens with one-hot dispatch and combine einsums. Here
+the tokens are scattered into ``[E, C, dim]`` by (expert, position) and the
+expert outputs gathered back: each buffer row is a copy of one token, and
+each output the sum of its k weighted rows, which is what the einsums
+compute. Every shape follows from the static token count, and nothing here
+reads a value back to the host, so a decode window that calls this is
+captured as a CUDA graph like any other.
+
+Expert sharding (``moe_param_specs``, the ``ep`` mesh axis) waits for the
+port's multi-GPU layer (ROADMAP queue A9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.quant import maybe_einsum
+
+Params = Any
+
+
+@dataclass(frozen=True)
+class MoeConfig:
+    dim: int = 512
+    hidden_dim: int = 1024
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    act: str = "silu"
+    dtype: torch.dtype = torch.bfloat16
+
+
+def init_moe_layer(cfg: MoeConfig, generator: torch.Generator,
+                   device) -> Params:
+    """Router f32 ``[dim, E]``; ``w_gate``/``w_up`` ``[E, dim, hidden]`` and
+    ``w_down`` ``[E, hidden, dim]`` at ``cfg.dtype``, drawn from
+    ``generator`` on ``device``. The router is rounded to ``cfg.dtype`` and
+    back, as the reference's init rounds it. On ``"meta"``, with
+    ``generator=None``, nothing is drawn."""
+    e, d, h = cfg.n_experts, cfg.dim, cfg.hidden_dim
+
+    def dense(shape, fan):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.mul_((2.0 / sum(fan)) ** 0.5).to(cfg.dtype)
+
+    return {"router": dense((d, e), (d, e)).float(),
+            "w_gate": dense((e, d, h), (d, h)),
+            "w_up": dense((e, d, h), (d, h)),
+            "w_down": dense((e, h, d), (h, d))}
+
+
+def _capacity(n_tokens: int, cfg: MoeConfig) -> int:
+    """Slots per expert for a call of ``n_tokens`` tokens: static, at least
+    8 and a multiple of 8."""
+    cap = int(cfg.top_k * n_tokens * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-cap // 8) * 8)
+
+
+def _router_logits(xf: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """``xf @ router`` to f32 whatever the process's f32 matmul precision
+    (TF32 on the card, bf16 on some CPUs at "medium"): the product is taken
+    in f64, which no such setting reaches, and rounded to f32, so no
+    global setting flips an expert at a near tie."""
+    return (xf.double() @ router.double()).float()
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest entries of each row and their indices, ties to the
+    lower index as ``jax.lax.top_k`` gives them (``torch.topk`` does not):
+    a stable descending sort, which a CUDA graph captures."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig):
+    """x ``[B, T, dim]`` → (``[B, T, dim]`` in x's dtype, aux). ``aux``
+    carries ``balance_loss`` (Switch §2.2: ``E · Σ_e f_e · p_e`` over the
+    top-1 choices), ``dropped_frac`` (the share of (token, slot) pairs
+    past capacity) and ``expert_load`` (``f_e``). The capacity comes from
+    ``B·T``, so a token's output depends on the call's shape and on the
+    tokens before it, as in the reference."""
+    b, t, d = x.shape
+    n = b * t
+    e, k = cfg.n_experts, cfg.top_k
+    c = _capacity(n, cfg)
+    xf = x.reshape(n, d)
+
+    # -- routing, in f32 -----------------------------------------------------
+    probs = torch.softmax(_router_logits(xf, params["router"]), dim=-1)
+    gate_vals, gate_idx = _top_k(probs, k)                        # [N, k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # position of each (token, slot) in its expert's buffer: the running
+    # count of earlier claims on that expert, token-major, slot-minor
+    flat = F.one_hot(gate_idx.reshape(n * k), e)                  # [N*k, E]
+    pos = (flat.cumsum(0) - flat).gather(1, gate_idx.reshape(n * k, 1))
+    pos = pos.reshape(n, k)
+    in_cap = pos < c
+    # row of each pair in the flattened [E*C] buffers; dropped pairs go to
+    # one extra row past the end, which is cut off and reads back as zero
+    dest = torch.where(in_cap, gate_idx * c + pos,
+                       torch.full_like(pos, e * c)).reshape(n * k)
+
+    # -- dispatch, expert compute, combine ------------------------------------
+    xk = xf.to(cfg.dtype).repeat_interleave(k, dim=0)             # [N*k, d]
+    xe = xf.new_zeros((e * c + 1, d), dtype=cfg.dtype).index_put(
+        (dest,), xk)[:e * c].reshape(e, c, d)
+    h = maybe_einsum("ecd,edh->ech", xe, params["w_gate"])
+    h = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
+    h = h * maybe_einsum("ecd,edh->ech", xe, params["w_up"])
+    ye = maybe_einsum("ech,ehd->ecd", h, params["w_down"])        # [E, C, d]
+    rows = torch.cat([ye.reshape(e * c, d), ye.new_zeros((1, d))])[dest]
+    # the gates are rounded to cfg.dtype before the combine, as the
+    # reference casts its combine tensor; the k products then sum in f32
+    # and round once
+    gates = (gate_vals * in_cap).to(cfg.dtype).float()
+    out = (gates.reshape(n, k, 1) * rows.reshape(n, k, d).float()).sum(1)
+
+    # -- aux: load balance and router stats ------------------------------------
+    # means as XLA takes them, the sum times the reciprocal of the count
+    frac_tokens = F.one_hot(gate_idx[:, 0], e).float().sum(0) * (1.0 / n)
+    balance_loss = e * (frac_tokens * probs.sum(0) * (1.0 / n)).sum()
+    aux = {"balance_loss": balance_loss,
+           "dropped_frac": 1.0 - in_cap.float().sum() * (1.0 / (n * k)),
+           "expert_load": frac_tokens}
+    return out.to(cfg.dtype).reshape(b, t, d).to(x.dtype), aux

@@ -4,11 +4,13 @@
 Params are a plain dict with the JAX package's paths and layouts (every
 projection stored [in, out], so the forward is ``x @ w``, or an int8
 ``{q, scale}`` entry, see ``ops/quant.py``); a JAX param tree converts with
-:func:`tpu9_torch.bridge.params_from_jax`. ``decoder_forward``
-runs the no-cache forward, dense prefill, chunked prefill into a dense
-scratch (also the dense engine's speculative verify), dense decode, paged
-decode and the paged speculative verify. KV writes go into the cache tensors
-in place where the JAX graphs donated the buffer.
+:func:`tpu9_torch.bridge.params_from_jax`. A config with ``n_experts`` (the
+mixtral family) has a ``"moe"`` subtree in each layer in place of
+``w_gate``/``w_up``/``w_down``, and its FFN is :func:`moe.moe_ffn`.
+``decoder_forward`` runs the no-cache forward, dense prefill, chunked
+prefill into a dense scratch (also the dense engine's speculative verify),
+dense decode, paged decode and the paged speculative verify. KV writes go
+into the cache tensors in place where the JAX graphs donated the buffer.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..ops.attention import (attention, chunk_prefill_attention,
 from ..ops.norms import rms_norm
 from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
+from .moe import MoeConfig, init_moe_layer, moe_ffn
 
 Params = dict[str, Any]
 
@@ -74,8 +77,6 @@ def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
     convert JAX params with ``params_from_jax`` instead. On ``"meta"``,
     with ``generator=None``, nothing is drawn: the tree of shapes and
     dtypes compile-ahead builds on (``presets.params_spec``)."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE decoder: ROADMAP queue A10")
     dt = cfg.dtype
 
     def norm_weight():
@@ -93,19 +94,30 @@ def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
     q_dim = cfg.n_heads * cfg.head_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": norm_weight(), "mlp_norm": norm_weight(),
             "wq": _dense_init(generator, cfg.dim, q_dim, dt, device),
             "wk": _dense_init(generator, cfg.dim, kv_dim, dt, device),
             "wv": _dense_init(generator, cfg.dim, kv_dim, dt, device),
-            "wo": _dense_init(generator, q_dim, cfg.dim, dt, device),
-            "w_gate": _dense_init(generator, cfg.dim, cfg.hidden_dim, dt,
-                                  device),
-            "w_up": _dense_init(generator, cfg.dim, cfg.hidden_dim, dt,
-                                device),
-            "w_down": _dense_init(generator, cfg.hidden_dim, cfg.dim, dt,
-                                  device)})
+            "wo": _dense_init(generator, q_dim, cfg.dim, dt, device)}
+        if cfg.n_experts:
+            layer["moe"] = init_moe_layer(_moe_cfg(cfg), generator, device)
+        else:
+            layer["w_gate"] = _dense_init(generator, cfg.dim, cfg.hidden_dim,
+                                          dt, device)
+            layer["w_up"] = _dense_init(generator, cfg.dim, cfg.hidden_dim,
+                                        dt, device)
+            layer["w_down"] = _dense_init(generator, cfg.hidden_dim, cfg.dim,
+                                          dt, device)
+        params["layers"].append(layer)
     return params
+
+
+def _moe_cfg(cfg: DecoderConfig) -> MoeConfig:
+    return MoeConfig(dim=cfg.dim, hidden_dim=cfg.hidden_dim,
+                     n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     act=cfg.act, dtype=cfg.dtype)
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int = 0,
@@ -236,10 +248,14 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
 
 
 def _mlp_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig):
+    """The FFN with its residual; returns (x, the MoE aux or None)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+    if cfg.n_experts:
+        y, aux = moe_ffn(layer["moe"], h, _moe_cfg(cfg))
+        return x + y, aux
     gated = (_act(maybe_matmul(h, layer["w_gate"]), cfg.act)
              * maybe_matmul(h, layer["w_up"]))
-    return x + maybe_matmul(gated, layer["w_down"])
+    return x + maybe_matmul(gated, layer["w_down"]), None
 
 
 def lm_logits(params: Params, x: torch.Tensor,
@@ -261,7 +277,8 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                     kv_cache: Optional[Params] = None,
                     cache_len: Optional[torch.Tensor] = None,
                     decode: bool = False, rope=None,
-                    return_hidden: bool = False):
+                    return_hidden: bool = False,
+                    return_moe_aux: bool = False):
     """Run the decoder.
 
     - eval:           ``decoder_forward(params, tokens, cfg)`` → logits [B,T,V]
@@ -280,7 +297,9 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     an optional precomputed ``rope_table(cfg.max_seq_len, ...)`` pair.
     ``return_hidden`` returns the final-norm hidden states [B,T,dim] in
     place of the logits, so a caller can project only the rows it needs
-    with :func:`lm_logits`.
+    with :func:`lm_logits`. ``return_moe_aux`` appends the MoE balance loss
+    averaged over the layers (an f32 scalar, 0 for a dense model) to what
+    is returned.
     """
     b, t = tokens.shape
     if positions is None:
@@ -306,13 +325,21 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         rope = rope_table(rope_len, cfg.head_dim, cfg.rope_theta, x.device)
     sin, cos = rope
 
+    balances = []
     for i, layer in enumerate(params["layers"]):
         x = _attn_block(layer, x, cfg, positions, sin, cos, kv_cache, i,
                         cache_len, decode)
-        x = _mlp_block(layer, x, cfg)
+        x, aux = _mlp_block(layer, x, cfg)
+        if aux is not None:
+            balances.append(aux["balance_loss"])
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
     out = x if return_hidden else lm_logits(params, x, cfg)
-    if kv_cache is not None:
-        return out, kv_cache
-    return out
+    ret = (out,) if kv_cache is None else (out, kv_cache)
+    if return_moe_aux:
+        # summed layer by layer from zero, in the reference's order
+        balance = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer_balance in balances:
+            balance = balance + layer_balance
+        ret += (balance / max(cfg.n_layers, 1),)
+    return ret if len(ret) > 1 else out

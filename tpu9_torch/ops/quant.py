@@ -4,8 +4,9 @@
 Projection weights are stored int8 with one f32 scale per output channel;
 KV vectors are stored int8 with one f32 absmax scale per (token, head)
 vector. Both quantizers round half to even, as ``jnp.round`` does, so the
-port's int8 values equal the JAX package's bit for bit. Per-expert MoE
-stacks are not in this slice (ROADMAP queue A10).
+port's int8 values equal the JAX package's bit for bit. A MoE layer's
+stacked expert weights ``[E, in, out]`` are quantized per expert, with
+scales ``[E, 1, out]``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ def quantize_weight(w: torch.Tensor) -> dict:
     return _quantize_along(w, axis=0)
 
 
+def quantize_weight_stacked(w: torch.Tensor) -> dict:
+    """Stacked expert weights [E, in, out] → int8 values + f32 scales
+    [E, 1, out]: one scale per expert and output channel, so no scale
+    mixes experts."""
+    return _quantize_along(w, axis=1)
+
+
 def dequantize_weight(entry: dict, dtype=torch.bfloat16) -> torch.Tensor:
     return (entry["q"].float() * entry["scale"]).to(dtype)
 
@@ -73,6 +81,25 @@ def quantized_matmul(x: torch.Tensor, entry: dict) -> torch.Tensor:
     return (acc * entry["scale"]).to(x.dtype)
 
 
+def quantized_einsum(spec: str, x: torch.Tensor, entry: dict) -> torch.Tensor:
+    """``einsum(spec, x, dequant(w))`` for a stacked int8 entry, in the
+    order of :func:`quantized_matmul`: x cast to bf16, the int8 values as a
+    bf16 operand, the sum in f32, the ``[E, 1, out]`` scale on the f32
+    product, the result cast to x's dtype. On the CPU the product is an
+    f32 einsum of the bf16-rounded operands, so the sum is the JAX one's.
+    On the card it is one batched bf16 GEMM (``torch.bmm``): the sum is
+    rounded to bf16 once, before the scale, as in ``quantized_matmul``,
+    and each call makes a bf16 copy of the stack (a W8A16 kernel is later
+    work)."""
+    xb = x.to(torch.bfloat16)
+    wb = entry["q"].to(torch.bfloat16)
+    if x.is_cuda:
+        acc = torch.einsum(spec, xb, wb).float()
+    else:
+        acc = torch.einsum(spec, xb.float(), wb.float())
+    return (acc * entry["scale"]).to(x.dtype)
+
+
 def is_quantized_entry(w) -> bool:
     """True for a ``{q, scale}`` pair this module produced."""
     return isinstance(w, dict) and "q" in w
@@ -86,25 +113,34 @@ def maybe_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _no_moe() -> NotImplementedError:
-    return NotImplementedError("per-expert int8 MoE: ROADMAP queue A10")
+def maybe_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """Einsum that takes a plain stacked weight or a stacked int8 entry
+    (the MoE layer's counterpart of :func:`maybe_matmul`)."""
+    if is_quantized_entry(w):
+        return quantized_einsum(spec, x, w)
+    return torch.einsum(spec, x, w)
 
 
 def quantize_decoder(params: Params) -> Params:
     """Quantize a decoder tree's 2-D projections (norms and embeddings stay
-    in full precision; an embedding is a gather, not a matmul). Idempotent:
+    in full precision; an embedding is a gather, not a matmul) and a MoE
+    layer's expert stacks per expert (its router stays f32). Idempotent:
     entries already quantized pass through untouched."""
     out = dict(params)
     if "lm_head" in params and not is_quantized_entry(params["lm_head"]):
         out["lm_head"] = quantize_weight(params["lm_head"])
     out["layers"] = []
     for layer in params["layers"]:
-        if "moe" in layer:
-            raise _no_moe()
         new_layer = dict(layer)
         for name in _TARGETS:
             if name in layer and getattr(layer[name], "ndim", 0) == 2:
                 new_layer[name] = quantize_weight(layer[name])
+        if "moe" in layer:
+            moe = dict(layer["moe"])
+            for name in ("w_gate", "w_up", "w_down"):
+                if not is_quantized_entry(moe[name]):
+                    moe[name] = quantize_weight_stacked(moe[name])
+            new_layer["moe"] = moe
         out["layers"].append(new_layer)
     return out
 
@@ -123,15 +159,27 @@ def _random_quantized(gen: torch.Generator, in_dim: int, out_dim: int,
     return {"q": q, "scale": scale.mul_(0.4).add_(0.8).mul_(std / 73.0)}
 
 
+def _random_quantized_stacked(gen: torch.Generator, n_experts: int,
+                              in_dim: int, out_dim: int, device) -> dict:
+    """The stacked-expert :func:`_random_quantized`: int8 values
+    [E, in, out] and scales [E, 1, out], with no full-precision stack."""
+    q = torch.randint(-127, 128, (n_experts, in_dim, out_dim), generator=gen,
+                      dtype=torch.int8, device=device)
+    std = (2.0 / (in_dim + out_dim)) ** 0.5
+    scale = torch.rand((n_experts, 1, out_dim), generator=gen,
+                       dtype=torch.float32, device=device)
+    return {"q": q, "scale": scale.mul_(0.4).add_(0.8).mul_(std / 73.0)}
+
+
 def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
     """An ``init_decoder``-shaped tree with int8 projections drawn on
     ``device`` from ``generator`` (which must live there): the paths,
     shapes and dtypes of the JAX ``init_quantized_decoder``. The draws
     differ from ``jax.random``; tests carry JAX trees over with
     ``params_from_jax`` instead. On ``"meta"``, with ``generator=None``,
-    nothing is drawn: the abstract tree of ``presets.params_spec``."""
-    if cfg.n_experts:
-        raise _no_moe()
+    nothing is drawn: the abstract tree of ``presets.params_spec``. A MoE
+    config gets per-expert int8 stacks under ``layer["moe"]`` beside an f32
+    router, as ``init_moe_layer`` lays them out."""
 
     def norm_weight():
         return torch.ones((cfg.dim,), dtype=torch.float32,
@@ -148,18 +196,32 @@ def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
     q_dim = cfg.n_heads * cfg.head_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": norm_weight(), "mlp_norm": norm_weight(),
             "wq": _random_quantized(generator, cfg.dim, q_dim, device),
             "wk": _random_quantized(generator, cfg.dim, kv_dim, device),
             "wv": _random_quantized(generator, cfg.dim, kv_dim, device),
-            "wo": _random_quantized(generator, q_dim, cfg.dim, device),
-            "w_gate": _random_quantized(generator, cfg.dim, cfg.hidden_dim,
-                                        device),
-            "w_up": _random_quantized(generator, cfg.dim, cfg.hidden_dim,
-                                      device),
-            "w_down": _random_quantized(generator, cfg.hidden_dim, cfg.dim,
-                                        device)})
+            "wo": _random_quantized(generator, q_dim, cfg.dim, device)}
+        if cfg.n_experts:
+            e = cfg.n_experts
+            router = torch.randn((cfg.dim, e), generator=generator,
+                                 dtype=torch.float32, device=device)
+            layer["moe"] = {
+                "router": router.mul_((2.0 / (cfg.dim + e)) ** 0.5),
+                "w_gate": _random_quantized_stacked(
+                    generator, e, cfg.dim, cfg.hidden_dim, device),
+                "w_up": _random_quantized_stacked(
+                    generator, e, cfg.dim, cfg.hidden_dim, device),
+                "w_down": _random_quantized_stacked(
+                    generator, e, cfg.hidden_dim, cfg.dim, device)}
+        else:
+            layer["w_gate"] = _random_quantized(generator, cfg.dim,
+                                                cfg.hidden_dim, device)
+            layer["w_up"] = _random_quantized(generator, cfg.dim,
+                                              cfg.hidden_dim, device)
+            layer["w_down"] = _random_quantized(generator, cfg.hidden_dim,
+                                                cfg.dim, device)
+        params["layers"].append(layer)
     return params
 
 

@@ -1,11 +1,11 @@
 """Engine construction from model presets (counterpart of
-``tpu9/serving/presets.py``): the same llama and gemma preset names (the
-mixtral names wait for the MoE decoder), the same rule for when the engine
-is paged and the same quantization knobs, with random weights drawn on the
-device from a seed.
+``tpu9/serving/presets.py``): the same llama, gemma and mixtral preset
+names, the same rule for when the engine is paged and the same
+quantization knobs, with random weights drawn on the device from a seed.
 
 ``<preset>-int8`` or ``quantize="int8"`` serves int8 weight-only
-projections, on the paged or the dense engine; ``kv_quant="int8"`` stores
+projections (a mixtral's expert stacks per expert), on the paged or the
+dense engine; ``kv_quant="int8"`` stores
 the paged pool as int8 with per-vector scales, auto-sized to the bytes a
 bf16 pool would take. The two knobs are independent; together they are
 quantized serving end to end.
@@ -27,6 +27,7 @@ import torch
 
 from ..models.gemma import GEMMA_PRESETS
 from ..models.llama import LLAMA_PRESETS
+from ..models.mixtral import MIXTRAL_PRESETS
 from ..models.transformer import init_decoder
 from ..observability import coldstart as cs
 from ..ops.quant import init_quantized_decoder, validate_quant_mode
@@ -34,22 +35,16 @@ from ..utils.platform import default_device
 from .engine import EngineConfig, InferenceEngine
 
 
-PRESETS = {**LLAMA_PRESETS, **GEMMA_PRESETS}
-# the reference's mixtral preset names (``tpu9/models/mixtral.py``): the
-# MoE decoder they need is not ported yet
-MIXTRAL_NAMES = ("mixtral-tiny", "mixtral-8x7b")
+PRESETS = {**LLAMA_PRESETS, **GEMMA_PRESETS, **MIXTRAL_PRESETS}
 
 
 def resolve_preset(name: str, quantize: Optional[str] = None):
-    """Return ``(DecoderConfig, quantized)`` for a llama or gemma preset
-    name: a ``-int8`` suffix or ``quantize="int8"`` selects int8 weights.
-    A mixtral name raises ``NotImplementedError``, any other ``KeyError``."""
+    """Return ``(DecoderConfig, quantized)`` for a preset name: a ``-int8``
+    suffix or ``quantize="int8"`` selects int8 weights. An unknown name
+    raises ``KeyError``."""
     quantize = validate_quant_mode(quantize)
     quantized = name.endswith("-int8") or quantize == "int8"
     base = name[:-len("-int8")] if name.endswith("-int8") else name
-    if base in MIXTRAL_NAMES:
-        raise NotImplementedError(
-            f"model preset {base!r} needs the MoE decoder: ROADMAP queue A10")
     if base not in PRESETS:
         raise KeyError(f"unknown model preset {base!r}; have "
                        f"{sorted(PRESETS)}")
@@ -82,6 +77,41 @@ def params_spec(name: str, quantize: Optional[str] = None):
     config: the shapes compile-ahead needs before a weight exists."""
     cfg, quantized = resolve_preset(name, quantize)
     return abstract_params_for(cfg, quantized), cfg
+
+
+def engine_config(*, max_batch: int = 8, max_seq_len: int = 2048,
+                  prefill_buckets: tuple = (128, 512, 2048),
+                  decode_steps: tuple = (1, 8, 32),
+                  paged: Optional[bool] = None, kv_block_size: int = 256,
+                  kv_pool_blocks: int = 0,
+                  prefix_cache_blocks: Optional[int] = None,
+                  kv_quant: Optional[str] = None, spec_len: int = 0,
+                  spec_min_accept: float = 0.35) -> EngineConfig:
+    """The ``EngineConfig`` that :func:`load_engine` builds from its knobs
+    (which it documents), for a caller that builds the engine from an
+    explicit ``DecoderConfig`` through ``InferenceEngine``."""
+    kv_quant = validate_quant_mode(kv_quant, "kv_quant")
+    chunk = min(prefill_buckets)
+    block = min(kv_block_size, chunk)
+    if paged is None:
+        paged = (max_seq_len % block == 0 and chunk % block == 0
+                 and max_seq_len % chunk == 0)
+    if kv_quant and not paged:
+        raise ValueError(
+            "kv_quant='int8' needs the paged engine, but the alignment "
+            f"invariants rejected paging (block {block}, chunk {chunk}, "
+            f"max_seq_len {max_seq_len})")
+    return EngineConfig(
+        max_batch=max_batch, max_seq_len=max_seq_len,
+        prefill_buckets=prefill_buckets, decode_steps=decode_steps,
+        kv_block_size=block if paged else 0, kv_pool_blocks=kv_pool_blocks,
+        prefill_chunk=chunk if paged else 0,
+        # an explicit 0 disables the prefix cache; None is the default
+        prefix_cache_blocks=prefix_cache_blocks
+        if prefix_cache_blocks is not None
+        else (max_seq_len // block if paged else 0),
+        kv_quant=kv_quant, spec_len=spec_len,
+        spec_min_accept=spec_min_accept)
 
 
 def load_engine(name: str, *, device=None, max_batch: int = 8,
@@ -141,27 +171,13 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
             "kv_quant conflicts with the explicit engine_cfg — set "
             "EngineConfig(kv_quant=...) there instead")
     device = default_device(device)
-    chunk = min(prefill_buckets)
-    block = min(kv_block_size, chunk)
-    if paged is None:
-        paged = (max_seq_len % block == 0 and chunk % block == 0
-                 and max_seq_len % chunk == 0)
-    if kv_quant and not paged:
-        raise ValueError(
-            "kv_quant='int8' needs the paged engine, but the alignment "
-            f"invariants rejected paging (block {block}, chunk {chunk}, "
-            f"max_seq_len {max_seq_len})")
-    ecfg = engine_cfg or EngineConfig(
+    ecfg = engine_cfg or engine_config(
         max_batch=max_batch, max_seq_len=max_seq_len,
         prefill_buckets=prefill_buckets, decode_steps=decode_steps,
-        kv_block_size=block if paged else 0, kv_pool_blocks=kv_pool_blocks,
-        prefill_chunk=chunk if paged else 0,
-        # an explicit 0 disables the prefix cache; None is the default
-        prefix_cache_blocks=prefix_cache_blocks
-        if prefix_cache_blocks is not None
-        else (max_seq_len // block if paged else 0),
-        kv_quant=kv_quant, spec_len=spec_len,
-        spec_min_accept=spec_min_accept)
+        paged=paged, kv_block_size=kv_block_size,
+        kv_pool_blocks=kv_pool_blocks,
+        prefix_cache_blocks=prefix_cache_blocks, kv_quant=kv_quant,
+        spec_len=spec_len, spec_min_accept=spec_min_accept)
     if compile_ahead:
         return _load_compile_ahead(name, quantize, seed, ecfg, device,
                                    tracer)
