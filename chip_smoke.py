@@ -80,7 +80,29 @@ Phases, each of which must pass or the script exits non-zero:
     call's token count. The router's logits must not follow the process's
     f32 matmul precision. Their decode window and chunk group are
     profiled on every run, and no spec, KV-motion or restore phase
-    follows them. Each phase prints its seconds.
+    follows them;
+12. train, LoRA: gemma-7b at full width and depth (random weights from a
+    seed), rank-16 adapters on wq, wk, wv and wo, ``examples/05``'s
+    tokens (8, 512) and ``adamw``, remat on, through
+    ``build_lora_train_step``: the first step's adapter gradients through
+    the flash kernel against the twin path, then five steps on one
+    repeated batch (the first step's loss against a no-grad forward over
+    the merged params, every ``b`` off zero after it, the loss falling),
+    step ms, training tokens/s, MFU against the bf16 peak with its FLOP
+    count, peak memory and one profiled step;
+13. train, full: llama-1b at full width and depth, every parameter, adam,
+    tokens (4, 1024), through ``build_train_step``: five steps, the loss
+    falling, the same figures.
+    Each phase prints its seconds.
+
+Phase 3 also holds the flash kernel's gradient (``FlashAttention``: the
+kernel forward, a backward in torch ops) at the two train phases' shapes
+(gemma-7b's heads at B=8, T=S=512; llama-1b's at B=4, T=S=1024): the
+forward against the twin, dq, dk and dv against autograd through the f32
+twin on the same bf16 inputs, and the forward kernel, the backward, the
+pair and SDPA's forward and backward timed. In each train phase the flash
+kernel launches ``n_layers x 2 x steps`` times (each layer's forward and
+its recompute in the backward) and no other kernel launches.
 
 After phases 4 and 5, KV motion (``phase_kv_motion``), on an engine over
 the same weights with a 1024 MB host tier armed through ``engine_cfg``: a
@@ -872,6 +894,9 @@ def phase_kernels() -> list[dict]:
         for causal in (True, False):
             phase_flash_tails(causal, head_dim=head_dim, heads=heads)
     decode("ragged_decode_attention", "dense decode {} S=2048", "BS=256")
+    # B3 under a gradient, at the train phases' shapes
+    for path in GRAD_SHAPES:
+        keep(phase_flash_grad(path), path)
     # the paged verify route: B*T rows through B1 / B2, the spec phases'
     # paths at llama's heads, gemma's heads checked and printed
     for quant, path in ((False, "spec-bf16"), (True, "spec-int8")):
@@ -885,6 +910,112 @@ def phase_kernels() -> list[dict]:
                 f"QH={heads[0]} KH={heads[1]} D=256 BS=128 MB=17", 256,
                 heads)
     return rows
+
+
+# -- phase 3, B3 under a gradient: the train steps' attention --------------------
+
+# the train phases' attention shapes: (batch, T = S, (q heads, kv heads),
+# head_dim, model), causal. gemma-7b's LoRA step takes examples/05's
+# tokens (8, 512); llama-1b's full step takes (4, 1024)
+GRAD_SHAPES = {"lora": (8, 512, (16, 16), 256, "gemma-7b"),
+               "full": (4, 1024, (32, 8), 64, "llama-1b")}
+
+
+def grad_limit(want: torch.Tensor, group: int) -> torch.Tensor:
+    """The tolerance of a bf16 gradient of the Function's backward against
+    autograd through the f32 twin, ``want``. Both take the same f32
+    products in other orders (about 1e-6 of the largest entry apart) and
+    round once to bf16: one bf16 ulp, 2^-7 of |want|. Through the twin,
+    dk and dv of a kv head come from its ``group`` q heads' terms, each
+    rounded to bf16 before they are summed (the backward of the GQA
+    expansion runs after the cast): up to half an ulp of each term, taken
+    here as ``group`` x 2^-8 of the tensor's largest entry."""
+    top = want.abs().max()
+    return 2.0 ** -7 * want.abs() + group * 2.0 ** -8 * top + 1e-5 * top
+
+
+def phase_flash_grad(path: str) -> dict:
+    """B3 with its gradient at a train phase's shape: the kernel's output
+    against the twin's (``flash_limit``), the Function's dq, dk and dv on
+    the card against autograd through the f32 twin on the same bf16 inputs
+    (``grad_limit``); then the kernel forward, the backward alone, the
+    Function's forward and backward (the row's ``ms``), the twin's under
+    autograd (``plain_ms``) and SDPA's forward and backward
+    (``library_ms``) timed. Returns the row of the kernels line."""
+    import torch.nn.functional as F
+    from tpu9_torch.ops import attention as at
+    batch, t, (q_heads, kv_heads), head_dim, model = GRAD_SHAPES[path]
+    label = (f"{model} train B={batch} T=S={t} QH={q_heads} KH={kv_heads} "
+             f"D={head_dim} causal, forward + gradient")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(batch + t + head_dim)
+    q, k, v = (torch.randn((batch, t, h, head_dim), generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+               for h in (q_heads, kv_heads, kv_heads))
+    d_out = torch.randn(q.shape, generator=gen, device=DEVICE
+                        ).to(torch.bfloat16)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = d_out.transpose(1, 2).contiguous()
+
+    def function():
+        out = at.FlashAttention.apply(*leaves, True)
+        return torch.autograd.grad(out, leaves, d_out)
+
+    def twin():
+        out = at.xla_attention(*leaves, causal=True)
+        return torch.autograd.grad(out, leaves, d_out)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    before = at.flash_attention.launches
+    got = function()
+    fwd = at.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(at.flash_attention.launches == before + 2,
+          "the Function did not launch the flash kernel")
+    max_err = check_flash(label, fwd, at.xla_attention(q, k, v).float(), v,
+                          True)
+    group = q_heads // kv_heads
+    for name, g, w in zip(("dq", "dk", "dv"), got, twin()):
+        w = w.float()
+        err = (g.float() - w).abs()
+        rel = float(torch.linalg.vector_norm(g.float() - w)
+                    / torch.linalg.vector_norm(w))
+        print(f"kernel flash_attention [{label}]: {name} max_abs_err "
+              f"{float(err.max()):.3e}, norm-wise {rel:.3e} (tolerance "
+              f"|err| <= 2^-7*|twin| + {group}*2^-8*max|twin| + "
+              f"1e-5*max|twin|: one bf16 rounding each side, and the twin's "
+              f"per-q-head terms rounded before the GQA sum)")
+        check(bool(torch.isfinite(g).all())
+              and bool((err <= grad_limit(w, 1 if name == "dq" else group)
+                        ).all()),
+              f"flash_attention {label}: {name} disagrees with autograd "
+              f"through the twin (max abs err {float(err.max())})")
+        max_err = max(max_err, float(err.max()))
+    del got
+    times = measure(function, twin, sdpa)
+    times["forward_ms"] = time_ms(lambda: at.flash_attention(q, k, v))
+    times["backward_ms"] = time_ms(lambda: at.flash_attention_backward(
+        q, k, v, d_out, True))
+    # read q, k, v and d_out once, write out, dq, dk and dv once; 4 flops
+    # per (q head, dim) of each attended pair forward (QK^T, PV) and 8
+    # backward (dP, dV, dQ, dK), at the bf16 peak
+    pairs = batch * t * (t + 1) // 2
+    bound = roofline_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()),
+                        12 * q_heads * head_dim * pairs)
+    print_times("flash_attention", label, times, bound,
+                "sdpa forward + backward (is_causal, enable_gqa)")
+    print(f"kernel flash_attention [{label}]: forward kernel "
+          f"{times['forward_ms']:.4f} ms, backward (torch ops, f32) "
+          f"{times['backward_ms']:.4f} ms, Function forward + backward "
+          f"{times['ms']:.4f} ms, sdpa forward + backward "
+          f"{times['library_ms']:.4f} ms")
+    return kernel_row("flash_attention", label, max_err, times, bound)
 
 
 # -- phases 4 to 9: the engines at full width ---------------------------------
@@ -2317,6 +2448,279 @@ def _cold_ahead(live, card: str, kind: str, path: str, index: dict,
     return launches
 
 
+# -- phases 12 and 13: training at full width -----------------------------------
+
+LORA_PRESET = "gemma-7b"
+LORA_TOKENS = (8, 512)              # examples/05_gemma_lora_v5p64.py's batch
+LORA_RANK = 16
+# examples/05 trains at 1e-4; on random gemma-7b weights its deltas stay
+# under half a bf16 ulp of the merged weights for the first steps, so the
+# loss cannot move: the reference's own semantics. 1e-2, as
+# tests/test_parallel.py's LoRA test uses, moves them
+LORA_LR = 1e-2
+FULL_PRESET = "llama-1b"
+FULL_TOKENS = (4, 1024)
+FULL_LR = 1e-3                      # about 8 bf16 ulps of a 0.02 weight
+TRAIN_STEPS = 5                     # the first one is not timed
+# the first LoRA step's adapter gradients, kernel path against twin path:
+# the kernel's attention output may differ from the twin's by a bf16
+# rounding and 2^-9 of the largest v it attends (flash_limit); every
+# layer's bf16 activations carry such a difference on at its relative
+# size, forward and backward, so the gradients may part by a few of
+# those roundings over 28 layers, norm-wise
+LORA_GRAD_RTOL = 5e-2
+# the first step's loss against a no-grad forward over the same merged
+# params: the same kernels on the same weights, so one bf16 rounding of
+# the logits (2^-8) bounds it
+LORA_LOSS_RTOL = 2.0 ** -8
+
+
+def train_flops(cfg, batch: int, t: int, lora: bool) -> dict:
+    """FLOPs of one checkpointed train step of ``cfg`` on ``batch`` x
+    ``t`` tokens, by part: ``forward`` (2 per weight per token, the
+    attention's 4 per (q head, dim) of each attended causal pair, the
+    head); ``recompute`` (each layer again in the backward, without the
+    head); ``dx`` (the activations' gradients: 2 per weight per token, 8
+    per (q head, dim, pair) in the attention); ``dw`` (2 per weight per
+    token, of the merged attention weights for LoRA, of every weight but
+    the embedding's gather for a full step; the head's weight when it is
+    not the tied embedding). The adapters' own products and the
+    elementwise work are left out."""
+    n = batch * t
+    q_dim, kv_dim = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    attn_w = 2 * cfg.dim * q_dim + 2 * cfg.dim * kv_dim
+    layer_w = attn_w + 3 * cfg.dim * cfg.hidden_dim
+    head_w = cfg.vocab_size * cfg.dim
+    attn = 4 * cfg.n_heads * cfg.head_dim * batch * t * (t + 1) // 2
+    layers = cfg.n_layers * (2 * n * layer_w + attn)
+    parts = {"forward": layers + 2 * n * head_w, "recompute": layers,
+             "dx": layers + cfg.n_layers * attn + 2 * n * head_w}
+    if lora:
+        parts["dw"] = cfg.n_layers * 2 * n * attn_w
+    else:
+        parts["dw"] = (cfg.n_layers * 2 * n * layer_w
+                       + (0 if cfg.tie_embeddings else 2 * n * head_w))
+    return parts
+
+
+def _zero_launches() -> None:
+    for name in KERNELS:
+        wrapper(name).launches = 0
+
+
+def _launches() -> dict:
+    return {name: wrapper(name).launches for name in KERNELS}
+
+
+def _timed_steps(run, label: str) -> tuple[list[float], list[float]]:
+    """``TRAIN_STEPS`` calls of ``run()`` (which returns the step's loss),
+    each ended by a synchronize: (losses, step seconds)."""
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]), f"{label}: step {i} loss "
+              f"{losses[-1]}")
+    return losses, secs
+
+
+def _report_steps(label: str, card: str, cfg, tokens: tuple[int, int],
+                  secs: list[float], flops: dict, peak_gb: float,
+                  launches: dict, losses: list[float]) -> None:
+    """Median step ms over the steps after the first, tokens/s, MFU
+    against the bf16 peak with its FLOP count, peak memory, launches."""
+    step_s = float(np.median(secs[1:]))
+    total = sum(flops.values())
+    parts = " + ".join(f"{k} {v:.4e}" for k, v in flops.items())
+    print(f"{label}: losses {[round(x, 4) for x in losses]}")
+    print(f"{label}: step {step_s * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {secs[0] * 1e3:.1f} ms), "
+          f"{tokens[0] * tokens[1] / step_s:.0f} training tokens/s, MFU "
+          f"{total / step_s / BF16_FLOP_PER_S:.1%} of {BF16_FLOP_PER_S:.3g} "
+          f"FLOP/s bf16 ({total:.4e} FLOP a step = {parts}), peak "
+          f"allocated {peak_gb:.2f} GB; B3 launches "
+          f"{launches['flash_attention']} = {cfg.n_layers} layers x 2 "
+          f"(forward, recompute) x {TRAIN_STEPS} steps ({card})")
+
+
+def _check_train_launches(label: str, cfg, launches: dict,
+                          steps: int) -> None:
+    want = {name: 0 for name in KERNELS}
+    want["flash_attention"] = cfg.n_layers * 2 * steps
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+
+def _twin_attention(q, k, v, causal=True, kv_offset=0):
+    """The decoder's attention with every shape on the twin: autograd
+    differentiates it, no kernel runs."""
+    from tpu9_torch.ops import attention as at
+    return at.xla_attention(q, k, v, causal=causal, kv_offset=kv_offset)
+
+
+def phase_train_lora(card: str) -> dict:
+    """gemma-7b at full width and depth, LoRA of rank 16 on wq, wk, wv and
+    wo (``examples/05``'s shapes: tokens (8, 512), ``lora_scale(16)``,
+    adamw), remat on, through ``build_lora_train_step``. Before the steps:
+    the adapter gradients through the kernel path against the twin path.
+    Then ``TRAIN_STEPS`` steps on one repeated batch: the first step's loss
+    against ``causal_lm_loss`` of a no-grad forward over the same merged
+    params, every ``b`` off zero after it, every loss finite and the last
+    under the first; B3 launched ``n_layers x 2 x steps`` times (forward
+    and recompute) and no other kernel. One more step is profiled. Returns
+    the steps' launches."""
+    from tpu9_torch.models import lora, transformer
+    from tpu9_torch.models.transformer import decoder_forward, init_decoder
+    from tpu9_torch.serving.presets import PRESETS
+    from tpu9_torch.train import build_lora_train_step, causal_lm_loss, optim
+    from tpu9_torch.train.trainer import lora_value_and_grad
+
+    label = f"train lora {LORA_PRESET}"
+    cfg = PRESETS[LORA_PRESET]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    base = init_decoder(cfg, gen, DEVICE)
+    adapters = lora.init_lora(gen, base, rank=LORA_RANK)
+    tokens = torch.randint(0, cfg.vocab_size, LORA_TOKENS, generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    scale = lora.lora_scale(LORA_RANK)
+    torch.cuda.synchronize()
+    w_gb = sum(x.numel() * x.element_size()
+               for x in optim.tree_leaves(base)) / 1e9
+    print(f"{label}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}: {w_gb:.2f} GB of {cfg.dtype} weights drawn in "
+          f"{time.perf_counter() - t0:.2f} s; rank {LORA_RANK}, "
+          f"{lora.trainable_count(adapters)} trainable, scale {scale}, "
+          f"tokens {LORA_TOKENS}, adamw lr {LORA_LR}")
+
+    with torch.no_grad():
+        ref_loss = float(causal_lm_loss(decoder_forward(
+            lora.merge(base, adapters, scale), tokens, cfg), tokens))
+
+    # the first step's gradients, kernel path against twin path
+    value_and_grad = lora_value_and_grad(cfg, scale, remat=True)
+    _zero_launches()
+    loss_k, grads_k = value_and_grad(adapters, base, tokens)
+    torch.cuda.synchronize()
+    check(_launches()["flash_attention"] == 2 * cfg.n_layers,
+          f"{label}: the gradient's forward and recompute launched "
+          f"{_launches()} (want {2 * cfg.n_layers} flash)")
+    was = transformer.attention
+    transformer.attention = _twin_attention
+    try:
+        loss_t, grads_t = value_and_grad(adapters, base, tokens)
+    finally:
+        transformer.attention = was
+    gk, gt = optim.tree_leaves(grads_k), optim.tree_leaves(grads_t)
+    diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(gk, gt)))
+    rel = float(diff / optim.global_norm(grads_t))
+    print(f"{label}: first-step adapter gradients, kernel path against the "
+          f"twin path (remat on both: off, 28 layers of saved activations "
+          f"and the twin's f32 scores would not fit beside the weights): "
+          f"norm-wise {rel:.3e} (tolerance {LORA_GRAD_RTOL}); losses "
+          f"{float(loss_k):.6f} and {float(loss_t):.6f}")
+    check(rel <= LORA_GRAD_RTOL, f"{label}: kernel-path gradients part from "
+          f"the twin path's by {rel:.3e}")
+    del grads_k, grads_t, gk, gt
+
+    opt = optim.adamw(LORA_LR)
+    opt_state = opt.init(adapters)
+    step = build_lora_train_step(cfg, opt, scale=scale, device=DEVICE)
+    state = {"adapters": adapters, "opt": opt_state}
+    moved = []
+
+    def run():
+        state["adapters"], state["opt"], metrics = step(
+            state["adapters"], state["opt"], base, tokens)
+        if not moved:
+            moved.append(all(bool(entry["b"].any())
+                             for layer in state["adapters"]["layers"]
+                             for entry in layer.values()))
+        return metrics["loss"]
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, secs = _timed_steps(run, label)
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_train_launches(label, cfg, launches, TRAIN_STEPS)
+    gap = abs(losses[0] - ref_loss)
+    print(f"{label}: first step's loss {losses[0]:.6f} against a no-grad "
+          f"forward's {ref_loss:.6f}: gap {gap:.3e} (tolerance "
+          f"{LORA_LOSS_RTOL:.3e} x loss); every b off zero after step 1: "
+          f"{moved[0]}")
+    check(gap <= LORA_LOSS_RTOL * abs(ref_loss), f"{label}: the step's loss "
+          f"{losses[0]} is not the forward's {ref_loss}")
+    check(moved[0], f"{label}: some b stayed zero after the first step")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall on a "
+          f"repeated batch: {losses}")
+    _report_steps(label, card, cfg, LORA_TOKENS, secs,
+                  train_flops(cfg, *LORA_TOKENS, lora=True), peak_gb,
+                  launches, losses)
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _profile(lambda: step(state["adapters"], state["opt"], base, tokens),
+             f"train_lora_{LORA_PRESET}_step", 1, out_dir)
+    return launches
+
+
+def phase_train_full(card: str) -> dict:
+    """llama-1b at full width and depth (head_dim 64), every parameter
+    trained: ``build_train_step`` with adam, remat on, tokens (4, 1024),
+    ``TRAIN_STEPS`` steps on one repeated batch: every loss finite and the
+    last under the first, B3 launched ``n_layers x 2 x steps`` times.
+    Returns the steps' launches."""
+    from tpu9_torch.models.transformer import init_decoder
+    from tpu9_torch.serving.presets import PRESETS
+    from tpu9_torch.train import build_train_step, optim
+    from tpu9_torch.train.trainer import init_train_state
+
+    label = f"train full {FULL_PRESET}"
+    cfg = PRESETS[FULL_PRESET]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    opt = optim.adam(FULL_LR)
+    state = {"s": init_train_state(init_decoder(cfg, gen, DEVICE), opt)}
+    tokens = torch.randint(0, cfg.vocab_size, FULL_TOKENS, generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    step = build_train_step(cfg, opt, device=DEVICE)
+    n_params = sum(x.numel() for x in optim.tree_leaves(state["s"].params))
+    print(f"{label}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, {n_params} "
+          f"params ({cfg.dtype}; adam moments in the params' dtypes), "
+          f"tokens {FULL_TOKENS}, adam lr {FULL_LR}")
+    norms = []
+
+    def run():
+        state["s"], metrics = step(state["s"], tokens)
+        norms.append(float(metrics["grad_norm"]))
+        return metrics["loss"]
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, secs = _timed_steps(run, label)
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_train_launches(label, cfg, launches, TRAIN_STEPS)
+    check(all(np.isfinite(norms)), f"{label}: grad norms {norms}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall on a "
+          f"repeated batch: {losses}")
+    print(f"{label}: grad norms {[round(x, 4) for x in norms]}")
+    _report_steps(label, card, cfg, FULL_TOKENS, secs,
+                  train_flops(cfg, *FULL_TOKENS, lora=False), peak_gb,
+                  launches, losses)
+    return launches
+
+
+TRAIN_PHASES = {"lora": phase_train_lora, "full": phase_train_full}
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -2486,6 +2890,13 @@ def main() -> int:
                 phase_profile(engine, card, kind)
             # free the engine before the next one loads
             del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
+                  f"({card})")
+        for kind, run in TRAIN_PHASES.items():
+            t_phase = time.perf_counter()
+            launches[kind] = run(card)
             gc.collect()
             torch.cuda.empty_cache()
             print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "

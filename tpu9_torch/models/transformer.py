@@ -9,8 +9,11 @@ mixtral family) has a ``"moe"`` subtree in each layer in place of
 ``w_gate``/``w_up``/``w_down``, and its FFN is :func:`moe.moe_ffn`.
 ``decoder_forward`` runs the no-cache forward, dense prefill, chunked
 prefill into a dense scratch (also the dense engine's speculative verify),
-dense decode, paged decode and the paged speculative verify. KV writes go
-into the cache tensors in place where the JAX graphs donated the buffer.
+dense decode, paged decode and the paged speculative verify, without
+grad. KV writes go into the cache tensors in place where the JAX graphs
+donated the buffer. ``decoder_core`` is the same forward under the
+caller's grad mode, with per-layer activation checkpointing (``remat``):
+the train step's forward (``tpu9_torch/train``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (attention, chunk_prefill_attention,
                              decode_attention, paged_attention_dispatch,
@@ -279,7 +283,28 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                     decode: bool = False, rope=None,
                     return_hidden: bool = False,
                     return_moe_aux: bool = False):
-    """Run the decoder.
+    """:func:`decoder_core` without grad: the serving forward."""
+    return decoder_core(params, tokens, cfg, positions, kv_cache, cache_len,
+                        decode, rope, return_hidden, return_moe_aux)
+
+
+def _layer(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
+           positions: torch.Tensor, sin, cos, kv_cache: Optional[Params],
+           layer_idx: int, cache_len: Optional[torch.Tensor], decode: bool):
+    x = _attn_block(layer, x, cfg, positions, sin, cos, kv_cache, layer_idx,
+                    cache_len, decode)
+    return _mlp_block(layer, x, cfg)
+
+
+def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
+                 positions: Optional[torch.Tensor] = None,
+                 kv_cache: Optional[Params] = None,
+                 cache_len: Optional[torch.Tensor] = None,
+                 decode: bool = False, rope=None,
+                 return_hidden: bool = False,
+                 return_moe_aux: bool = False, remat: bool = False):
+    """Run the decoder, under whatever grad mode the caller is in (the
+    train step's forward; serving calls :func:`decoder_forward`).
 
     - eval:           ``decoder_forward(params, tokens, cfg)`` → logits [B,T,V]
     - dense prefill:  ``kv_cache`` a contiguous [L,B,S,...] cache and no
@@ -300,7 +325,14 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     with :func:`lm_logits`. ``return_moe_aux`` appends the MoE balance loss
     averaged over the layers (an f32 scalar, 0 for a dense model) to what
     is returned.
+
+    ``remat`` checkpoints each layer of the no-cache forward
+    (``torch.utils.checkpoint``, non-reentrant): under grad a layer keeps
+    only its input and runs again in the backward, the reference's remat
+    on the layer boundary. Only the no-cache forward carries a gradient.
     """
+    if remat and kv_cache is not None:
+        raise ValueError("remat applies to the no-cache forward only")
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -327,9 +359,12 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
     balances = []
     for i, layer in enumerate(params["layers"]):
-        x = _attn_block(layer, x, cfg, positions, sin, cos, kv_cache, i,
-                        cache_len, decode)
-        x, aux = _mlp_block(layer, x, cfg)
+        args = (layer, x, cfg, positions, sin, cos, kv_cache, i, cache_len,
+                decode)
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(_layer, *args, use_reentrant=False)
+        else:
+            x, aux = _layer(*args)
         if aux is not None:
             balances.append(aux["balance_loss"])
 

@@ -11,7 +11,9 @@ launches its kernel on a CUDA tensor (or raises for operands it cannot
 take) and computes its plain twin on a CPU tensor. ``paged_verify_attention``
 (a speculative verify window over the paged pool) runs on the card as one
 call of the block-table decode kernels over every (slot, window position)
-row.
+row. Under grad, ``attention`` gives the flash shapes
+:class:`FlashAttention`: the kernel forward and a backward in torch ops,
+the gradient of the twin (the train step's path).
 """
 
 from __future__ import annotations
@@ -82,10 +84,78 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, kv_offset: int = 0) -> torch.Tensor:
     """Dispatch as the JAX ``attention``: block-aligned shapes go to the
     flash kernel (its twin on a CPU tensor), everything else to the plain
-    path."""
+    path. Under grad, with an input that requires it, the flash shapes go
+    through :class:`FlashAttention`, which gives the kernel a backward;
+    the plain path is differentiated by autograd itself."""
     if uses_flash(q.shape[1], k.shape[1], q.shape[-1], kv_offset):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
     return xla_attention(q, k, v, causal=causal, kv_offset=kv_offset)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, d_out: torch.Tensor,
+                             causal: bool):
+    """(dq, dk, dv) of ``xla_attention(q, k, v, causal)`` for the output
+    cotangent ``d_out``, as autograd through the twin gives them: the
+    scaled scores and their f32 softmax recomputed from q, k and v, the
+    causal mask, then the four products of the backward in f32, each
+    gradient cast once to its input's dtype. A kv head's group of q heads
+    shares one product, so dk and dv come out summed over the group
+    (GQA) in f32, before the cast. The JAX package's flash kernel has no
+    backward; this is the gradient XLA takes of the twin."""
+    b, t, q_heads, d = q.shape
+    s, kv_heads = k.shape[1], k.shape[2]
+    g = q_heads // kv_heads
+    scale = d ** -0.5
+    # [B, KH, G*T, D]: the rows of a kv head's group, in q head order
+    qs = (q.float() * scale).reshape(b, t, kv_heads, g, d) \
+        .permute(0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
+    do = d_out.float().reshape(b, t, kv_heads, g, d) \
+        .permute(0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
+    kf = k.float().transpose(1, 2)                      # [B, KH, S, D]
+    vf = v.float().transpose(1, 2)
+    logits = qs @ kf.transpose(-1, -2)                  # [B, KH, G*T, S]
+    if causal:
+        hidden = (torch.arange(s, device=q.device)[None, :]
+                  > torch.arange(t, device=q.device)[:, None])
+        hidden = hidden.repeat(g, 1)                    # [G*T, S]
+        logits.masked_fill_(hidden, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    dv = probs.transpose(-1, -2) @ do                   # [B, KH, S, D]
+    d_probs = do @ vf.transpose(-1, -2)                 # [B, KH, G*T, S]
+    d_logits = probs * (d_probs - (d_probs * probs).sum(-1, keepdim=True))
+    del probs, d_probs
+    if causal:
+        d_logits.masked_fill_(hidden, 0.0)
+    dq = (d_logits @ kf) * scale                        # [B, KH, G*T, D]
+    dk = d_logits.transpose(-1, -2) @ qs                # [B, KH, S, D]
+    dq = dq.reshape(b, kv_heads, g, t, d).permute(0, 3, 1, 2, 4) \
+        .reshape(b, t, q_heads, d)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient. Forward: the kernel on a
+    CUDA tensor (each call, a checkpoint's recompute included, counts one
+    launch), the twin on a CPU tensor. Backward, on either device:
+    :func:`flash_attention_backward` from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, d_out, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_kernel_supports(q: torch.Tensor, k: torch.Tensor) -> str:
