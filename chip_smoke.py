@@ -152,6 +152,28 @@ decomposition (restore, ``fetch_s`` and
 ``compile_overlap_s``, ``bind_s``) and its peak memory; the directory is
 deleted after.
 
+After phases 4 and 5, tensor-parallel serving (``phase_tp``): the phase's
+preset served by ``load_engine(..., topology="2x1", devices=["cuda",
+"cuda"], compile_ahead=True)``, two tp ranks on the one card (each rank
+its own weight shards, its own head shard of the pool, its own launches
+of the decode kernel at per-rank heads, QH 16, KH 4 for llama3-8b), over
+the same weights (seed 0), drawn part by part and bound into the rank
+shards as they are drawn: the rank shards' shapes (``wq`` and ``lm_head``
+half their columns, ``wo`` half its rows, the pool half its kv heads), a
+shard equal to its slice of the phase's weights, every window captured
+and no graph built after warmup, the phase's six prompts, 64 new tokens
+each, whose greedy tokens are held against the tp=1 engine's over all 64
+(``cover_streams``: equal up to a fork, which must be a tie by
+``judge_resume``, then resumed from the fork on the tp=1 tokens and held
+again, until the stream's end), the decode kernel's launches
+``n_layers x 2 ranks x decode steps`` and no other kernel's, ``stats()``
+reporting the topology (2, 1, 2), and the peak memory; then one replay of
+each engine's 8-step decode window from the same lane state, profiled
+(wall, device busy, top kernels), and the reductions of one decode step
+(``2 x n_layers`` of them, captured in one graph) timed alone, each
+labelled "two ranks on one card". Phase 3 checks and times both decode
+kernels at the per-rank heads too. Nothing here ran on two cards.
+
 The kernel launch counts are zeroed just before each engine phase's
 requests (and the KV-motion and spec phases') and read just after: each
 decode kernel of the phase's path must have launched ``n_layers x decode
@@ -865,6 +887,13 @@ def phase_kernels() -> list[dict]:
                 name, f"llama3-8b {what.format(n)} QH=32 KH=8 D=128 {bs}",
                 128, batch=batch, lens=lens)
             keep(row, llama_paths[name])
+            if batch == 8 and name in TP_KERNELS:
+                # the tp phase's per-rank shape: half of llama's heads
+                keep(phase_decode_kernel(
+                    name, f"llama3-8b tp=2 rank {what.format(n)} "
+                    f"QH={TP_HEADS[0]} KH={TP_HEADS[1]} D=128 {bs}", 128,
+                    batch=batch, lens=lens, heads=TP_HEADS),
+                    f"tp-{llama_paths[name]}")
             if batch == 8 and name in mixtral_paths:
                 keep(dict(row, shape="mixtral-8x7b (as llama3-8b) "
                           + row["shape"].removeprefix("llama3-8b ")),
@@ -1051,6 +1080,9 @@ CUT_LAYERS = {"mixtral-bf16": 16}
 # check reads beside the reference prompt: 600 tokens (five chunks, the
 # last padded) and 777, both admitted without a prefix hit
 MOE_CHECKED = (0, 4)
+# each engine phase's prompts and greedy tokens, which the tp phase of its
+# weights holds its own against
+SERVED: dict = {}
 
 
 def make_prompts(vocab: int, seed: int) -> list[list[int]]:
@@ -1534,6 +1566,7 @@ def phase_engine(card: str, kind: str):
     # the peak of reserved memory is where it shows
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
 
+    SERVED[kind] = (prompts, outs)
     for p, out in zip(prompts, outs):
         check(len(out) == MAX_NEW, f"a request returned {len(out)} tokens, "
               f"expected {MAX_NEW}")
@@ -1593,6 +1626,213 @@ def phase_engine(card: str, kind: str):
           f"{cancelled} of 512 and freed its slot; arm_profile(windows=2) "
           f"wrote a trace of {traced}")
     return {name: launches[name] for name in path_kernels}, engine
+
+
+# -- after phases 4 and 5: tensor-parallel serving, two ranks on one card ------
+
+TP_TOPOLOGY = "2x1"
+TP_RANKS = 2
+# a tp=2 rank's heads of llama3-8b (QH 32, KH 8)
+TP_HEADS = (LLAMA_HEADS[0] // TP_RANKS, LLAMA_HEADS[1] // TP_RANKS)
+# the decode kernels the tp phases run
+TP_KERNELS = {"paged_decode_attention", "paged_decode_attention_quant"}
+TP_LABEL = "two ranks on one card"
+
+
+def _entry(w):
+    """A dense weight, or an int8 entry's values."""
+    return w["q"] if isinstance(w, dict) else w
+
+
+def check_tp_shards(tp, engine, kind: str) -> str:
+    """The rank shards of a tp=2 engine: ``wq`` and ``w_gate`` (column
+    parallel) and ``lm_head`` half their columns, ``wo`` and ``w_down``
+    (row parallel) half their rows, each rank's pool half the kv heads,
+    the table one object on the one card; rank 1's ``wq`` equal to the
+    second half of the tp=1 engine's (the same seed's weights)."""
+    from tpu9_torch.parallel.sharding import RankParams, ranks
+    cfg = tp.cfg
+    check(isinstance(tp.params, RankParams) and len(tp.params) == TP_RANKS,
+          f"tp {kind}: params are not {TP_RANKS} rank shards")
+    q_cols = cfg.n_heads * cfg.head_dim
+    full = {"wq": (cfg.dim, q_cols), "wo": (q_cols, cfg.dim),
+            "w_gate": (cfg.dim, cfg.hidden_dim),
+            "w_down": (cfg.hidden_dim, cfg.dim)}
+    for r, shard in enumerate(tp.params):
+        layer = shard["layers"][0]
+        for name, (rows, cols) in full.items():
+            want = ((rows, cols // TP_RANKS) if name in ("wq", "w_gate")
+                    else (rows // TP_RANKS, cols))
+            got = tuple(_entry(layer[name]).shape)
+            check(got == want, f"tp {kind}: rank {r} {name} {got}, want "
+                  f"{want}")
+        head = tuple(_entry(shard["lm_head"]).shape)
+        check(head == (cfg.dim, cfg.vocab_size // TP_RANKS),
+              f"tp {kind}: rank {r} lm_head {head}")
+    half = q_cols // TP_RANKS
+    check(torch.equal(_entry(tp.params[1]["layers"][0]["wq"]),
+                      _entry(engine.params["layers"][0]["wq"])[:, half:]),
+          f"tp {kind}: rank 1's wq is not the second half of the weights")
+    kh = cfg.n_kv_heads // TP_RANKS
+    pools = ranks(tp.kv_cache)
+    for r, kv in enumerate(pools):
+        for name in ("k", "v"):
+            check(kv[name].shape[-2] == kh and kv[name].is_contiguous(),
+                  f"tp {kind}: rank {r} pool {name} "
+                  f"{list(kv[name].shape)}, want {kh} kv heads, contiguous")
+        if tp.kv_quant:
+            check(kv["k_scale"].shape[-1] == kh, f"tp {kind}: rank {r} "
+                  f"scale plane {list(kv['k_scale'].shape)}")
+    check(pools[0]["table"] is pools[1]["table"], f"tp {kind}: the ranks on "
+          f"one card hold two tables")
+    return (f"rank wq {list(_entry(tp.params[0]['layers'][0]['wq']).shape)}, "
+            f"wo {list(_entry(tp.params[0]['layers'][0]['wo']).shape)}, "
+            f"lm_head {list(_entry(tp.params[0]['lm_head']).shape)}, pool "
+            f"{list(pools[0]['k'].shape)} {pools[0]['k'].dtype} a rank")
+
+
+def reduction_ms(cfg, batch: int) -> float:
+    """Device ms of one decode step's reductions alone: ``2 x n_layers``
+    sums of two bf16 partials ``[B, 1, dim]`` (``reduce_partials``, one
+    after ``wo`` and one after ``w_down`` a layer), captured in one CUDA
+    graph and replayed with the device held."""
+    from tpu9_torch.parallel.sharding import reduce_partials
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    parts = [torch.randn((batch, 1, cfg.dim), device=dev).to(cfg.dtype)
+             for _ in range(TP_RANKS)]
+    want = (parts[0].float() + parts[1].float()).to(cfg.dtype)
+    check(torch.equal(reduce_partials(parts, dev), want), "reduce_partials "
+          "is not the f32 sum of the partials rounded once")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(2 * cfg.n_layers):
+            reduce_partials(parts, dev)
+    return time_ms(graph.replay, hold=True)
+
+
+async def cover_streams(tp, engine, prompts: list, wants: list,
+                        gots: list) -> list[list[int]]:
+    """Hold each tp=2 stream against its tp=1 stream over every token: up
+    to its first fork as :func:`judge_resume` judges it (a tie, or the
+    phase fails), then the tp=2 engine (running) is resumed on prompt +
+    the tp=1 tokens through the fork and its continuation judged the same
+    way, fork after fork, until the stream's end; the streams that forked
+    resume together. Returns each stream's forks (token indices)."""
+    forks: list = [[] for _ in prompts]
+    start = [0] * len(prompts)
+    gots = list(gots)
+    pending = range(len(prompts))
+    while pending:
+        resume = []
+        for i in pending:
+            prompt, want = prompts[i], wants[i]
+            if judge_resume(engine, prompt + want[:start[i]],
+                            want[start[i]:], gots[i]) == "identical":
+                continue
+            fork = start[i] + next(j for j, (a, b) in enumerate(
+                zip(want[start[i]:], gots[i])) if a != b)
+            forks[i].append(fork)
+            start[i] = fork + 1
+            if start[i] < len(want):
+                resume.append(i)
+        outs = await asyncio.gather(*[
+            tp.generate(prompts[i] + wants[i][:start[i]],
+                        max_new_tokens=len(wants[i]) - start[i])
+            for i in resume])
+        for i, out in zip(resume, outs):
+            gots[i] = out
+        pending = resume
+    return forks
+
+
+def phase_tp(engine, card: str, kind: str) -> dict:
+    """Tensor-parallel serving of the ``kind`` engine phase's preset at
+    tp=2, both ranks on the one card, against that phase's tp=1 engine
+    (``engine``) and its greedy tokens (``SERVED``); the checks are in the
+    module docstring. The tp=1 engine is done serving: its window state
+    is overwritten by the profile. Returns the kernels' launches."""
+    from tpu9_torch.parallel.sharding import ranks
+    from tpu9_torch.serving.presets import load_engine
+    preset, knobs, path_kernels = ENGINES[kind]
+    label = f"tp-{kind}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tp = load_engine(preset, topology=TP_TOPOLOGY,
+                     devices=[DEVICE] * TP_RANKS, max_batch=8,
+                     max_seq_len=2048, seed=0, compile_ahead=True, **knobs)
+    built = tp.graphs.compiles
+    tp.warmup()
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    check(tp.graphs.compiles == built, f"{label}: warmup after precompile "
+          f"built {tp.graphs.compiles - built} computations")
+    check(tp.policy.one_device, f"{label}: the ranks are not on one card")
+    shards = check_tp_shards(tp, engine, kind)
+    check_captured(tp, label)
+    cfg = tp.cfg
+    prompts, want_outs = SERVED[kind]
+
+    async def serve():
+        await tp.start()
+        try:
+            steps0 = tp.stats()["decode_steps"]
+            for name in KERNELS:
+                wrapper(name).launches = 0
+            outs = (await _serve(tp, prompts, MAX_NEW))[0]
+            launches = {name: wrapper(name).launches for name in KERNELS}
+            steps = tp.stats()["decode_steps"] - steps0
+            forks = await cover_streams(tp, engine, prompts, want_outs, outs)
+            return outs, launches, steps, forks
+        finally:
+            await tp.stop()
+
+    outs, launches, steps, forks = asyncio.run(serve())
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = tp.stats()
+    check((stats["topo_tp"], stats["topo_fsdp"], stats["topo_n_chips"])
+          == (2, 1, 2), f"{label}: stats topology {stats['topo_tp']}, "
+          f"{stats['topo_fsdp']}, {stats['topo_n_chips']}")
+    check(stats["graph_compiles_post_warmup"] == 0, f"{label}: "
+          f"{stats['graph_compiles_post_warmup']} graphs built after warmup")
+    want = {name: 0 for name in KERNELS}
+    for name in path_kernels:
+        want[name] = cfg.n_layers * TP_RANKS * steps
+    check(steps > 0 and launches == want, f"{label}: launches {launches}, "
+          f"expected {want} ({cfg.n_layers} layers x {TP_RANKS} ranks x "
+          f"{steps} decode steps)")
+    compared = [len(out) for out in outs]
+    check(compared == [MAX_NEW] * len(prompts), f"{label}: streams of "
+          f"{compared} tokens, want {MAX_NEW} each")
+    print(f"{label}: {preset} topology {TP_TOPOLOGY} ({TP_LABEL}), "
+          f"compile-ahead bring-up and warmup {t_up:.2f} s; {shards}; "
+          f"stats topology (2, 1, 2), hbm used "
+          f"{stats['hbm_used_gb_per_chip']} GB, predicted "
+          f"{stats['hbm_predicted_gb_per_chip']} GB per chip")
+    print(f"{label}: {len(prompts)} requests, {MAX_NEW} new tokens each: "
+          f"{sum(not f for f in forks)} streams identical to tp=1; tokens "
+          f"held against tp=1 a stream {compared}, resumed from each fork: "
+          f"forks (token indices, each a tie) {forks}; launches {launches} "
+          f"({cfg.n_layers} layers x {TP_RANKS} ranks x {steps} decode "
+          f"steps); peak memory {peak_gb:.2f} GB with the tp=1 engine "
+          f"alive ({card})")
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    b = tp.ecfg.max_batch
+    for e, tag in ((engine, "tp=1"), (tp, f"tp=2, {TP_LABEL}")):
+        lens = _profile_lanes(e)
+        print(f"{label}: decode step, {tag} (B={b}, lengths {lens}):")
+        _profile(e.graphs.decode_k(8),
+                 f"{kind}_{'tp2' if e is tp else 'tp1'}_decode_step_B{b}", 8,
+                 out_dir)
+    red = reduction_ms(cfg, b)
+    print(f"{label}: the {2 * cfg.n_layers} reductions of one decode step "
+          f"(B={b}, [B, 1, {cfg.dim}] {cfg.dtype} partials) take {red:.4f} "
+          f"ms of device time alone ({TP_LABEL}) ({card})")
+    del tp
+    return {name: launches[name] for name in path_kernels}
 
 
 # -- after phases 4 and 5: the KV cache leaves the card ------------------------
@@ -2779,10 +3019,14 @@ def _profile_lanes(e) -> list[int]:
         mb = e.pool.mb
         per_row = mb - 1                            # the last column is trash
         check(1 + b * per_row <= e.pool.n_blocks, "pool too small to profile")
-        table = e.kv_cache["table"]
-        table.zero_()
-        table[:, :per_row] = 1 + torch.arange(
-            b * per_row, dtype=torch.int32, device=e.device).reshape(b, per_row)
+        tables = e.kv_cache["table"]
+        # a rank-sharded engine holds one table a rank (one object where
+        # the ranks share a card)
+        for table in (tables if isinstance(tables, list) else [tables]):
+            table.zero_()
+            table[:, :per_row] = 1 + torch.arange(
+                b * per_row, dtype=torch.int32,
+                device=table.device).reshape(b, per_row)
     e.cache_len.copy_(torch.tensor(PROFILE_LENS, dtype=torch.int32))
     e._active_dev.fill_(True)
     e.last_token.zero_()
@@ -2884,6 +3128,7 @@ def main() -> int:
                 del spec
             if kind in ("bf16", "int8"):
                 launches[f"restore-{kind}"] = phase_restore(engine, card, kind)
+                launches[f"tp-{kind}"] = phase_tp(engine, card, kind)
             # the MoE engines' window and chunk group are profiled on every
             # run: their phases serve no spec, KV-motion or restore phase
             if profiling or engine.cfg.n_experts:

@@ -38,8 +38,13 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     # the scan reaches every module: the int8 path's, the kvwire format
     # and host tier with the modules they extend, and the checkpoint layer
     # (the weight format and the runner and worker subpackages), and the
-    # MoE decoder with its presets, and the LoRA and train layers
+    # MoE decoder with its presets, and the LoRA and train layers, and the
+    # multi-GPU layer (the planner, feasibility, policies, the layout)
     for module in ("models/moe.py", "models/mixtral.py", "models/lora.py",
+                   "types.py", "serving/feasibility.py",
+                   "serving/shard/__init__.py", "serving/shard/plan.py",
+                   "serving/shard/policy.py", "parallel/__init__.py",
+                   "parallel/sharding.py",
                    "train/optim.py", "train/trainer.py", "train/__init__.py",
                    "ops/quant.py", "serving/kvwire.py", "serving/kvpool.py",
                    "serving/paged_kv.py", "serving/schedule.py",
@@ -56,7 +61,9 @@ def test_importing_the_serving_stack_loads_no_jax():
     code = ("import sys, tpu9_torch.serving.presets, tpu9_torch.bridge, "
             "tpu9_torch.serving.kvwire, tpu9_torch.runner.ckpt, "
             "tpu9_torch.worker.weightstream, "
-            "tpu9_torch.observability.coldstart, tpu9_torch.train; "
+            "tpu9_torch.observability.coldstart, tpu9_torch.train, "
+            "tpu9_torch.serving.shard, tpu9_torch.serving.feasibility, "
+            "tpu9_torch.parallel, tpu9_torch.types; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -14,8 +14,14 @@ compute. Every shape follows from the static token count, and nothing here
 reads a value back to the host, so a decode window that calls this is
 captured as a CUDA graph like any other.
 
-Expert sharding (``moe_param_specs``, the ``ep`` mesh axis) waits for the
-port's multi-GPU layer (ROADMAP queue A9).
+Expert sharding: ``moe_param_specs`` puts the expert stacks' leading
+axis on a mesh axis (tp on a serving policy) with the router replicated,
+and ``moe_ffn(..., rank=(r, n))`` runs rank r's ``E/n`` experts of the
+stack it is given. Routing, the capacity and every (token, slot)
+position are computed over all experts from the call's total token
+count, on every rank alike; a rank dispatches and combines only the pairs
+routed to its experts, so the ranks' outputs sum to the unsharded
+output.
 """
 
 from __future__ import annotations
@@ -62,6 +68,28 @@ def init_moe_layer(cfg: MoeConfig, generator: torch.Generator,
             "w_down": dense((e, h, d), (h, d))}
 
 
+def moe_param_specs(params: Params, axis: str = "ep") -> Params:
+    """Partition specs: the router replicated, the expert stacks sharded on
+    their leading expert axis over ``axis``; an int8 stack
+    (``{q: [E, in, out], scale: [E, 1, out]}``) shards both planes
+    there."""
+    from ..ops.quant import is_quantized_entry
+    from ..parallel.sharding import P
+
+    def stack(leaf):
+        spec = P(axis, None, None)
+        if is_quantized_entry(leaf):
+            return {"q": spec, "scale": spec}
+        return spec
+
+    return {
+        "router": P(),
+        "w_gate": stack(params["w_gate"]),
+        "w_up": stack(params["w_up"]),
+        "w_down": stack(params["w_down"]),
+    }
+
+
 def _capacity(n_tokens: int, cfg: MoeConfig) -> int:
     """Slots per expert for a call of ``n_tokens`` tokens: static, at least
     8 and a multiple of 8."""
@@ -85,16 +113,23 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig):
+def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig,
+            rank: tuple[int, int] = (0, 1)):
     """x ``[B, T, dim]`` → (``[B, T, dim]`` in x's dtype, aux). ``aux``
     carries ``balance_loss`` (Switch §2.2: ``E · Σ_e f_e · p_e`` over the
     top-1 choices), ``dropped_frac`` (the share of (token, slot) pairs
     past capacity) and ``expert_load`` (``f_e``). The capacity comes from
     ``B·T``, so a token's output depends on the call's shape and on the
-    tokens before it, as in the reference."""
+    tokens before it, as in the reference.
+
+    ``rank=(r, n)``: ``params`` holds experts ``[r·E/n, (r+1)·E/n)`` of
+    the ``cfg.n_experts``, and the output is their share of the FFN (the
+    n ranks' outputs sum to the whole); aux is every rank's alike."""
     b, t, d = x.shape
     n = b * t
     e, k = cfg.n_experts, cfg.top_k
+    r, n_ranks = rank
+    e_loc = e // n_ranks
     c = _capacity(n, cfg)
     xf = x.reshape(n, d)
 
@@ -109,24 +144,29 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig):
     pos = (flat.cumsum(0) - flat).gather(1, gate_idx.reshape(n * k, 1))
     pos = pos.reshape(n, k)
     in_cap = pos < c
+    keep, local = in_cap, gate_idx
+    if n_ranks > 1:
+        # this rank's experts only; the other pairs are other ranks' work
+        keep = in_cap & (gate_idx // e_loc == r)
+        local = gate_idx - r * e_loc
     # row of each pair in the flattened [E*C] buffers; dropped pairs go to
     # one extra row past the end, which is cut off and reads back as zero
-    dest = torch.where(in_cap, gate_idx * c + pos,
-                       torch.full_like(pos, e * c)).reshape(n * k)
+    dest = torch.where(keep, local * c + pos,
+                       torch.full_like(pos, e_loc * c)).reshape(n * k)
 
     # -- dispatch, expert compute, combine ------------------------------------
     xk = xf.to(cfg.dtype).repeat_interleave(k, dim=0)             # [N*k, d]
-    xe = xf.new_zeros((e * c + 1, d), dtype=cfg.dtype).index_put(
-        (dest,), xk)[:e * c].reshape(e, c, d)
+    xe = xf.new_zeros((e_loc * c + 1, d), dtype=cfg.dtype).index_put(
+        (dest,), xk)[:e_loc * c].reshape(e_loc, c, d)
     h = maybe_einsum("ecd,edh->ech", xe, params["w_gate"])
     h = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
     h = h * maybe_einsum("ecd,edh->ech", xe, params["w_up"])
     ye = maybe_einsum("ech,ehd->ecd", h, params["w_down"])        # [E, C, d]
-    rows = torch.cat([ye.reshape(e * c, d), ye.new_zeros((1, d))])[dest]
+    rows = torch.cat([ye.reshape(e_loc * c, d), ye.new_zeros((1, d))])[dest]
     # the gates are rounded to cfg.dtype before the combine, as the
     # reference casts its combine tensor; the k products then sum in f32
     # and round once
-    gates = (gate_vals * in_cap).to(cfg.dtype).float()
+    gates = (gate_vals * keep).to(cfg.dtype).float()
     out = (gates.reshape(n, k, 1) * rows.reshape(n, k, d).float()).sum(1)
 
     # -- aux: load balance and router stats ------------------------------------

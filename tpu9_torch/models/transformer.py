@@ -13,7 +13,9 @@ dense decode, paged decode and the paged speculative verify, without
 grad. KV writes go into the cache tensors in place where the JAX graphs
 donated the buffer. ``decoder_core`` is the same forward under the
 caller's grad mode, with per-layer activation checkpointing (``remat``):
-the train step's forward (``tpu9_torch/train``).
+the train step's forward (``tpu9_torch/train``). Both run the layers rank
+by rank over tp rank shards (``parallel/sharding.py``), a plain tree
+being one rank.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from ..ops.attention import (attention, chunk_prefill_attention,
 from ..ops.norms import rms_norm
 from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
+from ..parallel.sharding import (RankLayout, RankParams, gather_leaf,
+                                 rank_layout, ranks, reduce_partials,
+                                 to_device)
 from .moe import MoeConfig, init_moe_layer, moe_ffn
 
 Params = dict[str, Any]
@@ -75,12 +80,17 @@ def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
 
 
 def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
-                 device) -> Params:
+                 device, emit=None) -> Params:
     """Random params drawn from ``generator`` on ``device`` (the generator
     must live on that device). The draws differ from ``jax.random``; tests
     convert JAX params with ``params_from_jax`` instead. On ``"meta"``,
     with ``generator=None``, nothing is drawn: the tree of shapes and
-    dtypes compile-ahead builds on (``presets.params_spec``)."""
+    dtypes compile-ahead builds on (``presets.params_spec``). Each
+    top-level part (``"embed"``, ``"final_norm"``, ``"lm_head"``,
+    ``"layers/<i>"``) goes through ``emit(name, part)`` as soon as it is
+    drawn and the tree keeps what that returns: a load that binds each
+    part into rank shards never holds the whole tree."""
+    emit = emit or (lambda name, part: part)
     dt = cfg.dtype
 
     def norm_weight():
@@ -89,12 +99,14 @@ def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
 
     embed = torch.randn((cfg.vocab_size, cfg.dim), generator=generator,
                         dtype=torch.float32, device=device)
-    params: Params = {"embed": embed.mul_(0.02).to(dt),
-                      "final_norm": norm_weight(), "layers": []}
+    embed = embed.mul_(0.02).to(dt)
+    params: Params = {"embed": emit("embed", embed)}
     del embed
+    params["final_norm"] = emit("final_norm", norm_weight())
+    params["layers"] = []
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense_init(generator, cfg.dim, cfg.vocab_size,
-                                        dt, device)
+        params["lm_head"] = emit("lm_head", _dense_init(
+            generator, cfg.dim, cfg.vocab_size, dt, device))
     q_dim = cfg.n_heads * cfg.head_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim
     for _ in range(cfg.n_layers):
@@ -113,7 +125,9 @@ def init_decoder(cfg: DecoderConfig, generator: torch.Generator,
                                         dt, device)
             layer["w_down"] = _dense_init(generator, cfg.hidden_dim, cfg.dim,
                                           dt, device)
-        params["layers"].append(layer)
+        params["layers"].append(emit(f"layers/{len(params['layers'])}",
+                                     layer))
+        del layer
     return params
 
 
@@ -150,12 +164,13 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
-                positions: torch.Tensor, sin, cos,
-                kv_cache: Optional[Params], layer_idx: int,
-                cache_len: Optional[torch.Tensor], decode: bool):
-    b, t, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
+def _attention(layer: Params, h: torch.Tensor, cfg: DecoderConfig,
+               positions: torch.Tensor, sin, cos,
+               kv_cache: Optional[Params], layer_idx: int,
+               cache_len: Optional[torch.Tensor], decode: bool):
+    """Attention of the normed input ``h`` through ``wo``, without the
+    residual: on a rank shard, that rank's partial sum."""
+    b, t, _ = h.shape
     q = maybe_matmul(h, layer["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = maybe_matmul(h, layer["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     v = maybe_matmul(h, layer["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
@@ -175,7 +190,7 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         v_pool = kv_cache["v"][layer_idx]
         bs = k_pool.shape[1]
         pos = positions[:, 0].long()                     # [B]
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=h.device)
         bi = table[rows, pos // bs].long()
         oi = pos % bs
         # in place: the JAX decode graph donated the pool to this write
@@ -224,7 +239,7 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         k_cache = kv_cache["k"][layer_idx]               # [B, S, KH, D]
         v_cache = kv_cache["v"][layer_idx]
         pos = positions[:, 0].long().clamp(0, k_cache.shape[1] - 1)
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=h.device)
         k_cache[rows, pos] = k[:, 0]
         v_cache[rows, pos] = v[:, 0]
         out = decode_attention(q, k_cache, v_cache, cache_len)
@@ -233,7 +248,7 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         # attend over prefix + chunk with the absolute-position mask
         k_cache = kv_cache["k"][layer_idx]               # [B, S, KH, D]
         v_cache = kv_cache["v"][layer_idx]
-        rows = torch.arange(b, device=x.device)[:, None]
+        rows = torch.arange(b, device=h.device)[:, None]
         idx = positions.long()
         # in place: the JAX chunk graph donated the scratch to this write
         k_cache[rows, idx] = k
@@ -248,28 +263,45 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
         out = attention(q, k, v, causal=True)
 
     out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + maybe_matmul(out, layer["wo"])
+    return maybe_matmul(out, layer["wo"])
 
 
-def _mlp_block(layer: Params, x: torch.Tensor, cfg: DecoderConfig):
-    """The FFN with its residual; returns (x, the MoE aux or None)."""
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+def _ffn(layer: Params, h: torch.Tensor, cfg: DecoderConfig,
+         rank: tuple[int, int] = (0, 1)):
+    """The FFN of the normed input ``h``, without the residual; returns
+    (y, the MoE aux or None). ``rank`` names a MoE rank shard's experts
+    (``moe_ffn``); a dense rank shard needs none: its columns are its
+    own."""
     if cfg.n_experts:
-        y, aux = moe_ffn(layer["moe"], h, _moe_cfg(cfg))
-        return x + y, aux
+        return moe_ffn(layer["moe"], h, _moe_cfg(cfg), rank=rank)
     gated = (_act(maybe_matmul(h, layer["w_gate"]), cfg.act)
              * maybe_matmul(h, layer["w_up"]))
-    return x + maybe_matmul(gated, layer["w_down"]), None
+    return maybe_matmul(gated, layer["w_down"]), None
+
+
 
 
 def lm_logits(params: Params, x: torch.Tensor,
               cfg: DecoderConfig) -> torch.Tensor:
     """The output head: final-norm hidden [..., dim] → f32 logits [..., V]
-    (tied or separate head, soft-capped where the config says so)."""
-    if cfg.tie_embeddings:
-        logits = (x @ params["embed"].T.to(cfg.dtype)).float()
+    (tied or separate head, soft-capped where the config says so). On a
+    :class:`RankParams` whose layout splits the head, each rank's column
+    shard gives its slice of the vocabulary, gathered along V on rank 0's
+    device; a tied or unsplit head runs once, on x's device."""
+    if isinstance(params, RankParams) and params.layout.head:
+        devs = params.devices
+        parts = [maybe_matmul(to_device(x, dev),
+                              gather_leaf(shard["lm_head"], dev)).float()
+                 for shard, dev in zip(params, devs)]
+        logits = torch.cat([to_device(p, devs[0]) for p in parts], dim=-1)
     else:
-        logits = maybe_matmul(x, params["lm_head"]).float()
+        head = ranks(params)[0]
+        if cfg.tie_embeddings:
+            embed = gather_leaf(head["embed"], x.device)
+            logits = (x @ embed.T.to(cfg.dtype)).float()
+        else:
+            logits = maybe_matmul(
+                x, gather_leaf(head["lm_head"], x.device)).float()
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -288,12 +320,27 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                         decode, rope, return_hidden, return_moe_aux)
 
 
-def _layer(layer: Params, x: torch.Tensor, cfg: DecoderConfig,
-           positions: torch.Tensor, sin, cos, kv_cache: Optional[Params],
-           layer_idx: int, cache_len: Optional[torch.Tensor], decode: bool):
-    x = _attn_block(layer, x, cfg, positions, sin, cos, kv_cache, layer_idx,
-                    cache_len, decode)
-    return _mlp_block(layer, x, cfg)
+def _layer(layers: list, x: torch.Tensor, cfg: DecoderConfig, rcfg,
+           lay: RankLayout, devs: list, on: list, kvs: list, layer_idx: int,
+           decode: bool):
+    """One layer over the ranks: ``layers[r]`` is rank r's layer on
+    ``devs[r]``, ``on[r]`` its (positions, sin, cos, cache_len) and
+    ``kvs[r]`` its KV shard. Returns (x, the MoE aux or None)."""
+    dev0 = devs[0]
+    attn_ranks = range(len(devs)) if lay.attn_split else range(1)
+    ffn_ranks = range(len(devs)) if lay.ffn else range(1)
+    h = rms_norm(x, layers[0]["attn_norm"], cfg.norm_eps, cfg.norm_offset)
+    parts = [_attention(layers[r], to_device(h, devs[r]),
+                        rcfg if lay.attn_split else cfg, on[r][0], on[r][1],
+                        on[r][2], kvs[r], layer_idx, on[r][3], decode)
+             for r in attn_ranks]
+    x = x + reduce_partials(parts, dev0)
+    h = rms_norm(x, layers[0]["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+    outs = [_ffn(layers[r], to_device(h, devs[r]), rcfg if lay.ffn else cfg,
+                 rank=(r, len(ffn_ranks)))
+            for r in ffn_ranks]
+    x = x + reduce_partials([y for y, _ in outs], dev0)
+    return x, outs[0][1]
 
 
 def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
@@ -326,18 +373,43 @@ def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     averaged over the layers (an f32 scalar, 0 for a dense model) to what
     is returned.
 
+    The layers run rank by rank (``parallel.sharding``): a plain tree is
+    one rank, a :class:`RankParams` tp rank shards with ``kv_cache`` their
+    :class:`Ranked` KV shards. The residual stream lives on rank 0's
+    device. Each block is normed there once; a split block then runs on
+    each rank's device and config (its q and kv heads, its FFN columns or
+    experts, its KV shard), and the partial sums are reduced onto rank 0's
+    device (:func:`reduce_partials`) before the residual is added: one
+    reduction after ``wo`` and one after ``w_down`` or the expert combine.
+    A block the layout replicates runs once, on rank 0. Routing is each
+    rank's own (the same f32 arithmetic on the same input), and the MoE
+    capacity follows the call's total token count on every rank. The
+    logits are gathered along V (:func:`lm_logits`). Over one rank every
+    copy and gather is the identity and the reduction is the partial
+    itself.
+
     ``remat`` checkpoints each layer of the no-cache forward
     (``torch.utils.checkpoint``, non-reentrant): under grad a layer keeps
     only its input and runs again in the backward, the reference's remat
-    on the layer boundary. Only the no-cache forward carries a gradient.
+    on the layer boundary. Only the no-cache forward carries a gradient,
+    and only over a plain tree.
     """
     if remat and kv_cache is not None:
         raise ValueError("remat applies to the no-cache forward only")
+    if remat and isinstance(params, RankParams):
+        raise ValueError("rank shards serve; the sharded train step is not "
+                         "ported")
+    shards = ranks(params)
+    if isinstance(params, RankParams):
+        devs, lay = params.devices, params.layout
+    else:
+        devs, lay = [params["embed"].device], rank_layout(cfg, 1)
+    dev0 = devs[0]
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, device=tokens.device).expand(b, t)
 
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = gather_leaf(shards[0]["embed"], dev0)[tokens.long()].to(cfg.dtype)
     if cfg.embed_scale:
         # a Python scalar, so no host-to-device copy (a CUDA-graph capture
         # refuses one): sqrt(dim) rounded to cfg.dtype first, as the JAX
@@ -346,21 +418,27 @@ def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
     # the rope table must cover every cache slot: a position past it would
     # rotate wrongly (or fault), so catch the shape mismatch up front
-    rope_len = cfg.max_seq_len
-    if kv_cache is not None and "table" not in kv_cache:
-        cache_s = kv_cache["k"].shape[2]
-        if cache_s > rope_len:
+    kvs = ranks(kv_cache) if kv_cache is not None else [None] * len(devs)
+    if kvs[0] is not None and "table" not in kvs[0]:
+        cache_s = kvs[0]["k"].shape[2]
+        if cache_s > cfg.max_seq_len:
             raise ValueError(
                 f"kv cache length {cache_s} exceeds rope table "
-                f"{rope_len} — positions past it would alias")
+                f"{cfg.max_seq_len} — positions past it would alias")
     if rope is None:
-        rope = rope_table(rope_len, cfg.head_dim, cfg.rope_theta, x.device)
-    sin, cos = rope
+        rope = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
+                          dev0)
+    rcfg = lay.rank_config(cfg)
+    # what each rank reads, on its device (no copy where it is rank 0's)
+    on = [tuple(to_device(a, d) for a in (positions, *rope, cache_len))
+          for d in devs]
 
     balances = []
-    for i, layer in enumerate(params["layers"]):
-        args = (layer, x, cfg, positions, sin, cos, kv_cache, i, cache_len,
-                decode)
+    for i in range(len(shards[0]["layers"])):
+        layers = [{k: gather_leaf(v, d) for k, v in
+                   shards[r]["layers"][i].items()}
+                  for r, d in enumerate(devs)]
+        args = (layers, x, cfg, rcfg, lay, devs, on, kvs, i, decode)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_layer, *args, use_reentrant=False)
         else:
@@ -368,13 +446,14 @@ def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         if aux is not None:
             balances.append(aux["balance_loss"])
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
+    x = rms_norm(x, gather_leaf(shards[0]["final_norm"], dev0), cfg.norm_eps,
+                 cfg.norm_offset)
     out = x if return_hidden else lm_logits(params, x, cfg)
     ret = (out,) if kv_cache is None else (out, kv_cache)
     if return_moe_aux:
         # summed layer by layer from zero, in the reference's order
-        balance = torch.zeros((), dtype=torch.float32, device=x.device)
+        balance = torch.zeros((), dtype=torch.float32, device=dev0)
         for layer_balance in balances:
-            balance = balance + layer_balance
+            balance = balance + to_device(layer_balance, dev0)
         ret += (balance / max(cfg.n_layers, 1),)
     return ret if len(ret) > 1 else out

@@ -171,7 +171,8 @@ def _random_quantized_stacked(gen: torch.Generator, n_experts: int,
     return {"q": q, "scale": scale.mul_(0.4).add_(0.8).mul_(std / 73.0)}
 
 
-def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
+def init_quantized_decoder(cfg, generator: torch.Generator, device,
+                           emit=None) -> Params:
     """An ``init_decoder``-shaped tree with int8 projections drawn on
     ``device`` from ``generator`` (which must live there): the paths,
     shapes and dtypes of the JAX ``init_quantized_decoder``. The draws
@@ -179,7 +180,9 @@ def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
     ``params_from_jax`` instead. On ``"meta"``, with ``generator=None``,
     nothing is drawn: the abstract tree of ``presets.params_spec``. A MoE
     config gets per-expert int8 stacks under ``layer["moe"]`` beside an f32
-    router, as ``init_moe_layer`` lays them out."""
+    router, as ``init_moe_layer`` lays them out. ``emit`` takes each
+    top-level part as it is drawn, as ``init_decoder``'s does."""
+    emit = emit or (lambda name, part: part)
 
     def norm_weight():
         return torch.ones((cfg.dim,), dtype=torch.float32,
@@ -187,12 +190,14 @@ def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
 
     embed = torch.randn((cfg.vocab_size, cfg.dim), generator=generator,
                         dtype=torch.float32, device=device)
-    params: Params = {"embed": embed.mul_(0.02).to(cfg.dtype),
-                      "final_norm": norm_weight(), "layers": []}
+    embed = embed.mul_(0.02).to(cfg.dtype)
+    params: Params = {"embed": emit("embed", embed)}
     del embed
+    params["final_norm"] = emit("final_norm", norm_weight())
+    params["layers"] = []
     if not cfg.tie_embeddings:
-        params["lm_head"] = _random_quantized(generator, cfg.dim,
-                                              cfg.vocab_size, device)
+        params["lm_head"] = emit("lm_head", _random_quantized(
+            generator, cfg.dim, cfg.vocab_size, device))
     q_dim = cfg.n_heads * cfg.head_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim
     for _ in range(cfg.n_layers):
@@ -221,7 +226,9 @@ def init_quantized_decoder(cfg, generator: torch.Generator, device) -> Params:
                                               cfg.hidden_dim, device)
             layer["w_down"] = _random_quantized(generator, cfg.hidden_dim,
                                                 cfg.dim, device)
-        params["layers"].append(layer)
+        params["layers"].append(emit(f"layers/{len(params['layers'])}",
+                                     layer))
+        del layer
     return params
 
 

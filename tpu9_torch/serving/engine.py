@@ -51,7 +51,15 @@ tree (``abstract_params``: ``device="meta"`` leaves) gives every leaf
 zero-filled storage on its device, ``precompile()`` builds and captures
 every serving computation over it, and ``bind_params`` then copies the real
 weights into that storage in place, so every captured window reads them.
-Sharding is not ported (ROADMAP queue A).
+
+Multi-GPU serving goes through a sharding policy
+(``InferenceEngine(..., policy=)``, ``shard/policy.py``), as the
+reference's engine: every device placement below routes through it. The
+identity policy (the default) leaves this engine as it was; a
+``MeshPolicy`` holds the weights as tp × fsdp rank shards and the KV state
+as one head shard per rank, one process driving every rank. The host
+logic (slots, the allocator, the prefix cache, admission, windows) does
+not see the topology.
 """
 
 from __future__ import annotations
@@ -67,10 +75,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..models.transformer import DecoderConfig, init_kv_cache
+from ..models.transformer import DecoderConfig
 from ..observability.metrics import Metrics
 from ..ops.quant import validate_quant_mode
 from ..ops.sampling import sample_logits
+from ..parallel.sharding import (RankParams, map_leaves, named_leaves,
+                                 per_rank, ranks)
 from ..utils.platform import (default_device, env_kv_host_pool_mb,
                               env_kv_tier_on, host_to_device)
 from .flight import FlightRecorder
@@ -78,6 +88,7 @@ from .graphs import GraphFactory, WindowState
 from .kvpool import KvPool, PoolExhausted
 from .paged_kv import PrefixCache, blocks_for
 from .schedule import WindowScheduler
+from .shard.policy import SingleDevicePolicy
 from .spec import build_drafts, make_slot_state
 
 Params = dict[str, Any]
@@ -94,7 +105,7 @@ def abstract_params(tree: Any) -> Any:
     same shapes and dtypes (the reference's ``jax.ShapeDtypeStruct`` tree):
     all an engine needs to be built and precompiled before its weights
     exist (:meth:`InferenceEngine.bind_params`)."""
-    return _map_leaves(
+    return map_leaves(
         lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
 
 
@@ -195,16 +206,34 @@ class InferenceEngine:
 
     def __init__(self, params: Params, cfg: DecoderConfig,
                  engine_cfg: EngineConfig = EngineConfig(), device=None,
-                 tracer=None):
-        self.device = default_device(device)
+                 tracer=None, policy=None):
+        if policy is None:
+            policy = SingleDevicePolicy(device)
+        elif device is not None \
+                and default_device(device) != policy.device:
+            raise ValueError(f"device {device} is not the policy's rank-0 "
+                             f"device {policy.device}")
+        self.policy = policy
+        self.device = policy.device
+        tp = policy.topology.tp
+        if tp > 1 and cfg.n_kv_heads % tp:
+            # the pool shards on the head axis: a tp that does not divide
+            # the kv heads would need every kv head on several ranks
+            raise ValueError(
+                f"tp={tp} does not divide n_kv_heads={cfg.n_kv_heads}: the "
+                f"paged KV pool shards on the kv head axis (plan the "
+                f"topology with candidate_topologies)")
         if all(t.is_meta for t in _tensor_leaves(params)):
             # compile-ahead: zeros, not torch.empty, since the captures run
             # a forward over this storage, and garbage weights could write
             # NaN into the pool's trash block
-            params = _map_leaves(
-                lambda t: torch.zeros(t.shape, dtype=t.dtype,
-                                      device=self.device), params)
-        _check_on_device(params, self.device)
+            params = policy.materialize(policy.abstract(params, cfg))
+        else:
+            # raw weights route through the policy here, not only in
+            # load_engine: a mesh engine never serves a tree it did not
+            # place
+            params = policy.place_params(params, cfg)
+        policy.check_placed(params)
         self.tracer = tracer
         self.cfg = cfg
         self.ecfg = engine_cfg
@@ -237,16 +266,16 @@ class InferenceEngine:
             if not env_kv_tier_on() or engine_cfg.prefix_cache_blocks <= 0:
                 host_mb = 0
             self.pool = KvPool(cfg, engine_cfg, self.device, self.kv_quant,
-                               host_pool_mb=host_mb)
+                               host_pool_mb=host_mb, policy=policy)
             self.kv_cache = self.pool.init_arrays()
             self.allocator = self.pool.allocator
             self.prefix_cache = self.pool.prefix_cache
             # batch-1 dense scratch the chunked prefill writes through
             # before its blocks are spliced into the pool
-            self._scratch = init_kv_cache(cfg, 1, s, device=self.device)
+            self._scratch = policy.init_kv_cache(cfg, 1, s)
         else:
             self.pool = self.allocator = self.prefix_cache = None
-            self.kv_cache = init_kv_cache(cfg, b, s, device=self.device)
+            self.kv_cache = policy.init_kv_cache(cfg, b, s)
         # the decode window's device state: owned here at fixed addresses
         # (a captured window replays them) and only written in place
         self.cache_len = torch.zeros((b,), dtype=torch.int32,
@@ -277,7 +306,8 @@ class InferenceEngine:
             window=WindowState(params, self.kv_cache, self.last_token,
                                self.cache_len, self._active_dev, self._toks,
                                self._gen, self._drafts, self._spec_out,
-                               self._n_acc))
+                               self._n_acc),
+            policy=policy)
         self.scheduler = WindowScheduler(self)
         # dense prefill buckets, clamped to the cache: a bucket wider than
         # max_seq_len would splice past the slot's lanes
@@ -346,12 +376,19 @@ class InferenceEngine:
         # (monotonic, tokens_generated) pairs appended by stats()
         self._tps_window: list = []
         # decode physics per generated token: every step reads the whole
-        # weight tree (KV bytes left out, as the reference does)
-        weights = list(_tensor_leaves(self.params))
-        wb = sum(t.numel() * t.element_size() for t in weights)
-        self._phys_bytes_per_token_per_chip = wb
-        self._phys_flops_per_token_per_chip = 2.0 * sum(t.numel()
-                                                        for t in weights)
+        # weight tree (KV bytes left out, as the reference does), divided
+        # over the cards as the shards divide it
+        n_chips = self.policy.topology.n_chips
+        if isinstance(self.params, RankParams):
+            wb = self.params.global_nbytes
+            numel = self.params.global_numel
+        else:
+            weights = list(_tensor_leaves(self.params))
+            wb = sum(t.numel() * t.element_size() for t in weights)
+            numel = sum(t.numel() for t in weights)
+        self._phys_bytes_per_token_per_chip = wb / n_chips \
+            if n_chips > 1 else wb
+        self._phys_flops_per_token_per_chip = 2.0 * numel / n_chips
         self._device_kind = (torch.cuda.get_device_name(self.device)
                              if self.device.type == "cuda" else "cpu")
         # liveness watermark for the runner's watchdog
@@ -362,14 +399,23 @@ class InferenceEngine:
         # from the trees this engine holds (weights, KV, scratch); the
         # card's capacity read once
         self._hbm_peak_gb = 0.0
-        kv = list(_tensor_leaves(self.kv_cache))
-        if self.paged:
-            kv += list(_tensor_leaves(self._scratch))
-        kvb = sum(t.numel() * t.element_size() for t in kv)
-        self.hbm_predicted_gb_per_chip = round((wb + kvb) / 1e9, 3)
-        self._hbm_limit_gb = (round(torch.cuda.get_device_properties(
-            self.device).total_memory / 1e9, 3)
-            if self.device.type == "cuda" else 0.0)
+        # the busiest device's share, from where the trees were placed:
+        # each device's weight shards and the KV state of the ranks on it,
+        # a tensor that several ranks share counted once
+        held: dict = {}
+        seen: set = set()
+        rank_devs = [dev for dev, _ in self.policy.rank_specs(self.cfg)]
+        kv_trees = [self.kv_cache] + ([self._scratch] if self.paged else [])
+        placed = list(self.policy.placed_tensors(self.params))
+        for tree in kv_trees:
+            placed += [(t, dev) for dev, kv in zip(rank_devs, ranks(tree))
+                       for t in _tensor_leaves(kv)]
+        for t, dev in placed:
+            if id(t) not in seen:
+                seen.add(id(t))
+                held[dev] = held.get(dev, 0) + t.numel() * t.element_size()
+        self.hbm_predicted_gb_per_chip = round(max(held.values()) / 1e9, 3)
+        self._hbm_limit_gb = self.policy.hbm_limit_gb_per_chip()
         # black box: the serve loop's failure handler leaves its forensic
         # record here for the runner to ship
         self.last_postmortem: Optional[dict] = None
@@ -385,7 +431,7 @@ class InferenceEngine:
     def _pool_dict(self) -> dict:
         keys = ("k", "v", "k_scale", "v_scale") if self.kv_quant \
             else ("k", "v")
-        return {k: self.kv_cache[k] for k in keys}
+        return per_rank(lambda kv: {k: kv[k] for k in keys}, self.kv_cache)
 
     def _worst_case_tokens(self, req: _Request) -> int:
         # prompt + generation budget + in-flight overshoot slack, clamped
@@ -447,15 +493,27 @@ class InferenceEngine:
             self.pool.mb if self.paged else 0,
             self._buckets, self._spec_lens)
 
-    def bind_params(self, params: Params) -> None:
+    def bind_params(self, params: Params, part: Optional[str] = None) -> None:
         """Copy ``params`` into the engine's param storage in place: every
         path, shape and dtype must equal the storage's, or this raises
         naming the first that differs, before anything is written. No
         entry of ``self.params`` is rebound (every captured window reads
         their addresses), so each ``data_ptr`` is the same after as before.
-        Returns once the copies have run."""
-        have = dict(_named_leaves(self.params))
-        got = dict(_named_leaves(params))
+        Returns once the copies have run. A mesh engine takes the full
+        tree (or its rank shards) and copies each shard's slice into that
+        shard's storage, paths named by rank (``0/layers/0/wq``). With
+        ``part`` (``"embed"``, ``"final_norm"``, ``"lm_head"`` or
+        ``"layers/<i>"``, as ``parallel.sharding.tree_parts`` names them)
+        ``params`` is that one part of the full tree, and only its storage
+        is checked and written: a load binds part by part as it draws,
+        never holding the whole tree (``presets.load_engine``)."""
+        have = dict(named_leaves(self.params))
+        if part is not None:
+            roots = self.policy.part_paths(part)
+            have = {path: t for path, t in have.items()
+                    if any(path == root or path.startswith(root + "/")
+                           for root in roots)}
+        got = self.policy.bind_leaves(params, self.cfg, part)
         for path, t in have.items():
             src = got.get(path)
             if src is None:
@@ -472,8 +530,9 @@ class InferenceEngine:
         with torch.no_grad():
             for path, t in have.items():
                 t.copy_(got[path])
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for dev in self.policy.distinct_devices():
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def note_group_bound(self, group: str, total: int) -> None:
         """One weight group of a streaming restore has been bound: recorded
@@ -530,7 +589,7 @@ class InferenceEngine:
             self.graphs.dense_splice_fn(bucket)(
                 self.kv_cache["k"], self.kv_cache["v"], cache["k"],
                 cache["v"], 0)
-            self._sync(self.kv_cache["k"][0, 0, 0])
+            self._sync(self.kv_cache["k"])
             timings[f"dsplice_{bucket}_s"] = time.perf_counter() - t0
 
     def _warmup_paged(self, timings: dict) -> None:
@@ -564,7 +623,8 @@ class InferenceEngine:
 
     @staticmethod
     def _sync(t: torch.Tensor) -> None:
-        t.reshape(-1)[:1].cpu()
+        for part in ranks(t):
+            part.reshape(-1)[:1].cpu()
 
     def cancel_request(self, req: _Request) -> None:
         """Abandon a request (client disconnected mid-stream): a waiting
@@ -823,11 +883,11 @@ class InferenceEngine:
         out["decode_flops_per_token_per_chip"] = \
             self._phys_flops_per_token_per_chip
         out["device_kind"] = self._device_kind
-        # one card: no tensor or fsdp sharding yet (queue A9)
-        out["topo_tp"] = out["topo_fsdp"] = out["topo_n_chips"] = 1
-        out["hbm_used_gb_per_chip"] = (
-            round(torch.cuda.memory_allocated(self.device) / 1e9, 3)
-            if self.device.type == "cuda" else 0.0)
+        topo = self.policy.describe()
+        out["topo_tp"] = topo["tp"]
+        out["topo_fsdp"] = topo["fsdp"]
+        out["topo_n_chips"] = topo["n_chips"]
+        out["hbm_used_gb_per_chip"] = self.policy.hbm_used_gb_per_chip()
         out["windows_processed"] = self._windows_processed
         out["last_dispatch_age_s"] = (
             round(now_m - self._last_dispatch_mono, 3)
@@ -965,8 +1025,10 @@ class InferenceEngine:
             attrs={"request_id": req.request_id,
                    "prompt_tokens": len(req.prompt),
                    "max_new_tokens": req.max_new_tokens,
-                   # one card: the reference's submesh attributes
-                   "tp": 1, "n_chips": 1})
+                   # which submesh served this request, as the
+                   # reference's
+                   "tp": self.policy.topology.tp,
+                   "n_chips": self.policy.topology.n_chips})
         req.span_id = req.span.span_id
         # backdated to the enqueue: the request span covers queue wait,
         # prefill and every decode window
@@ -1025,6 +1087,11 @@ class InferenceEngine:
                "tokens": win.delivered or {},
                "wait_s": round(max(t_host0 - win.t_mono, 0.0), 6),
                "host_s": round(max(now_m - t_host0, 0.0), 6)}
+        topo = self.policy.topology
+        if topo.n_chips > 1:
+            # the submesh on multi-rank records only: a 1x1 record stays
+            # the single-card engine's, as in the reference
+            rec.update(tp=topo.tp, n_chips=topo.n_chips)
         if win.kind == "verify":
             prop, acc = win.spec_stats or (0, 0)
             rec.update(spec_proposed=prop, spec_accepted=acc,
@@ -1810,41 +1877,7 @@ def _to_host(*tensors: torch.Tensor):
     return tuple(hosts), ready
 
 
-def _named_leaves(tree, path: str = ""):
-    """Every ``(path, tensor)`` in a tree of dicts and lists (a param
-    tree, a cache), paths as the ``.tpu9w`` index keys them."""
-    if isinstance(tree, torch.Tensor):
-        yield path, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _named_leaves(v, f"{path}/{k}".lstrip("/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _named_leaves(v, f"{path}/{i}".lstrip("/"))
-
-
 def _tensor_leaves(tree):
     """Every tensor in a tree of dicts and lists (a param tree, a cache)."""
-    for _, t in _named_leaves(tree):
+    for _, t in named_leaves(tree):
         yield t
-
-
-def _map_leaves(fn, tree):
-    """``fn`` of every tensor in a tree of dicts and lists, in the tree's
-    shape (lists for tuples, as the bridge builds them)."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_leaves(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _check_on_device(params, device: torch.device) -> None:
-    """Refuse a param tree with a leaf off ``device`` (a restored tree left
-    on the host, say) at construction, naming the leaf, instead of failing
-    at the first matmul."""
-    for path, t in _named_leaves(params):
-        if t.device.type != device.type or (
-                device.index is not None and t.device.index != device.index):
-            raise ValueError(f"param {path} is on {t.device}, the engine on "
-                             f"{device}: move the tree there first")

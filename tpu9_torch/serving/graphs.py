@@ -24,6 +24,14 @@ inactive run, ``precompile`` builds and runs each of them (capturing the
 windows on the card) and seals, and ``reachable_keys`` is the set the serve
 loop can request, which the enumeration must equal. The engine runs
 ``precompile`` over zero-filled weight storage while its weights load.
+
+Under a sharding policy (``shard/policy.py``) the params are rank shards
+and every KV tree (pool, scratch, dense cache) one tree per rank: the
+forward runs the ranks and their reductions (``models/transformer.py``),
+and the splice, gather and dense splice run rank by rank. Whether a
+window is captured is decided by the placement: with every rank on one
+device a window is one CUDA graph holding all of them; ranks on distinct
+devices run their windows eagerly.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ from ..ops.paged_attention import add_launches, captured_launches
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
+from ..parallel.sharding import ranks, to_device
 from .kvpool import KvPool
+from .shard.policy import SingleDevicePolicy
 
 Params = dict[str, Any]
 
@@ -84,15 +94,21 @@ class CapturedWindow:
 class GraphFactory:
     """The engine's computations for one (model, engine-config) pair.
     ``chunk`` is the validated chunked-prefill length (0 = dense mode);
-    ``window`` the engine's static decode state (``decode_k`` needs it)."""
+    ``window`` the engine's static decode state (``decode_k`` needs it);
+    ``policy`` the sharding policy (the identity policy on ``device`` by
+    default)."""
 
     def __init__(self, cfg, ecfg, chunk: int, device,
-                 window: WindowState | None = None):
+                 window: WindowState | None = None, policy=None):
         self.cfg = cfg
         self.ecfg = ecfg
         self.chunk = chunk
         self.device = device
         self.window = window
+        self.policy = policy or SingleDevicePolicy(device)
+        # a window is captured when every rank is on one CUDA device
+        self.captures = (torch.device(device).type == "cuda"
+                         and self.policy.one_device)
         # computed once per engine (the JAX graphs constant-fold it)
         self.rope = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                                device)
@@ -199,7 +215,7 @@ class GraphFactory:
             st.cache_len.copy_(clen)
             st.toks[:k].copy_(toks)
 
-        if self.device.type != "cuda":
+        if not self.captures:
             return window
         return self._capture(k, window)
 
@@ -269,7 +285,7 @@ class GraphFactory:
             st.out[:, :s + 1].copy_(out)
             st.n_acc.copy_(n_acc)
 
-        if self.device.type != "cuda":
+        if not self.captures:
             return window
         return self._capture(("verify", s), window)
 
@@ -323,11 +339,11 @@ class GraphFactory:
         the JAX graph computes every row's logits and slices one, which at
         bucket 2048 would be a [2048, vocab] f32 product made to keep one
         row."""
-        cfg, rope, device = self.cfg, self.rope, self.device
+        cfg, rope, policy = self.cfg, self.rope, self.policy
 
         @torch.no_grad()
         def prefill(params, tokens, length: int):
-            cache = init_kv_cache(cfg, 1, bucket, device=device)
+            cache = policy.init_kv_cache(cfg, 1, bucket)
             hidden, cache = decoder_forward(params, tokens, cfg,
                                             kv_cache=cache, rope=rope,
                                             return_hidden=True)
@@ -343,8 +359,10 @@ class GraphFactory:
         def build():
             @torch.no_grad()
             def splice(k, v, ck, cv, slot: int):
-                k[:, slot, :bucket] = ck[:, 0, :bucket]
-                v[:, slot, :bucket] = cv[:, 0, :bucket]
+                for kr, vr, ckr, cvr in zip(ranks(k), ranks(v), ranks(ck),
+                                            ranks(cv)):
+                    kr[:, slot, :bucket] = ckr[:, 0, :bucket]
+                    vr[:, slot, :bucket] = cvr[:, 0, :bucket]
                 return k, v
 
             return splice
@@ -371,16 +389,20 @@ class GraphFactory:
         """Block copy: scratch positions [offset, offset+C) → pool blocks
         phys[0..C/BS). An int8 pool quantizes each block on the way in, its
         per-vector scales landing in the scale planes at the same physical
-        index. In place: the JAX splice graph donated the pool."""
+        index. In place: the JAX splice graph donated the pool. Rank by
+        rank under a sharding policy."""
         bs = self.ecfg.kv_block_size
-        for j in range(self.chunk // bs):
-            start = offset + j * bs
-            blk = int(phys[j])
-            for name, scratch in (("k", scratch_k), ("v", scratch_v)):
-                block = scratch[:, 0, start:start + bs]     # [L,BS,KH,D]
-                if "k_scale" in pool:
-                    block, pool[f"{name}_scale"][:, blk] = quantize_kv(block)
-                pool[name][:, blk] = block
+        for pool_r, k_r, v_r in zip(ranks(pool), ranks(scratch_k),
+                                    ranks(scratch_v)):
+            for j in range(self.chunk // bs):
+                start = offset + j * bs
+                blk = int(phys[j])
+                for name, scratch in (("k", k_r), ("v", v_r)):
+                    block = scratch[:, 0, start:start + bs]  # [L,BS,KH,D]
+                    if "k_scale" in pool_r:
+                        block, pool_r[f"{name}_scale"][:, blk] = \
+                            quantize_kv(block)
+                    pool_r[name][:, blk] = block
         return pool
 
     def chunk_fn(self):
@@ -415,14 +437,17 @@ class GraphFactory:
             def gather(pool, row, scratch):
                 idx = torch.from_numpy(np.asarray(row, dtype=np.int64)).to(
                     self.device)
-                for name in ("k", "v"):
-                    g = pool[name][:, idx]                # [L, MB, BS, KH, D]
-                    if f"{name}_scale" in pool:
-                        g = dequantize_kv(g, pool[f"{name}_scale"][:, idx],
-                                          scratch[name].dtype)
-                    l_, mb, bs, kh, d = g.shape
-                    scratch[name][:, 0] = g.reshape(l_, mb * bs, kh,
-                                                    d)[:, :s]
+                for pool_r, scratch_r in zip(ranks(pool), ranks(scratch)):
+                    idx_r = to_device(idx, pool_r["k"].device)
+                    for name in ("k", "v"):
+                        g = pool_r[name][:, idx_r]        # [L, MB, BS, KH, D]
+                        if f"{name}_scale" in pool_r:
+                            g = dequantize_kv(
+                                g, pool_r[f"{name}_scale"][:, idx_r],
+                                scratch_r[name].dtype)
+                        l_, mb, bs, kh, d = g.shape
+                        scratch_r[name][:, 0] = g.reshape(l_, mb * bs, kh,
+                                                          d)[:, :s]
                 return scratch
 
             return gather
@@ -489,7 +514,7 @@ class GraphFactory:
                         np.zeros((g, c // bs), dtype=np.int32)))
         else:
             for bucket in buckets:
-                pre = init_kv_cache(self.cfg, 1, bucket, device=dev)
+                pre = self.policy.init_kv_cache(self.cfg, 1, bucket)
                 yield (bucket, lambda b=bucket: self.prefill_fn(b),
                        (params, zeros(1, bucket), 1))
                 yield (("dsplice", bucket),

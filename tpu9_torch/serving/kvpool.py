@@ -14,6 +14,13 @@ later write to those blocks is queued behind that copy on the same
 stream, so a block released right after a down-page is never overwritten
 before it was read. On a CUDA engine the host copies are pinned, so an
 up-page is one asynchronous host-to-device copy.
+
+Under a sharding policy (``shard/policy.py``) each rank holds its head
+shard of the pool, ``[L, N, BS, KH/tp, D]``, and a copy of the table on
+its device; block ids are global, so everything else here is unchanged
+host logic. Export and down-page gather the ranks' heads into canonical
+full-head planes, and import and up-page place them back by head, so a
+payload's geometry does not depend on the exporter's topology.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import Ranked, ranks, to_device
 from ..utils.platform import host_to_device
 from . import kvwire
 from .paged_kv import BlockAllocator, PrefixCache, blocks_for, kv_block_bytes
+from .shard.policy import SingleDevicePolicy
 
 Params = dict[str, Any]
 
@@ -37,11 +46,6 @@ Params = dict[str, Any]
 PEER_SPILL_SCORE = 1.0
 PEER_SPILL_HALF_LIFE_S = 300.0
 PEER_SPILL_QUEUE_MAX = 8
-
-# the payload header's informational topology: one card, the reference's
-# single-device ``policy.describe()``
-TOPOLOGY = {"tp": 1, "fsdp": 1, "n_chips": 1}
-
 
 class PoolExhausted(RuntimeError):
     """No free block even after evicting the prefix cache: an import or
@@ -148,15 +152,18 @@ class KvPool:
     """One engine's paged KV pool: the device tensors (built once by
     :meth:`init_arrays`), the block allocator and prefix cache, and the
     per-slot physical-block state the serve loop mutates. ``kv_quant``
-    makes the pool int8 with f32 scale planes."""
+    makes the pool int8 with f32 scale planes. ``policy`` places the
+    device state (one head shard per rank under a ``MeshPolicy``); by
+    default the identity policy on ``device``."""
 
     def __init__(self, cfg, ecfg, device, kv_quant: bool = False,
-                 host_pool_mb: int = 0):
+                 host_pool_mb: int = 0, policy=None):
         b, s = ecfg.max_batch, ecfg.max_seq_len
         bs = ecfg.kv_block_size
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = device
+        self.policy = policy or SingleDevicePolicy(device)
         self.kv_quant = kv_quant
         if ecfg.kv_pool_blocks:
             base_blocks = ecfg.kv_pool_blocks
@@ -187,6 +194,12 @@ class KvPool:
         self.slot_reserved = [0] * b
         self.table_np = np.zeros((b, self.mb), dtype=np.int32)
         self.table = torch.from_numpy(self.table_np.copy()).to(device)
+        # the table replicated to each device the ranks live on
+        self._tables = {torch.device(device): self.table}
+        for dev in self.policy.distinct_devices():
+            if dev not in self._tables:
+                self._tables[dev] = torch.from_numpy(
+                    self.table_np.copy()).to(dev)
         self.kv_allocs = 0           # lifetime block allocations
         # -- host-DRAM second tier; inert at 0 MB ----------------------------
         self.host_pool_mb = int(host_pool_mb)
@@ -209,19 +222,31 @@ class KvPool:
     def init_arrays(self) -> Params:
         """The pool's device state: k/v [L, N, BS, KH, D] (int8 for an
         int8 pool, with f32 k_scale/v_scale [L, N, BS, KH] indexed like the
-        payload) and the table."""
-        cfg, ecfg = self.cfg, self.ecfg
+        payload) and the table; one such tree per rank, each of its heads,
+        under a sharding policy."""
+        return self.policy.join([self._rank_arrays(dev, rc) for dev, rc
+                                 in self.policy.rank_specs(self.cfg)])
+
+    def _rank_arrays(self, device, cfg) -> Params:
+        ecfg = self.ecfg
         shape = (cfg.n_layers, self.n_blocks, ecfg.kv_block_size,
                  cfg.n_kv_heads, cfg.head_dim)
         dt = torch.int8 if self.kv_quant else cfg.dtype
-        arrays = {name: torch.zeros(shape, dtype=dt, device=self.device)
+        arrays = {name: torch.zeros(shape, dtype=dt, device=device)
                   for name in ("k", "v")}
         if self.kv_quant:
             for name in ("k_scale", "v_scale"):
                 arrays[name] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                           device=self.device)
-        arrays["table"] = self.table
+                                           device=device)
+        arrays["table"] = self._tables[torch.device(device)]
         return arrays
+
+    def plane_shape(self, name: str) -> tuple:
+        """The canonical full-head shape of pool plane ``name``."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, self.n_blocks, self.ecfg.kv_block_size,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return shape[:-1] if name.endswith("_scale") else shape
 
     def alloc_blocks(self, n: int) -> list[int]:
         """Allocate physical blocks; evicts prefix-cache holdings if the
@@ -258,12 +283,15 @@ class KvPool:
     def gather_blocks(self, kv, blocks: list[int]):
         """Queue a copy of ``blocks`` of every wire plane into host memory
         (pinned on CUDA) on the current stream, behind the work already
-        queued there. Returns the canonical planes and the CUDA event
-        after the copy (None on the CPU, where the copy is done)."""
+        queued there. Returns the canonical planes (the ranks' heads
+        joined) and the CUDA event after the copy (None on the CPU, where
+        the copy is done)."""
         idx = self._block_index(blocks)
         planes = {}
         for name in self.wire_names():
-            got = kv[name].index_select(1, idx)
+            got = self.policy.gather_heads(name, [
+                part.index_select(1, to_device(idx, part.device))
+                for part in ranks(kv[name])])
             if got.is_cuda:
                 host = torch.empty(got.shape, dtype=got.dtype,
                                    pin_memory=True)
@@ -281,7 +309,7 @@ class KvPool:
         meta = kvwire.geometry(self.cfg, self.ecfg, self.kv_quant)
         meta.update({"n_blocks": int(n_blocks), "n_tokens": int(n_tokens),
                      "prefix_key": prefix_key.hex(),
-                     "topology": dict(TOPOLOGY)})
+                     "topology": self.policy.describe()})
         return meta
 
     def export_blocks(self, kv, blocks: list[int], prefix_key: bytes,
@@ -322,7 +350,8 @@ class KvPool:
             if name not in planes:
                 raise kvwire.KvWireError(
                     f"kvwire: payload missing plane {name!r}")
-            pool_shape = tuple(kv[name].shape)
+            pool_shape = (self.plane_shape(name) if isinstance(kv, Ranked)
+                          else tuple(kv[name].shape))
             want = (pool_shape[0], nb) + pool_shape[2:]
             if tuple(planes[name].shape) != want:
                 raise kvwire.KvWireError(
@@ -346,13 +375,20 @@ class KvPool:
     def place_host_blocks(self, kv, planes: dict, blocks: list[int]) -> None:
         """Write canonical host planes into ``blocks`` of every wire plane,
         in place (one asynchronous copy from pinned memory per plane on
-        CUDA, queued on the current stream). Shared by the kvwire import
-        and the host-tier up-page."""
+        CUDA, queued on the current stream), each rank its heads. Shared
+        by the kvwire import and the host-tier up-page."""
         idx = self._block_index(blocks)
         for name in self.wire_names():
             dst = kv[name]
-            dst.index_copy_(1, idx, planes[name].to(
-                device=dst.device, dtype=dst.dtype, non_blocking=True))
+            if not isinstance(dst, Ranked):
+                dst.index_copy_(1, idx, planes[name].to(
+                    device=dst.device, dtype=dst.dtype, non_blocking=True))
+                continue
+            full = planes[name].to(device=self.device, dtype=dst[0].dtype,
+                                   non_blocking=True)
+            for part, heads in zip(dst, self.policy.split_heads(name, full)):
+                part.index_copy_(1, to_device(idx, part.device),
+                                 to_device(heads, part.device))
 
     # -- host-DRAM tier: down-page / up-page / peer spill --------------------
 
@@ -485,7 +521,9 @@ class KvPool:
         blocks = self.slot_blocks[slot]
         row[:len(blocks)] = blocks
         self.table_np[slot] = row
-        host_to_device(self.table[slot], row)
+        # every device's copy, each queued behind that device's work
+        for table in self._tables.values():
+            host_to_device(table[slot], row)
         return self.table
 
     def ensure_slot_blocks(self, slot: int, n_tokens: int) -> bool:

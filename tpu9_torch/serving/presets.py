@@ -14,6 +14,12 @@ quantized serving end to end.
 tree (``params_spec``) and precompiles it while the weights are drawn on a
 thread, then binds them in place, as the reference's ``load_engine`` does
 with the two sides swapped.
+
+``topology="2x1"`` (or ``"tp=2,fsdp=2"``, or ``TPU9_TOPOLOGY``, or the
+planner when a slice is named with ``tpu="h100-8"``) serves the preset
+sharded over tp × fsdp ranks (``shard/``); ``devices`` puts the ranks on
+given devices, repeats allowed (``["cuda:0", "cuda:0"]``: two ranks on
+one card).
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ from ..models.mixtral import MIXTRAL_PRESETS
 from ..models.transformer import init_decoder
 from ..observability import coldstart as cs
 from ..ops.quant import init_quantized_decoder, validate_quant_mode
+from ..parallel.sharding import tree_parts
 from ..utils.platform import default_device
 from .engine import EngineConfig, InferenceEngine
+from .shard import make_policy, resolve_topology
 
 
 PRESETS = {**LLAMA_PRESETS, **GEMMA_PRESETS, **MIXTRAL_PRESETS}
@@ -52,16 +60,40 @@ def resolve_preset(name: str, quantize: Optional[str] = None):
 
 
 def build_params(name: str, seed: int = 0, device=None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, emit=None):
     """Random params for a preset, drawn on ``device`` from a generator
     seeded with ``seed``; int8 presets are drawn at int8, so no bf16 copy
-    of the model ever exists. Returns ``(params, cfg)``."""
+    of the model ever exists. Returns ``(params, cfg)``. ``emit`` takes
+    each top-level part as it is drawn (``init_decoder``)."""
     cfg, quantized = resolve_preset(name, quantize)
     device = default_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     init = init_quantized_decoder if quantized else init_decoder
-    return init(cfg, gen, device), cfg
+    return init(cfg, gen, device, emit=emit), cfg
+
+
+def bind_drawn(engine: InferenceEngine, name: str, seed: int = 0,
+               quantize: Optional[str] = None) -> None:
+    """Draw a preset's weights on the engine's rank-0 device part by part
+    and bind each into the engine's storage as it is drawn
+    (``bind_params(part, part=name)``), dropping it before the next is
+    drawn: the device holds the engine's shards and one part of the full
+    tree, never the whole tree. The draws are :func:`build_params`' in
+    its order, so the weights are the 1x1 tree's, seed for seed. Raises
+    unless every part of the engine's storage was bound."""
+    bound: list = []
+
+    def emit(part: str, tree) -> None:
+        engine.bind_params(tree, part=part)
+        bound.append(part)
+
+    build_params(name, seed=seed, device=engine.device, quantize=quantize,
+                 emit=emit)
+    want = [part for part, _ in tree_parts(params_spec(name, quantize)[0])]
+    if sorted(bound) != sorted(want):
+        raise ValueError(f"bind_drawn: bound parts {bound}, the engine's "
+                         f"are {want}")
 
 
 def abstract_params_for(cfg, quantized: bool = False):
@@ -128,9 +160,23 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
                 spec_min_accept: float = 0.35,
                 engine_cfg: Optional[EngineConfig] = None,
                 seed: int = 0, compile_ahead: bool = False,
-                tracer=None) -> InferenceEngine:
+                tracer=None, topology=None, tpu=None,
+                devices=None) -> InferenceEngine:
     """Build the serving engine for a preset on ``device`` (the current
     CUDA device when None; without one this raises).
+
+    ``topology`` selects the serving grid, resolved by the reference's
+    chain (``shard.resolve_topology``): the argument (``"2x1"``,
+    ``"tp=2,fsdp=2"``, a ``Topology``, or ``"auto"``), then
+    ``TPU9_TOPOLOGY``, then the planner when ``tpu`` names a slice (the
+    reference's keyword, here a GPU slice such as ``"h100-8"``), then 1x1.
+    A larger topology puts its ranks on ``devices`` (tp innermost,
+    repeats allowed), by default on ``cuda:0..n-1``; ``device`` names the
+    one card of a 1x1 engine, and with a larger topology raises. A 1x1
+    engine is the single-card engine. A sharded engine is built on the
+    preset's abstract tree and its weights are drawn on rank 0's device
+    part by part, each bound into the rank shards before the next is
+    drawn (:func:`bind_drawn`): a model larger than one card loads.
 
     ``paged=None`` pages the KV cache whenever block | chunk | max_seq_len
     holds, as the JAX ``load_engine`` does: the chunk is the smallest
@@ -170,7 +216,16 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
         raise ValueError(
             "kv_quant conflicts with the explicit engine_cfg — set "
             "EngineConfig(kv_quant=...) there instead")
-    device = default_device(device)
+    topo = resolve_topology(topology, preset=name, tpu=tpu,
+                            max_batch=max_batch, max_seq_len=max_seq_len,
+                            quantize=quantize, kv_quant=bool(kv_quant))
+    if device is not None and not topo.is_single:
+        # one device for every rank would be a silent stack on one card:
+        # sharing a card is asked for by naming it in devices
+        raise ValueError(f"device={device!r} names one card, the topology "
+                         f"{topo} has {topo.n_chips} ranks: give devices=")
+    policy = make_policy(topo, devices=devices or (
+        [device] if device is not None else None))
     ecfg = engine_cfg or engine_config(
         max_batch=max_batch, max_seq_len=max_seq_len,
         prefill_buckets=prefill_buckets, decode_steps=decode_steps,
@@ -179,15 +234,21 @@ def load_engine(name: str, *, device=None, max_batch: int = 8,
         prefix_cache_blocks=prefix_cache_blocks, kv_quant=kv_quant,
         spec_len=spec_len, spec_min_accept=spec_min_accept)
     if compile_ahead:
-        return _load_compile_ahead(name, quantize, seed, ecfg, device,
+        return _load_compile_ahead(name, quantize, seed, ecfg, policy,
                                    tracer)
-    params, cfg = build_params(name, seed=seed, device=device,
+    if not topo.is_single:
+        spec, cfg = params_spec(name, quantize)
+        engine = InferenceEngine(spec, cfg, ecfg, tracer=tracer,
+                                 policy=policy)
+        bind_drawn(engine, name, seed, quantize)
+        return engine
+    params, cfg = build_params(name, seed=seed, device=policy.device,
                                quantize=quantize)
-    return InferenceEngine(params, cfg, ecfg, device=device, tracer=tracer)
+    return InferenceEngine(params, cfg, ecfg, tracer=tracer, policy=policy)
 
 
 def _load_compile_ahead(name: str, quantize: Optional[str], seed: int,
-                        ecfg: EngineConfig, device: torch.device,
+                        ecfg: EngineConfig, policy,
                         tracer) -> InferenceEngine:
     """``load_engine(compile_ahead=True)``: the reference's branch
     (``tpu9/serving/presets.py``) with its two sides swapped. The weights
@@ -195,9 +256,14 @@ def _load_compile_ahead(name: str, quantize: Optional[str], seed: int,
     thread precompiles: the captures are Python-bound, and on a fresh
     thread they cost the card's host two to three times the CPU seconds
     they cost the calling thread (``scripts/coldstart_overlap.py``,
-    PERF.md §6). An error on either side is raised after the join."""
+    PERF.md §6). An error on either side is raised after the join. A
+    sharded engine's weights are bound part by part as the thread draws
+    them (:func:`bind_drawn`), beside the captures, which read the shards
+    only by address: the bind after the join is then empty."""
     spec, cfg = params_spec(name, quantize)
-    engine = InferenceEngine(spec, cfg, ecfg, device=device, tracer=tracer)
+    engine = InferenceEngine(spec, cfg, ecfg, tracer=tracer, policy=policy)
+    device = policy.device
+    sharded = not policy.topology.is_single
     cuda = device.type == "cuda"
     on_device = (lambda: torch.cuda.device(device)) if cuda \
         else contextlib.nullcontext
@@ -209,8 +275,11 @@ def _load_compile_ahead(name: str, quantize: Optional[str], seed: int,
             # touches the streams the captures beside it use
             stream = torch.cuda.Stream(device) if cuda else None
             with on_device(), torch.cuda.stream(stream):
-                loaded["params"], _ = build_params(
-                    name, seed=seed, device=device, quantize=quantize)
+                if sharded:
+                    bind_drawn(engine, name, seed, quantize)
+                else:
+                    loaded["params"], _ = build_params(
+                        name, seed=seed, device=device, quantize=quantize)
             if stream is not None:
                 stream.synchronize()
         except Exception as exc:   # noqa: BLE001 — raised after the join
@@ -254,7 +323,8 @@ def _load_compile_ahead(name: str, quantize: Optional[str], seed: int,
     bind_start = time.monotonic()
     with (tracer.span(cs.SPAN_BIND, attrs={"preset": name})
           if tracer is not None else contextlib.nullcontext()):
-        engine.bind_params(loaded.pop("params"))
+        if not sharded:
+            engine.bind_params(loaded.pop("params"))
     bind_end = time.monotonic()
     engine.compile_ahead_timings = timings
     engine.bringup = {

@@ -15,7 +15,8 @@ the kernel twice a layer: the forward and the backward's recompute.
 
 One device: the reference's ``constrain(tokens, batch_spec)`` is the
 identity there, and its ``mesh``/``param_specs`` arguments wait for the
-port's multi-GPU layer (ROADMAP queue A9, then A14). Steps are
+sharded train step (ROADMAP queue A14; the serving side's rank shards,
+``parallel/sharding.py``, serve only). Steps are
 functional, as the reference's jitted ones are: they return new trees
 and leave their inputs as they were.
 """
