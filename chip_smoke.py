@@ -92,7 +92,25 @@ Phases, each of which must pass or the script exits non-zero:
     count, peak memory and one profiled step;
 13. train, full: llama-1b at full width and depth, every parameter, adam,
     tokens (4, 1024), through ``build_train_step``: five steps, the loss
-    falling, the same figures.
+    falling, the same figures;
+14. vision: CLIP ViT-L/14 (``examples/03``'s image embedder) at full
+    width and depth, random weights from a seed: the f32 forward against
+    the port's f32 forward on the CPU (2 images), the bf16 forward against
+    the f32 one (cosine), unit norms, row 0 of a B=64 call against the
+    image alone; the forward captured as a CUDA graph at B=1, 8 and 64
+    (the counterpart of the example's ``jax.jit``), each replay equal to
+    the eager call bit for bit; ms and images/s eager and captured, the
+    share of the roofline (``vision_flops``), the peak memory, the f32
+    attention's device time and one profiled B=64 forward;
+15. classifier: the text classifier (``examples/01``'s sentiment model)
+    at its full config (f32, distilbert widths): B=4, T=128 logits of
+    mixed lengths against the port's CPU forward, garbage past the mask, a
+    fully masked row (zero logits), negative and out-of-range ids (the
+    clamped rows, no device assert); sequences/s at B=1 and 32, eager and
+    captured, and the peak memory.
+    In phases 14 and 15 none of the four kernels launches (their attention
+    is the reference's plain f32 product), and the f32 matmul precision
+    must be "highest" (TF32 would part from the reference).
     Each phase prints its seconds.
 
 Phase 3 also holds the flash kernel's gradient (``FlashAttention``: the
@@ -198,6 +216,7 @@ result.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import gc
 import json
 import os
@@ -2961,6 +2980,339 @@ def phase_train_full(card: str) -> dict:
 TRAIN_PHASES = {"lora": phase_train_lora, "full": phase_train_full}
 
 
+# -- phases 14 and 15: the encoders ---------------------------------------------
+
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+                                   # (NVIDIA's data sheet, dense, 700 W)
+VISION_IMAGES_SEED = 1
+VISION_BATCHES = (1, 8, 64)
+ENCODER_REPS = 10                  # timed calls after two warm ones
+# The card's f32 forward against the port's CPU f32 forward of the same
+# tree on the same 2 images, max abs of the unit embeddings. On the CPU a
+# full-depth ViT-L/14 put two f32 implementations of the function (the
+# port's and the JAX package's, sums in other orders) 1.5e-7 apart (8
+# images); the card's products sum in yet another order, a gap of that
+# size. 1e-5 keeps a wide margin and still catches TF32 products (10-bit
+# mantissas: gaps near 1e-3).
+VISION_F32_ATOL = 1e-5
+# The card's bf16 forward against its f32 forward over the same draws
+# upcast: on the CPU the JAX package's bf16 CLIP_VIT_L14 forward
+# (PRNGKey(0) weights, 8 images from numpy's default_rng(1), 224 px) lies
+# at cosine 0.9999379 or more from its f32 forward, so 1 - cos <= 6.21e-5
+# (tests/test_torch_vision.py re-derives both CPU figures). These weights
+# are other draws of the same distribution and the card's bf16 GEMMs round
+# in other orders: the limit allows four times that gap.
+VISION_JAX_BF16_GAP = 6.21e-5
+VISION_BF16_COS = 1.0 - 4 * VISION_JAX_BF16_GAP
+VISION_NORM_ATOL = 1e-3            # the bf16 embeddings' norms
+VISION_BATCH_COS = 0.9999          # row 0 of B=64 against the image alone
+CLS_TOKENS = (4, 128)
+CLS_LENS = [128, 100, 37, 1]
+CLS_BATCHES = (1, 32)
+# The card's f32 logits against the port's CPU f32 forward of the same
+# tree: on the CPU the port's and the JAX package's forwards of this config
+# (PRNGKey(0) weights, these lengths) lie 1.9e-6 apart, logits near 2
+# (re-derived by tests/test_torch_classifier.py); the card sums in yet
+# another order. 2e-5 keeps a tenfold margin and still catches TF32
+# products.
+CLS_ATOL = 2e-5
+# garbage tokens past each mask: the reference test's tolerance
+# (tests/test_models.py::TestClassifier::test_padding_invariance)
+CLS_PAD_ATOL = 1e-4
+
+
+def vision_flops(cfg, batch: int) -> dict:
+    """FLOPs of one ``clip_vision_forward`` of ``cfg`` on ``batch`` images,
+    by the products' dtype: ``weights`` (in ``cfg.dtype``: 2 per weight
+    per token in the patch embedding and each layer, 2 per weight per image
+    in the projection) and ``attention`` (in f32: 4 per (dim, token pair)
+    a layer, the scores and the product with v). The elementwise work is
+    left out."""
+    t = cfg.n_patches + 1
+    patch_dim = 3 * cfg.patch_size ** 2
+    layer_w = 4 * cfg.dim * cfg.dim + 2 * cfg.dim * cfg.hidden_dim
+    weights = batch * (2 * cfg.n_patches * patch_dim * cfg.dim
+                       + cfg.n_layers * 2 * t * layer_w
+                       + 2 * cfg.dim * cfg.embed_dim)
+    attention = batch * cfg.n_layers * 4 * t * t * cfg.dim
+    return {"weights": weights, "attention": attention}
+
+
+def _check_precision(label: str) -> None:
+    """The encoders' f32 products must be full f32: under "high" they would
+    run TF32 and part from the reference."""
+    prec = torch.get_float32_matmul_precision()
+    check(prec == "highest", f"{label}: the f32 matmul precision is {prec}, "
+          f"not highest")
+
+
+def _forward_ms(fn, reps: int = ENCODER_REPS) -> float:
+    """Median host ms of one call of ``fn`` ended by a synchronize, after
+    two warm calls: what a caller waiting for its result sees."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def capture_forward(fn, static_in: tuple):
+    """``fn(*static_in)`` captured as one CUDA graph over static input
+    buffers (the counterpart of ``jax.jit`` in ``examples/03``): the graph
+    and its static output. Two eager calls on a side stream first load the
+    kernels and the libraries' handles."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(*static_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn(*static_in)
+    return graph, out
+
+
+def _check_replay(label: str, graph, out, static_in: tuple, fresh: tuple,
+                  eager) -> None:
+    """Copy ``fresh`` into the static buffers, replay, and hold the output
+    against the eager call on ``fresh`` bit for bit."""
+    for buf, x in zip(static_in, fresh):
+        buf.copy_(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise SmokeFailure(f"{label}: the captured forward's output is not "
+                           f"the eager one's (max diff "
+                           f"{float((out - eager).abs().max()):.3e})")
+
+
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def phase_vision(card: str) -> dict:
+    """CLIP ViT-L/14 (``examples/03``'s image embedder) at full width and
+    depth from seed 0: the f32 forward on the card against the port's f32
+    forward on the CPU, the bf16 forward against the f32 one, unit norms,
+    batch invariance, none of the four kernels launched; the forward
+    captured as a CUDA graph at B=1, 8 and 64, each replay equal to the
+    eager call bit for bit; ms and images/s eager and captured, the share
+    of the roofline, the peak memory and the attention's device time; one
+    profiled B=64 forward. Returns the launches."""
+    from tpu9_torch.models.clip_vit import (CLIP_VIT_L14, clip_vision_forward,
+                                            init_clip_vision)
+    from tpu9_torch.ops.attention import encoder_attention
+    from tpu9_torch.train.optim import tree_leaves, tree_map
+
+    label = "vision clip-vit-l14"
+    _check_precision(label)
+    cfg = CLIP_VIT_L14
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = init_clip_vision(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"{label}: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, {cfg.n_patches + 1} tokens an image, "
+          f"{n_params} params, {w_bytes / 1e9:.3f} GB ({cfg.dtype}, norms "
+          f"f32) drawn in {time.perf_counter() - t0:.2f} s")
+    images = torch.from_numpy(np.random.default_rng(VISION_IMAGES_SEED).random(
+        (max(VISION_BATCHES), cfg.image_size, cfg.image_size, 3),
+        dtype=np.float32)).to(DEVICE)
+
+    def forward(x):
+        return clip_vision_forward(params, x, cfg)
+
+    with torch.no_grad():
+        _zero_launches()
+        # f32 on the card against f32 on the CPU, the same draws upcast
+        params32 = tree_map(lambda x: x.float(), params)
+        got32 = clip_vision_forward(params32, images[:2], cfg32)
+        cpu32 = clip_vision_forward(tree_map(lambda x: x.cpu(), params32),
+                                    images[:2].cpu(), cfg32)
+        err32 = float((got32.cpu() - cpu32).abs().max())
+        print(f"{label}: f32 on the card against f32 on the CPU (2 images): "
+              f"max abs {err32:.3e} (limit {VISION_F32_ATOL:g})")
+        check(err32 <= VISION_F32_ATOL, f"{label}: the card's f32 embeddings "
+              f"lie {err32:.3e} from the CPU's")
+        # bf16 against f32, on the card
+        emb = forward(images[:2])
+        cos = float(_cosines(emb, got32).min())
+        print(f"{label}: bf16 against f32 on the card: min cosine "
+              f"{cos:.7f} (limit {VISION_BF16_COS:.7f})")
+        check(cos >= VISION_BF16_COS, f"{label}: bf16 cosine {cos} to f32")
+        del params32, got32, cpu32
+        # unit norms and batch invariance at B=64
+        emb64 = forward(images)
+        norms = emb64.norm(dim=-1)
+        check(bool(torch.isfinite(emb64).all()), f"{label}: NaN or inf")
+        norm_err = float((norms - 1).abs().max())
+        check(norm_err <= VISION_NORM_ATOL, f"{label}: norms off 1 by "
+              f"{norm_err:.3e}")
+        alone = forward(images[:1])
+        bcos = float(_cosines(emb64[:1], alone))
+        print(f"{label}: B=64 bf16 norms within {norm_err:.3e} of 1; row 0 "
+              f"against the image alone: cosine {bcos:.7f} (limit "
+              f"{VISION_BATCH_COS})")
+        check(bcos >= VISION_BATCH_COS, f"{label}: batch variance {bcos}")
+        torch.cuda.synchronize()
+        launches = _launches()
+        check(not any(launches.values()), f"{label}: kernels launched "
+              f"{launches}")
+
+        fresh = torch.from_numpy(np.random.default_rng(VISION_IMAGES_SEED + 1)
+                                 .random(tuple(images.shape),
+                                         dtype=np.float32)).to(DEVICE)
+        for b in VISION_BATCHES:
+            x = images[:b].clone()
+            torch.cuda.reset_peak_memory_stats()
+            eager_ms = _forward_ms(lambda: forward(x))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            graph, out = capture_forward(forward, (x,))
+            _check_replay(f"{label} B={b}", graph, out, (x,), (fresh[:b],),
+                          forward(fresh[:b]))
+            graph_ms = _forward_ms(graph.replay)
+            flops = vision_flops(cfg, b)
+            ops_ms = (flops["weights"] / BF16_FLOP_PER_S
+                      + flops["attention"] / F32_FLOP_PER_S) * 1e3
+            bytes_ms = (w_bytes + x.numel() * 4
+                        + b * cfg.embed_dim * 4) / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            print(f"{label} B={b}: eager {eager_ms:.3f} ms "
+                  f"({b / eager_ms * 1e3:.1f} images/s), captured "
+                  f"{graph_ms:.3f} ms ({b / graph_ms * 1e3:.1f} images/s), "
+                  f"replay equal to eager bit for bit; bound {bound:.4f} ms "
+                  f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
+                  f"{flops['weights'] / b:.4e} FLOP an image in bf16 products "
+                  f"at {BF16_FLOP_PER_S:.3g}/s + {flops['attention'] / b:.4e} "
+                  f"in f32 attention at {F32_FLOP_PER_S:.3g}/s, one after the "
+                  f"other; {w_bytes / 1e9:.3f} GB of weights at "
+                  f"{HBM_BYTES_PER_S:.3g} B/s), {bound / graph_ms:.1%} of it "
+                  f"captured, {bound / eager_ms:.1%} eager; peak allocated "
+                  f"{peak_gb:.2f} GB eager ({card})")
+            del graph, out
+
+        # the f32 attention alone, device time, at B=64's shapes
+        t = cfg.n_patches + 1
+        qkv = torch.randn((max(VISION_BATCHES), t, 3, cfg.n_heads,
+                           cfg.head_dim), generator=gen, device=DEVICE
+                          ).to(cfg.dtype)
+        q, k, v = qkv.unbind(2)
+        attn_ms = time_ms(lambda: encoder_attention(q, k, v), iters=20,
+                          hold=True) * cfg.n_layers
+        print(f"{label} B=64: the f32 attention alone (scores, softmax, "
+              f"product with v, casts) {attn_ms:.3f} ms of device time "
+              f"over {cfg.n_layers} layers ({card})")
+        out_dir = ROOT / "build" / "profile"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _profile(lambda: forward(images), "vision_clip_l14_B64", 1, out_dir)
+    _check_precision(label)
+    return launches
+
+
+def phase_classifier(card: str) -> dict:
+    """The text classifier (``examples/01``'s sentiment model) at its full
+    config (f32, distilbert widths, 30,522 ids) from seed 0: logits of B=4,
+    T=128 sequences of mixed lengths on the card against the port's CPU
+    forward, garbage tokens past the mask, a fully masked row, negative and
+    out-of-range ids (the clamped rows' logits, no device assert), none of
+    the four kernels launched; sequences/s at B=1 and 32 eager and
+    captured, the peak memory. Returns the launches."""
+    from tpu9_torch.models.classifier import (TextClassifierConfig,
+                                              classifier_forward,
+                                              init_classifier)
+    from tpu9_torch.train.optim import tree_leaves, tree_map
+
+    label = "classifier distilbert-widths"
+    _check_precision(label)
+    cfg = TextClassifierConfig()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = init_classifier(cfg, gen, DEVICE)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"{label}: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads} "
+          f"heads, vocab {cfg.vocab_size}, max_len {cfg.max_len}, "
+          f"{n_params} params ({cfg.dtype})")
+    rng = np.random.default_rng(2)
+    b, t = CLS_TOKENS
+    tokens = rng.integers(0, cfg.vocab_size, (b, t))
+    mask = (np.arange(t)[None] < np.asarray(CLS_LENS)[:, None])
+    garbage = np.where(mask, tokens, rng.integers(0, cfg.vocab_size, (b, t)))
+
+    def on(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(DEVICE)
+
+    def forward(tok, m):
+        return classifier_forward(params, tok, m, cfg)
+
+    with torch.no_grad():
+        _zero_launches()
+        got = forward(on(tokens), on(mask))
+        want = classifier_forward(tree_map(lambda x: x.cpu(), params),
+                                  torch.from_numpy(tokens),
+                                  torch.from_numpy(mask.astype(np.int64)), cfg)
+        err = float((got.cpu() - want).abs().max())
+        pad = float((forward(on(garbage), on(mask)) - got).abs().max())
+        print(f"{label}: B={b} T={t} lengths {CLS_LENS}: card against CPU "
+              f"max abs {err:.3e} (limit {CLS_ATOL:g}), garbage past the "
+              f"mask moves the logits {pad:.3e} (limit {CLS_PAD_ATOL:g})")
+        check(err <= CLS_ATOL, f"{label}: logits {err:.3e} from the CPU's")
+        check(pad <= CLS_PAD_ATOL, f"{label}: padding moved the logits {pad}")
+        empty = forward(on(tokens[:2]), on(np.stack([mask[0], 0 * mask[0]])))
+        check(bool((empty[1] == 0).all()) and bool(torch.isfinite(empty).all()),
+              f"{label}: a fully masked row gave {empty[1].tolist()}")
+        v = cfg.vocab_size
+        wild = tokens[:2].copy()
+        wild[:, :4] = [v + 5, -1, -v - 7, 3 * v]
+        rows = np.where(wild < 0, wild + v, wild).clip(0, v - 1)
+        full = np.ones_like(wild)
+        clamped = forward(on(wild), on(full))
+        torch.cuda.synchronize()           # a device assert would raise here
+        check(torch.equal(clamped, forward(on(rows), on(full))),
+              f"{label}: out-of-range ids did not read the clamped rows")
+        print(f"{label}: a fully masked row gives zero logits; ids "
+              f"{wild[0, :4].tolist()} read rows {rows[0, :4].tolist()}, no "
+              f"device assert")
+        torch.cuda.synchronize()
+        launches = _launches()
+        check(not any(launches.values()), f"{label}: kernels launched "
+              f"{launches}")
+
+        for bb in CLS_BATCHES:
+            tok = on(rng.integers(0, v, (bb, t)))
+            m = torch.ones_like(tok)
+            torch.cuda.reset_peak_memory_stats()
+            eager_ms = _forward_ms(lambda: forward(tok, m))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            graph, out = capture_forward(forward, (tok, m))
+            fresh = on(rng.integers(0, v, (bb, t)))
+            _check_replay(f"{label} B={bb}", graph, out, (tok, m),
+                          (fresh, m.clone()), forward(fresh, m))
+            graph_ms = _forward_ms(graph.replay)
+            print(f"{label} B={bb} T={t}: eager {eager_ms:.3f} ms "
+                  f"({bb / eager_ms * 1e3:.1f} sequences/s), captured "
+                  f"{graph_ms:.3f} ms ({bb / graph_ms * 1e3:.1f} "
+                  f"sequences/s), replay equal to eager bit for bit; peak "
+                  f"allocated {peak_gb:.3f} GB eager ({card})")
+            del graph, out
+    _check_precision(label)
+    return launches
+
+
+ENCODER_PHASES = {"vision": phase_vision, "classifier": phase_classifier}
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -3139,7 +3491,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
                   f"({card})")
-        for kind, run in TRAIN_PHASES.items():
+        for kind, run in {**TRAIN_PHASES, **ENCODER_PHASES}.items():
             t_phase = time.perf_counter()
             launches[kind] = run(card)
             gc.collect()

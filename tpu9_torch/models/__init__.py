@@ -1,1 +1,2 @@
-"""Decoder models of the port."""
+"""Models of the port: the decoders, the CLIP vision embedder and the text
+classifier."""

@@ -39,14 +39,16 @@ def _expand_gqa(k: torch.Tensor, q_heads: int) -> torch.Tensor:
 
 
 def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
-    """q [B,T,QH,D], k/v [B,S,KH,D], mask broadcastable to [B,H,T,S]."""
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q [B,T,QH,D], k/v [B,S,KH,D], mask broadcastable to [B,H,T,S]
+    (``None``: every key)."""
     q_heads = q.shape[2]
     k = _expand_gqa(k, q_heads)
     v = _expand_gqa(v, q_heads)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
-    logits = logits.masked_fill(~mask, NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs, v.float())
     return out.to(q.dtype)
@@ -57,13 +59,24 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain attention. q: [B, T, QH, D], k/v: [B, S, KH, D]. ``kv_offset``
     places the q tokens at that offset within the kv sequence. The flash
     kernel's twin (at ``kv_offset=0``)."""
-    t, s = q.shape[1], k.shape[1]
+    mask = None
     if causal:
-        q_pos = torch.arange(t, device=q.device)[:, None] + kv_offset
-        k_pos = torch.arange(s, device=q.device)[None, :]
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None] + kv_offset
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
         mask = (k_pos <= q_pos)[None, None]
-    else:
-        mask = torch.ones((1, 1, t, s), dtype=torch.bool, device=q.device)
+    return _softmax_attend(q, k, v, mask)
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The encoders' bidirectional attention (``tpu9/models/clip_vit.py``
+    and ``classifier.py``, plain f32 products there too, no kernel): q
+    scaled in f32, f32 scores, softmax and product with v, cast back.
+    ``key_mask`` [B, S]: keys where it is > 0 are attended, the others
+    scored -1e30, so a row with no key attends to all of them uniformly,
+    as the reference's additive -1e30 bias gives (that bias absorbs any
+    f32 score)."""
+    mask = None if key_mask is None else (key_mask > 0)[:, None, None, :]
     return _softmax_attend(q, k, v, mask)
 
 
