@@ -93,7 +93,33 @@ Phases, each of which must pass or the script exits non-zero:
 13. train, full: llama-1b at full width and depth, every parameter, adam,
     tokens (4, 1024), through ``build_train_step``: five steps, the loss
     falling, the same figures;
-14. vision: CLIP ViT-L/14 (``examples/03``'s image embedder) at full
+14. train, LoRA on a mesh: ``examples/05``'s step on its mesh,
+    ``make_mesh(dp=1, fsdp=2, sp=1, tp=4, devices=["cuda"] * 8)``, eight
+    ranks on the one card: gemma-7b at full width and depth with the same
+    draws as phase 12, the base by ``decoder_param_specs`` (tp rank shards
+    of 4 heads, each weight's fsdp pieces gathered inside each layer's
+    checkpoint) and the adapters by ``fsdp_specs(min_size=1)``: the first
+    step's adapter gradients against phase 12's, each step's loss against
+    phase 12's, the loss falling, the flash kernel launched ``n_layers x 4
+    ranks x 2 x steps`` times and no other kernel; step ms, MFU, peak
+    memory, one profiled step (busy, idle), and one pass's fsdp gathers
+    and tp reductions timed alone;
+15. train, full on a mesh: llama-1b as phase 13 on ``dp=2, fsdp=2,
+    tp=2`` (one card), ``init_train_state(params, opt, mesh, specs)``:
+    each loss and grad norm against phase 13's, the launches counted;
+16. ring: ring attention on ``sp=8`` ranks, B=1, T=8192, H=4, D=128, f32,
+    causal and full, against the dense f32 attention: the gap, both
+    peak-memory deltas and both times;
+17. pipeline: ``pipeline_forward`` over 4 stages, the reference test's
+    MLP block at dim 2048 and 8 layers, M=4 and M=8: the output and the
+    gradients against the sequential program's;
+18. moe-train: ``moe_ffn`` at mixtral-8x7b's FFN widths (bf16) on
+    ``ep=4`` ranks against ``ep=1``, 8 adam steps, the losses step by
+    step.
+    Phases 16-18 are plain torch ops (the reference's are XLA ops): no
+    kernel launches there. Every rank of phases 14-18 is on the one card;
+    nothing here runs on two cards.
+19. vision: CLIP ViT-L/14 (``examples/03``'s image embedder) at full
     width and depth, random weights from a seed: the f32 forward against
     the port's f32 forward on the CPU (2 images), the bf16 forward against
     the f32 one (cosine), unit norms, row 0 of a B=64 call against the
@@ -102,25 +128,27 @@ Phases, each of which must pass or the script exits non-zero:
     the eager call bit for bit; ms and images/s eager and captured, the
     share of the roofline (``vision_flops``), the peak memory, the f32
     attention's device time and one profiled B=64 forward;
-15. classifier: the text classifier (``examples/01``'s sentiment model)
+20. classifier: the text classifier (``examples/01``'s sentiment model)
     at its full config (f32, distilbert widths): B=4, T=128 logits of
     mixed lengths against the port's CPU forward, garbage past the mask, a
     fully masked row (zero logits), negative and out-of-range ids (the
     clamped rows, no device assert); sequences/s at B=1 and 32, eager and
     captured, and the peak memory.
-    In phases 14 and 15 none of the four kernels launches (their attention
+    In phases 19 and 20 none of the four kernels launches (their attention
     is the reference's plain f32 product), and the f32 matmul precision
     must be "highest" (TF32 would part from the reference).
     Each phase prints its seconds.
 
 Phase 3 also holds the flash kernel's gradient (``FlashAttention``: the
-kernel forward, a backward in torch ops) at the two train phases' shapes
-(gemma-7b's heads at B=8, T=S=512; llama-1b's at B=4, T=S=1024): the
+kernel forward, a backward in torch ops) at the four train phases' shapes
+(gemma-7b's heads at B=8, T=S=512, and a tp=4 rank's 4 of them; llama-1b's
+at B=4, T=S=1024, and a tp=2 rank's 16/4): the
 forward against the twin, dq, dk and dv against autograd through the f32
 twin on the same bf16 inputs, and the forward kernel, the backward, the
 pair and SDPA's forward and backward timed. In each train phase the flash
 kernel launches ``n_layers x 2 x steps`` times (each layer's forward and
-its recompute in the backward) and no other kernel launches.
+its recompute in the backward), times the tp ranks in phases 14-15, and no
+other kernel launches.
 
 After phases 4 and 5, KV motion (``phase_kv_motion``), on an engine over
 the same weights with a 1024 MB host tier armed through ``engine_cfg``: a
@@ -964,9 +992,12 @@ def phase_kernels() -> list[dict]:
 
 # the train phases' attention shapes: (batch, T = S, (q heads, kv heads),
 # head_dim, model), causal. gemma-7b's LoRA step takes examples/05's
-# tokens (8, 512); llama-1b's full step takes (4, 1024)
+# tokens (8, 512); llama-1b's full step takes (4, 1024); the sharded steps
+# run each tp rank's heads (gemma-7b at tp=4, llama-1b at tp=2)
 GRAD_SHAPES = {"lora": (8, 512, (16, 16), 256, "gemma-7b"),
-               "full": (4, 1024, (32, 8), 64, "llama-1b")}
+               "full": (4, 1024, (32, 8), 64, "llama-1b"),
+               "lora-fsdp": (8, 512, (4, 4), 256, "gemma-7b tp=4 rank"),
+               "full-fsdp": (4, 1024, (16, 4), 64, "llama-1b tp=2 rank")}
 
 
 def grad_limit(want: torch.Tensor, group: int) -> torch.Tensor:
@@ -2788,9 +2819,11 @@ def _timed_steps(run, label: str) -> tuple[list[float], list[float]]:
 
 def _report_steps(label: str, card: str, cfg, tokens: tuple[int, int],
                   secs: list[float], flops: dict, peak_gb: float,
-                  launches: dict, losses: list[float]) -> None:
+                  launches: dict, losses: list[float], ranks: int = 1
+                  ) -> None:
     """Median step ms over the steps after the first, tokens/s, MFU
-    against the bf16 peak with its FLOP count, peak memory, launches."""
+    against the bf16 peak with its FLOP count, peak memory, launches (of
+    ``ranks`` tp ranks a layer)."""
     step_s = float(np.median(secs[1:]))
     total = sum(flops.values())
     parts = " + ".join(f"{k} {v:.4e}" for k, v in flops.items())
@@ -2801,14 +2834,17 @@ def _report_steps(label: str, card: str, cfg, tokens: tuple[int, int],
           f"{total / step_s / BF16_FLOP_PER_S:.1%} of {BF16_FLOP_PER_S:.3g} "
           f"FLOP/s bf16 ({total:.4e} FLOP a step = {parts}), peak "
           f"allocated {peak_gb:.2f} GB; B3 launches "
-          f"{launches['flash_attention']} = {cfg.n_layers} layers x 2 "
-          f"(forward, recompute) x {TRAIN_STEPS} steps ({card})")
+          f"{launches['flash_attention']} = {cfg.n_layers} layers x "
+          f"{f'{ranks} ranks x ' if ranks > 1 else ''}2 (forward, recompute) "
+          f"x {TRAIN_STEPS} steps ({card})")
 
 
-def _check_train_launches(label: str, cfg, launches: dict,
-                          steps: int) -> None:
+def _check_train_launches(label: str, cfg, launches: dict, steps: int,
+                          ranks: int = 1) -> None:
+    """B3 launched ``n_layers x ranks x 2 x steps`` times (each rank's
+    forward and recompute a layer), no other kernel."""
     want = {name: 0 for name in KERNELS}
-    want["flash_attention"] = cfg.n_layers * 2 * steps
+    want["flash_attention"] = cfg.n_layers * ranks * 2 * steps
     check(launches == want, f"{label}: launches {launches}, expected {want}")
 
 
@@ -2980,7 +3016,515 @@ def phase_train_full(card: str) -> dict:
 TRAIN_PHASES = {"lora": phase_train_lora, "full": phase_train_full}
 
 
-# -- phases 14 and 15: the encoders ---------------------------------------------
+# -- phases 14 to 18: the parallel layer and the sharded train steps -----------
+
+# examples/05's mesh at tp=4 (make_mesh(fsdp=n // 4, tp=4)), its 8 ranks on
+# one card; test_fsdp_train_step_loss_decreases's mesh for the full step
+LORA_MESH = dict(dp=1, fsdp=2, sp=1, tp=4)
+FULL_MESH = dict(dp=2, fsdp=2, sp=1, tp=2)
+# A sharded step against the unsharded step from the same state (the same
+# draws, and each step's state handed to both): each tp reduction adds the
+# ranks' bf16 partials in f32 and rounds once, where one GEMM rounds its
+# f32 sum once, so a block's output may move by one bf16 rounding of its
+# partials (2^-8 relative) more than the unsharded step's. The loss, a mean
+# over 4088 or 4092 targets of f32 log-softmaxes, averages those roundings
+# out: one 2^-8 of the loss bounds it. The gradients carry such roundings
+# as the kernel path's carry against the twin path's (``LORA_GRAD_RTOL``,
+# norm-wise), and so does their norm. Two trajectories run apart on their
+# own are not compared step by step: Adam at these rates moves every entry
+# by about lr whatever its gradient's size, so an entry whose gradient
+# sits near zero can step the other way, and on random weights the losses
+# then part chaotically (on an H100 80GB HBM3 at 700 W, llama-1b's grad
+# norms ran 11% apart by step 5, with every step from a shared state
+# within 7e-4).
+SHARD_LOSS_RTOL = 2.0 ** -8
+RING_SHAPE = (1, 8192, 4, 128)      # B, T, H, D: the dense scores 1.07 GB f32
+RING_SP = 8
+RING_ATOL = 2e-5                    # tests/test_parallel.py's, f32
+PIPE_DIM, PIPE_LAYERS, PIPE_STAGES = 2048, 8, 4
+PIPE_X = (8, 256)                   # batch, rows a sample
+PIPE_MICROBATCHES = (4, 8)
+# pipeline against the sequential program, f32 under "highest": the same
+# products on fewer rows a GEMM, which the card may sum in other orders.
+# One f32 sum of dim terms in another order moves its result by about
+# sqrt(dim) roundings (2^-24) of the largest term; the output goes through
+# 2 products a layer, a gradient back through about 4 (the forward's and
+# the backward's), so max |err| <= 4 x layers x sqrt(dim) x 2^-24 of the
+# largest entry (8.6e-5). The reference test's own 1e-5 was set at dim 16,
+# where a sum has 16 terms: at dim 2048 on an H100 80GB HBM3 at 700 W the
+# output's gap was 2.003e-5 (1.6e-6 of its largest entry)
+PIPE_TOL = 4 * PIPE_LAYERS * PIPE_DIM ** 0.5 * 2.0 ** -24
+MOE_TRAIN_CFG = dict(dim=4096, hidden_dim=14336, n_experts=8, top_k=2)
+MOE_TRAIN_X = (2, 256)              # 512 tokens: capacity 160 an expert
+MOE_TRAIN_EP = 4
+MOE_TRAIN_STEPS = 8
+MOE_TRAIN_LR = 1e-3                 # about 16 bf16 ulps of a 0.01 weight
+# ep=4 against ep=1: each token's two slots add in f32 with exact zeros
+# from the ranks that do not hold them, so the forward is the unsharded
+# one's where the per-expert GEMMs are; the card's batched GEMMs over 2 or
+# 8 experts may round differently, one bf16 rounding (2^-8) of an expert's
+# output, which the loss averages out; Adam's steps on near-zero gradients
+# may part later as in the train steps
+MOE_LOSS_RTOL = 2.0 ** -6
+
+
+def _zero_launch_phase(label: str, launches: dict) -> None:
+    want = {name: 0 for name in KERNELS}
+    check(launches == want, f"{label}: launches {launches}, expected none "
+          f"(plain torch ops)")
+
+
+def _pass_ms(cfg, params, batch: int, t: int) -> tuple[float, float]:
+    """Device ms of one pass's fsdp gathers (every rank's pieces of every
+    layer joined on its device) and of its reductions (``2 x n_layers``
+    sums of the ranks' ``[B, T, dim]`` partials onto rank 0's device), each
+    timed alone with CUDA events. A remat step runs each twice (the
+    forward and the backward's recompute)."""
+    from tpu9_torch.parallel.sharding import gather_leaf, reduce_partials
+    devs = params.devices
+
+    def gathers():
+        for i in range(cfg.n_layers):
+            for shard, dev in zip(params, devs):
+                for leaf in shard["layers"][i].values():
+                    gather_leaf(leaf, dev)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    parts = [torch.randn((batch, t, cfg.dim), generator=gen, device=DEVICE
+                         ).to(cfg.dtype) for _ in devs]
+
+    def reductions():
+        for _ in range(2 * cfg.n_layers):
+            reduce_partials(parts, devs[0])
+
+    return time_ms(gathers, iters=5), time_ms(reductions, iters=5)
+
+
+def _whole_leaves(tree) -> list:
+    """A tree's leaves in sorted-key order, each sharded leaf's pieces
+    joined on the card."""
+    from tpu9_torch.parallel.sharding import Pieces, gather_leaf
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _whole_leaves(tree[k])]
+    if isinstance(tree, list) and not isinstance(tree, Pieces):
+        return [x for v in tree for x in _whole_leaves(v)]
+    return [gather_leaf(tree, DEVICE)]
+
+
+def _check_pairs(label: str, what: str, pairs: list, rtol: float) -> None:
+    """``pairs`` of (sharded, unsharded) values, one a step, each from the
+    same state: within ``rtol`` of the unsharded value."""
+    gaps = [abs(a - b) / abs(b) for a, b in pairs]
+    print(f"{label}: {what} a step, sharded against unsharded from the same "
+          f"state: {[(round(a, 6), round(b, 6)) for a, b in pairs]}, relative "
+          f"gaps {[f'{g:.2e}' for g in gaps]} (tolerance {rtol:.3e})")
+    check(max(gaps) <= rtol, f"{label}: sharded {what} part from the "
+          f"unsharded step's by {gaps}")
+
+
+def phase_train_lora_fsdp(card: str) -> dict:
+    """``examples/05``'s step on its mesh: gemma-7b at full width and depth,
+    the base by ``decoder_param_specs`` and rank-16 adapters by
+    ``fsdp_specs(min_size=1)`` on ``make_mesh(dp=1, fsdp=2, sp=1, tp=4,
+    devices=[DEVICE] * 8)``, adamw, remat on, tokens (8, 512), the same
+    draws as the unsharded LoRA phase (seed 0). The first step's adapter
+    gradients against the unsharded kernel path's, norm-wise; then
+    ``TRAIN_STEPS`` steps each run sharded and unsharded from the unsharded
+    trajectory's state (adapters and adamw state sharded anew), the losses
+    compared step by step. Then the full tree is freed and the sharded run
+    goes on its own, timed: the loss falling, B3 launched ``n_layers x 4
+    ranks x 2 x steps`` times and no other kernel; step ms, peak memory,
+    one profiled step (busy, idle), one pass's gathers and reductions
+    timed alone."""
+    from tpu9_torch.models import lora
+    from tpu9_torch.models.transformer import init_decoder
+    from tpu9_torch.parallel import (decoder_param_specs, fsdp_specs,
+                                     make_mesh, shard_params)
+    from tpu9_torch.serving.presets import PRESETS
+    from tpu9_torch.train import build_lora_train_step, optim
+    from tpu9_torch.train.trainer import lora_value_and_grad
+
+    label = f"train lora-fsdp {LORA_PRESET}"
+    cfg = PRESETS[LORA_PRESET]
+    ranks = LORA_MESH["tp"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    base = init_decoder(cfg, gen, DEVICE)
+    adapters = lora.init_lora(gen, base, rank=LORA_RANK)
+    tokens = torch.randint(0, cfg.vocab_size, LORA_TOKENS, generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    scale = lora.lora_scale(LORA_RANK)
+    mesh = make_mesh(**LORA_MESH, devices=[DEVICE] * 8)
+    t0 = time.perf_counter()
+    base_s = shard_params(base, mesh, decoder_param_specs(base))
+    torch.cuda.synchronize()
+    wq = base_s[0]["layers"][0]["wq"]
+    print(f"{label}: mesh {mesh.shape} on one card ({card}): {len(base_s)} "
+          f"tp ranks of {base_s.layout.resolve(cfg).q_heads} q heads, fsdp "
+          f"pieces {[tuple(p.shape) for p in wq]} of a rank's wq; sharded in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def sharded(tree):
+        return shard_params(tree, mesh, fsdp_specs(tree, min_size=1))
+
+    opt = optim.adamw(LORA_LR)
+    step = build_lora_train_step(cfg, opt, scale=scale, device=DEVICE)
+    with mesh:
+        value_and_grad = lora_value_and_grad(cfg, scale, remat=True)
+        _zero_launches()
+        _, grads_s = value_and_grad(sharded(adapters), base_s, tokens)
+        torch.cuda.synchronize()
+        check(_launches()["flash_attention"] == 2 * cfg.n_layers * ranks,
+              f"{label}: the gradient's forward and recompute launched "
+              f"{_launches()}")
+        _, grads_u = value_and_grad(adapters, base, tokens)
+        got, want = _whole_leaves(grads_s), _whole_leaves(grads_u)
+        diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(got, want)))
+        rel = float(diff / torch.sqrt(sum((b ** 2).sum() for b in want)))
+        print(f"{label}: first-step adapter gradients against the unsharded "
+              f"kernel path's (same draws): norm-wise {rel:.3e} (tolerance "
+              f"{LORA_GRAD_RTOL})")
+        check(rel <= LORA_GRAD_RTOL, f"{label}: sharded gradients part from "
+              f"the unsharded ones by {rel:.3e}")
+        del grads_s, grads_u, got, want
+        ad, st, pairs, unsharded = adapters, opt.init(adapters), [], []
+        for _ in range(TRAIN_STEPS):
+            loss_s = step(sharded(ad), sharded(st), base_s, tokens)[2]["loss"]
+            ad, st, m_u = step(ad, st, base, tokens)
+            pairs.append((float(loss_s), float(m_u["loss"])))
+            unsharded.append(pairs[-1][1])
+        _check_pairs(label, "loss", pairs, SHARD_LOSS_RTOL)
+    del base, ad, st, m_u
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"once the full tree is freed")
+
+    state = {"adapters": sharded(adapters)}
+    state["opt"] = opt.init(state["adapters"])
+
+    def run():
+        state["adapters"], state["opt"], metrics = step(
+            state["adapters"], state["opt"], base_s, tokens)
+        return metrics["loss"]
+
+    with mesh:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        losses, secs = _timed_steps(run, label)
+        launches = _launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _check_train_launches(label, cfg, launches, TRAIN_STEPS, ranks)
+        print(f"{label}: the sharded run on its own: losses "
+              f"{[round(x, 6) for x in losses]}, the unsharded run's "
+              f"{[round(x, 6) for x in unsharded]}")
+        check(losses[-1] < losses[0], f"{label}: the loss did not fall on a "
+              f"repeated batch: {losses}")
+        _report_steps(label, card, cfg, LORA_TOKENS, secs,
+                      train_flops(cfg, *LORA_TOKENS, lora=True), peak_gb,
+                      launches, losses, ranks)
+        gathers, reductions = _pass_ms(cfg, base_s, *LORA_TOKENS)
+        print(f"{label}: one pass's fsdp gathers {gathers:.3f} ms and "
+              f"{2 * cfg.n_layers} reductions {reductions:.3f} ms, device "
+              f"alone (a remat step runs each twice: forward and recompute; "
+              f"{ranks} ranks on one card)")
+        out_dir = ROOT / "build" / "profile"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _profile(lambda: step(state["adapters"], state["opt"], base_s,
+                              tokens),
+                 f"train_lora_fsdp_{LORA_PRESET}_step", 1, out_dir)
+    return launches
+
+
+def phase_train_full_fsdp(card: str) -> dict:
+    """``test_fsdp_train_step_loss_decreases``'s mesh (dp=2, fsdp=2, tp=2,
+    on one card) at the unsharded full phase's shape: llama-1b at full
+    width and depth, every parameter, adam, tokens (4, 1024), the same
+    draws (seed 0). ``TRAIN_STEPS`` steps each run sharded and unsharded
+    from the unsharded trajectory's state (params and adam state sharded
+    anew): the losses and grad norms step by step. Then a sharded run on
+    its own from ``init_train_state(params, opt, mesh, specs)``, timed: the
+    loss falling, B3 launched ``n_layers x 2 ranks x 2 x steps`` times."""
+    from tpu9_torch.models.transformer import init_decoder
+    from tpu9_torch.parallel import (decoder_param_specs, make_mesh,
+                                     shard_params)
+    from tpu9_torch.serving.presets import PRESETS
+    from tpu9_torch.train import TrainState, build_train_step, optim
+    from tpu9_torch.train.trainer import init_train_state
+
+    label = f"train full-fsdp {FULL_PRESET}"
+    cfg = PRESETS[FULL_PRESET]
+    ranks = FULL_MESH["tp"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    opt = optim.adam(FULL_LR)
+    params = init_decoder(cfg, gen, DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, FULL_TOKENS, generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    mesh = make_mesh(**FULL_MESH, devices=[DEVICE] * 8)
+    specs = decoder_param_specs(params)
+    step = build_train_step(cfg, opt, device=DEVICE)
+    print(f"{label}: mesh {mesh.shape} on one card ({card}), {ranks} tp "
+          f"ranks; tokens {FULL_TOKENS}, adam lr {FULL_LR}; the batch stays "
+          f"whole (dp adds no rows)")
+
+    def sharded(state):
+        mu, nu = (shard_params(t, mesh, specs)
+                  for t in (state.opt_state.mu, state.opt_state.nu))
+        return TrainState(params=shard_params(state.params, mesh, specs),
+                          opt_state=state.opt_state._replace(mu=mu, nu=nu),
+                          step=state.step)
+
+    with mesh:
+        state_u, losses_p, norms_p, unsharded = (
+            init_train_state(params, opt), [], [], [])
+        for _ in range(TRAIN_STEPS):
+            m_s = step(sharded(state_u), tokens)[1]
+            state_u, m_u = step(state_u, tokens)
+            losses_p.append((float(m_s["loss"]), float(m_u["loss"])))
+            norms_p.append((float(m_s["grad_norm"]), float(m_u["grad_norm"])))
+            unsharded.append(losses_p[-1][1])
+        _check_pairs(label, "loss", losses_p, SHARD_LOSS_RTOL)
+        _check_pairs(label, "grad norm", norms_p, LORA_GRAD_RTOL)
+        del state_u, m_s, m_u
+        state = {"s": init_train_state(params, opt, mesh, specs)}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        norms = []
+
+        def run():
+            state["s"], metrics = step(state["s"], tokens)
+            norms.append(float(metrics["grad_norm"]))
+            return metrics["loss"]
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        losses, secs = _timed_steps(run, label)
+        launches = _launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_train_launches(label, cfg, launches, TRAIN_STEPS, ranks)
+    print(f"{label}: the sharded run on its own: losses "
+          f"{[round(x, 6) for x in losses]} (the unsharded run's "
+          f"{[round(x, 6) for x in unsharded]}), grad norms "
+          f"{[round(x, 4) for x in norms]}")
+    check(all(np.isfinite(norms)), f"{label}: grad norms {norms}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall on a "
+          f"repeated batch: {losses}")
+    _report_steps(label, card, cfg, FULL_TOKENS, secs,
+                  train_flops(cfg, *FULL_TOKENS, lora=False), peak_gb,
+                  launches, losses, ranks)
+    return launches
+
+
+def _peak_delta_gb(fn):
+    """``fn()``'s result and the peak device memory it allocated beyond
+    what was allocated before it, GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+
+def phase_ring(card: str) -> dict:
+    """Ring attention on ``sp=8`` ranks on one card, B=1, T=8192, H=4,
+    D=128, f32, causal and full, against the port's plain dense f32
+    attention (the flash kernel's twin) on the same inputs (``RING_ATOL``,
+    the reference test's): the max abs gap, both peak-memory deltas (the
+    dense scores are ``B*H*T*T`` f32; a ring block's ``(T/8)^2``) and
+    both times."""
+    from tpu9_torch.ops.attention import xla_attention
+    from tpu9_torch.parallel import make_mesh, ring_attention
+
+    label = "ring"
+    _check_precision(label)
+    b, t, h, d = RING_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=DEVICE)
+               for _ in range(3))
+    mesh = make_mesh(sp=RING_SP, devices=[DEVICE] * RING_SP)
+    _zero_launches()
+    for causal in (True, False):
+        ring, ring_gb = _peak_delta_gb(
+            lambda: ring_attention(q, k, v, mesh, axis="sp", causal=causal))
+        dense, dense_gb = _peak_delta_gb(
+            lambda: xla_attention(q, k, v, causal=causal))
+        err = float((ring - dense).abs().max())
+        del ring, dense
+        ring_ms = time_ms(lambda: ring_attention(q, k, v, mesh, causal=causal),
+                          iters=5)
+        dense_ms = time_ms(lambda: xla_attention(q, k, v, causal=causal),
+                           iters=5)
+        kind = "causal" if causal else "full"
+        print(f"{label} {kind}: B={b} T={t} H={h} D={d} f32 on sp={RING_SP} "
+              f"ranks ({card}): max abs gap to the dense attention "
+              f"{err:.3e} (tolerance {RING_ATOL}); peak memory beyond the "
+              f"inputs {ring_gb:.3f} GB ring, {dense_gb:.3f} GB dense (its "
+              f"scores alone {b * h * t * t * 4 / 1e9:.2f} GB, one ring "
+              f"block's {b * h * (t // RING_SP) ** 2 * 4 / 1e6:.1f} MB); "
+              f"{ring_ms:.3f} ms ring, {dense_ms:.3f} ms dense")
+        check(err <= RING_ATOL, f"{label} {kind}: ring attention parts from "
+              f"the dense attention by {err:.3e}")
+    launches = _launches()
+    _zero_launch_phase(label, launches)
+    _check_precision(label)
+    return launches
+
+
+def _mlp_block(layer, x):
+    return x + torch.tanh(x @ layer["w1"]) @ layer["w2"]
+
+
+def phase_pipeline(card: str) -> dict:
+    """``pipeline_forward`` over 4 stages on one card: the reference test's
+    MLP block at dim 2048, 8 layers, f32, x ``[8, 256, 2048]``, M=4 and
+    M=8: the output and the gradients of a mean-square loss against the
+    sequential program's (``PIPE_TOL`` of each one's largest entry), and
+    both times."""
+    from tpu9_torch.parallel import make_named_mesh, pipeline_forward
+    from tpu9_torch.parallel import stack_layers
+
+    label = "pipeline"
+    _check_precision(label)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    layers = [{name: torch.randn((PIPE_DIM, PIPE_DIM), generator=gen,
+                                 device=DEVICE) * PIPE_DIM ** -0.5
+               for name in ("w1", "w2")} for _ in range(PIPE_LAYERS)]
+    stacked = {k: v.requires_grad_(True)
+               for k, v in stack_layers(layers).items()}
+    x = torch.randn((*PIPE_X, PIPE_DIM), generator=gen, device=DEVICE)
+    mesh = make_named_mesh({"pp": PIPE_STAGES}, devices=[DEVICE] * PIPE_STAGES)
+
+    def sequential():
+        y = x
+        for i in range(PIPE_LAYERS):
+            y = _mlp_block({k: w[i] for k, w in stacked.items()}, y)
+        return y
+
+    def grads(fn):
+        y = fn()
+        return y.detach(), torch.autograd.grad(
+            torch.mean((y - 1.0) ** 2), list(stacked.values()))
+
+    _zero_launches()
+    want, want_g = grads(sequential)
+    seq_ms = time_ms(lambda: grads(sequential), iters=5)
+    for m in PIPE_MICROBATCHES:
+        def pipe():
+            return pipeline_forward(_mlp_block, stacked, x, mesh,
+                                    n_microbatches=m)
+        got, got_g = grads(pipe)
+        errs = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip((got, *got_g), (want, *want_g))]
+        pipe_ms = time_ms(lambda: grads(pipe), iters=5)
+        print(f"{label}: {PIPE_STAGES} stages, {PIPE_LAYERS} layers at dim "
+              f"{PIPE_DIM}, x {list(x.shape)} f32, M={m} (bubble "
+              f"{(PIPE_STAGES - 1) / (m + PIPE_STAGES - 1):.1%} of "
+              f"{m + PIPE_STAGES - 1} steps, skipped) on one card ({card}): "
+              f"max gap over the largest entry, output {errs[0]:.3e} "
+              f"(max abs {float((got - want).abs().max()):.3e}), gradients "
+              f"{max(errs[1:]):.3e} (tolerance {PIPE_TOL:.3e}); forward + "
+              f"backward {pipe_ms:.3f} ms, sequential {seq_ms:.3f} ms")
+        check(max(errs) <= PIPE_TOL, f"{label} M={m}: the pipeline parts "
+              f"from the sequential program by {errs}")
+    launches = _launches()
+    _zero_launch_phase(label, launches)
+    return launches
+
+
+def phase_moe_train(card: str) -> dict:
+    """``moe_ffn`` at mixtral-8x7b's FFN width (dim 4096, hidden 14336, 8
+    experts, top-2, bf16) trained on ``ep=4`` ranks of one card against the
+    same layer unsharded (``ep=1``): ``test_moe_train_step_loss_decreases``'s
+    loss (mean square against x rolled by one, plus 0.01 of the balance
+    loss), adam, ``MOE_TRAIN_STEPS`` steps each, the losses compared step
+    by step (``MOE_LOSS_RTOL``), both step times."""
+    from tpu9_torch.models.moe import (MoeConfig, init_moe_layer, moe_ffn,
+                                       moe_param_specs)
+    from tpu9_torch.parallel import make_named_mesh, shard_params
+    from tpu9_torch.parallel.sharding import Pieces
+    from tpu9_torch.train import optim
+
+    label = f"moe-train ep={MOE_TRAIN_EP}"
+    cfg = MoeConfig(**MOE_TRAIN_CFG, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    whole = init_moe_layer(cfg, gen, DEVICE)
+    x = torch.randn((*MOE_TRAIN_X, cfg.dim), generator=gen, device=DEVICE
+                    ).to(cfg.dtype)
+    target = torch.roll(x, 1, dims=-1).float()
+    mesh = make_named_mesh({"ep": MOE_TRAIN_EP},
+                           devices=[DEVICE] * MOE_TRAIN_EP)
+    sharded = shard_params(whole, mesh, moe_param_specs(whole))
+    check(isinstance(sharded["w_gate"], Pieces), f"{label}: not sharded")
+    opt = optim.adam(MOE_TRAIN_LR)
+
+    def trainer(params):
+        state = {"p": params, "o": opt.init(params)}
+
+        def one():
+            live = optim.tree_map(lambda p: p.detach().requires_grad_(True),
+                                  state["p"])
+            y, aux = moe_ffn(live, x, cfg)
+            loss = (torch.mean((y.float() - target) ** 2)
+                    + 0.01 * aux["balance_loss"])
+            leaves = optim.tree_leaves(live)
+            by_id = dict(zip(map(id, leaves),
+                             torch.autograd.grad(loss, leaves)))
+            grads = optim.tree_map(lambda p: by_id[id(p)], live)
+            updates, state["o"] = opt.update(grads, state["o"], state["p"])
+            state["p"] = optim.apply_updates(state["p"], updates)
+            return loss.detach()
+        return one
+
+    runs = {"ep=1": trainer(whole), f"ep={MOE_TRAIN_EP}": trainer(sharded)}
+    del whole, sharded
+    print(f"{label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"before the steps ({card})")
+    _zero_launches()
+    losses = {k: [] for k in runs}
+    secs = {k: [] for k in runs}
+    for _ in range(MOE_TRAIN_STEPS):
+        for k, one in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(one())
+            secs[k].append(time.perf_counter() - t0)
+            check(np.isfinite(loss), f"{label}: {k} loss {loss}")
+            losses[k].append(loss)
+    ref, got = losses["ep=1"], losses[f"ep={MOE_TRAIN_EP}"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    ms = {k: float(np.median(v[1:])) * 1e3 for k, v in secs.items()}
+    print(f"{label}: mixtral-8x7b FFN widths {MOE_TRAIN_CFG}, bf16, x "
+          f"{list(x.shape)}, adam lr {MOE_TRAIN_LR}, on one card ({card}): "
+          f"losses ep=1 {[round(v, 6) for v in ref]}, ep={MOE_TRAIN_EP} "
+          f"{[round(v, 6) for v in got]}: relative gaps "
+          f"{[f'{g:.2e}' for g in gaps]} (tolerance {MOE_LOSS_RTOL:.3e}); "
+          f"step {ms['ep=1']:.2f} ms ep=1, {ms[f'ep={MOE_TRAIN_EP}']:.2f} ms "
+          f"ep={MOE_TRAIN_EP} (median of steps 2-{MOE_TRAIN_STEPS}, host "
+          f"clock to a synchronize)")
+    check(max(gaps) <= MOE_LOSS_RTOL, f"{label}: ep-sharded losses part "
+          f"from the unsharded ones by {gaps}")
+    check(got[-1] < got[0], f"{label}: the loss did not fall: {got}")
+    launches = _launches()
+    _zero_launch_phase(label, launches)
+    return launches
+
+
+SHARD_PHASES = {"lora-fsdp": phase_train_lora_fsdp,
+                "full-fsdp": phase_train_full_fsdp, "ring": phase_ring,
+                "pipeline": phase_pipeline, "moe-train": phase_moe_train}
+
+
+# -- phases 19 and 20: the encoders ---------------------------------------------
 
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
                                    # (NVIDIA's data sheet, dense, 700 W)
@@ -3491,13 +4035,15 @@ def main() -> int:
             torch.cuda.empty_cache()
             print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
                   f"({card})")
-        for kind, run in {**TRAIN_PHASES, **ENCODER_PHASES}.items():
+        for kind, run in {**TRAIN_PHASES, **SHARD_PHASES,
+                          **ENCODER_PHASES}.items():
             t_phase = time.perf_counter()
             launches[kind] = run(card)
             gc.collect()
             torch.cuda.empty_cache()
-            print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
-                  f"({card})")
+            print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s, "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+                  f"allocated ({card})")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -40,13 +40,16 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     # (the weight format and the runner and worker subpackages), and the
     # MoE decoder with its presets, and the LoRA and train layers, and the
     # multi-GPU layer (the planner, feasibility, policies, the layout), and
-    # the encoders (the CLIP embedder and the text classifier)
+    # the encoders (the CLIP embedder and the text classifier), and the
+    # parallel layer (meshes, ring attention, the pipeline, multi-host)
     for module in ("models/moe.py", "models/mixtral.py", "models/lora.py",
                    "models/clip_vit.py", "models/classifier.py",
                    "types.py", "serving/feasibility.py",
                    "serving/shard/__init__.py", "serving/shard/plan.py",
                    "serving/shard/policy.py", "parallel/__init__.py",
-                   "parallel/sharding.py",
+                   "parallel/sharding.py", "parallel/mesh.py",
+                   "parallel/ring.py", "parallel/pipeline.py",
+                   "parallel/distributed.py",
                    "train/optim.py", "train/trainer.py", "train/__init__.py",
                    "ops/quant.py", "serving/kvwire.py", "serving/kvpool.py",
                    "serving/paged_kv.py", "serving/schedule.py",
@@ -65,7 +68,8 @@ def test_importing_the_serving_stack_loads_no_jax():
             "tpu9_torch.worker.weightstream, "
             "tpu9_torch.observability.coldstart, tpu9_torch.train, "
             "tpu9_torch.serving.shard, tpu9_torch.serving.feasibility, "
-            "tpu9_torch.parallel, tpu9_torch.types, "
+            "tpu9_torch.parallel, tpu9_torch.parallel.distributed, "
+            "tpu9_torch.types, "
             "tpu9_torch.models.clip_vit, tpu9_torch.models.classifier; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

@@ -21,7 +21,11 @@ stack it is given. Routing, the capacity and every (token, slot)
 position are computed over all experts from the call's total token
 count, on every rank alike; a rank dispatches and combines only the pairs
 routed to its experts, so the ranks' outputs sum to the unsharded
-output.
+output. A layer placed on an ``ep`` mesh by ``parallel.shard_params``
+(its stacks :class:`~tpu9_torch.parallel.sharding.Pieces` over the
+axis's devices) runs every rank's share on its piece's device and sums
+the f32 shares on x's device before the one rounding, so it computes
+what the unsharded layer computes, with a gradient through the copies.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import maybe_einsum
+from ..parallel.sharding import Pieces, to_device
 
 Params = Any
 
@@ -124,7 +129,49 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig,
 
     ``rank=(r, n)``: ``params`` holds experts ``[r·E/n, (r+1)·E/n)`` of
     the ``cfg.n_experts``, and the output is their share of the FFN (the
-    n ranks' outputs sum to the whole); aux is every rank's alike."""
+    n ranks' outputs sum to the whole); aux is every rank's alike. Expert
+    stacks held as :class:`Pieces` (an ``ep`` mesh) run as those ranks,
+    each on its piece's device."""
+    b, t, d = x.shape
+    if isinstance(_plane(params["w_gate"]), Pieces):
+        out, aux = _ep_shares(params, x, cfg)
+    else:
+        out, aux = _share(params, x, cfg, rank)
+    return out.to(cfg.dtype).reshape(b, t, d).to(x.dtype), aux
+
+
+def _plane(leaf):
+    return leaf["q"] if isinstance(leaf, dict) else leaf
+
+
+def _piece(leaf, r: int):
+    if isinstance(leaf, dict):
+        return {k: _piece(v, r) for k, v in leaf.items()}
+    return leaf[r]
+
+
+def _ep_shares(params: Params, x: torch.Tensor, cfg: MoeConfig):
+    """The f32 sum, on x's device, of each ``ep`` rank's share computed on
+    its piece's device, and rank 0's aux. Each token's slots add in f32
+    with exact zeros from the ranks that do not hold them, so the sum is
+    the unsharded combine's."""
+    stacks = _plane(params["w_gate"])
+    n = len(stacks)
+    shares, aux = [], None
+    for r, dev in enumerate(stacks.devices):
+        local = {"router": to_device(params["router"], dev),
+                 **{k: _piece(params[k], r)
+                    for k in ("w_gate", "w_up", "w_down")}}
+        share, rank_aux = _share(local, to_device(x, dev), cfg, (r, n))
+        shares.append(to_device(share, x.device))
+        aux = aux or rank_aux
+    return torch.stack(shares).sum(dim=0), aux
+
+
+def _share(params: Params, x: torch.Tensor, cfg: MoeConfig,
+           rank: tuple[int, int]):
+    """Rank ``rank``'s share of the FFN as f32 ``[B*T, dim]`` (before the
+    one rounding to ``cfg.dtype``), and aux."""
     b, t, d = x.shape
     n = b * t
     e, k = cfg.n_experts, cfg.top_k
@@ -176,4 +223,4 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoeConfig,
     aux = {"balance_loss": balance_loss,
            "dropped_frac": 1.0 - in_cap.float().sum() * (1.0 / (n * k)),
            "expert_load": frac_tokens}
-    return out.to(cfg.dtype).reshape(b, t, d).to(x.dtype), aux
+    return out, aux

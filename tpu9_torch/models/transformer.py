@@ -35,7 +35,8 @@ from ..ops.norms import rms_norm
 from ..ops.quant import maybe_matmul, quantize_kv
 from ..ops.rotary import apply_rope, rope_table
 from ..parallel.sharding import (RankLayout, RankParams, gather_leaf,
-                                 rank_layout, ranks, reduce_partials,
+                                 leaf_device, rank_layout, ranks,
+                                 reduce_partials, regroup_attention,
                                  to_device)
 from .moe import MoeConfig, init_moe_layer, moe_ffn
 
@@ -320,12 +321,17 @@ def decoder_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                         decode, rope, return_hidden, return_moe_aux)
 
 
-def _layer(layers: list, x: torch.Tensor, cfg: DecoderConfig, rcfg,
+def _layer(shards: list, x: torch.Tensor, cfg: DecoderConfig, rcfg,
            lay: RankLayout, devs: list, on: list, kvs: list, layer_idx: int,
            decode: bool):
-    """One layer over the ranks: ``layers[r]`` is rank r's layer on
-    ``devs[r]``, ``on[r]`` its (positions, sin, cos, cache_len) and
-    ``kvs[r]`` its KV shard. Returns (x, the MoE aux or None)."""
+    """One layer over the ranks: ``shards[r]`` is rank r's layer for
+    ``devs[r]`` (its fsdp pieces gathered there first, here, so a
+    checkpointed layer holds only the pieces), ``on[r]`` its (positions,
+    sin, cos, cache_len) and ``kvs[r]`` its KV shard. Returns (x, the MoE
+    aux or None)."""
+    layers = regroup_attention(
+        [{k: gather_leaf(v, d) for k, v in shard.items()}
+         for shard, d in zip(shards, devs)], lay, devs)
     dev0 = devs[0]
     attn_ranks = range(len(devs)) if lay.attn_split else range(1)
     ffn_ranks = range(len(devs)) if lay.ffn else range(1)
@@ -388,23 +394,32 @@ def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     copy and gather is the identity and the reduction is the partial
     itself.
 
+    Rank shards sliced without a config (``parallel.shard_params``) are
+    fitted to ``cfg`` here (``RankLayout.resolve``): where its layout
+    wants other kv slices than the even ones, each layer regroups them
+    from the ranks that hold them. A plain tree may hold :class:`Pieces`
+    (a tree sharded by ``fsdp_specs``): it runs as one rank, gathering
+    them. ``tokens`` move to rank 0's device.
+
     ``remat`` checkpoints each layer of the no-cache forward
     (``torch.utils.checkpoint``, non-reentrant): under grad a layer keeps
-    only its input and runs again in the backward, the reference's remat
-    on the layer boundary. Only the no-cache forward carries a gradient,
-    and only over a plain tree.
+    only its input and the shards it reads, and runs again in the
+    backward, the reference's remat on the layer boundary. A layer's fsdp
+    pieces are gathered inside it, so the gathered weights are not kept
+    but gathered again in the backward, as the reference's remat under
+    GSPMD does. Only the no-cache forward carries a gradient; over rank
+    shards it reaches every rank's leaves through the copies between
+    devices.
     """
     if remat and kv_cache is not None:
         raise ValueError("remat applies to the no-cache forward only")
-    if remat and isinstance(params, RankParams):
-        raise ValueError("rank shards serve; the sharded train step is not "
-                         "ported")
     shards = ranks(params)
     if isinstance(params, RankParams):
-        devs, lay = params.devices, params.layout
+        devs, lay = params.devices, params.layout.resolve(cfg)
     else:
-        devs, lay = [params["embed"].device], rank_layout(cfg, 1)
+        devs, lay = [leaf_device(params["embed"])], rank_layout(cfg, 1)
     dev0 = devs[0]
+    tokens = to_device(tokens, dev0)
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -435,9 +450,7 @@ def decoder_core(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
     balances = []
     for i in range(len(shards[0]["layers"])):
-        layers = [{k: gather_leaf(v, d) for k, v in
-                   shards[r]["layers"][i].items()}
-                  for r, d in enumerate(devs)]
+        layers = [shard["layers"][i] for shard in shards]
         args = (layers, x, cfg, rcfg, lay, devs, on, kvs, i, decode)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_layer, *args, use_reentrant=False)

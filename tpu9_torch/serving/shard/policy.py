@@ -36,7 +36,7 @@ import torch
 from ...models.transformer import init_kv_cache
 from ...parallel.sharding import (Ranked, RankParams, map_leaves,
                                   map_placed, named_leaves, placed_leaves,
-                                  rank_layout, shard_params, shard_part,
+                                  rank_layout, shard_decoder, shard_part,
                                   to_device)
 from ...utils.platform import default_device
 from .plan import Topology, parse_topology
@@ -177,8 +177,8 @@ class MeshPolicy(SingleDevicePolicy):
         tree already placed passes through."""
         if isinstance(params, RankParams):
             return params
-        return shard_params(params, cfg, self.topology.tp,
-                            self.topology.fsdp, self.devices)
+        return shard_decoder(params, cfg, self.topology.tp,
+                             self.topology.fsdp, self.devices)
 
     def abstract(self, params, cfg=None):
         """The meta rank shards of a full (real or meta) tree: the shapes
@@ -189,8 +189,8 @@ class MeshPolicy(SingleDevicePolicy):
         def meta(t, device):
             return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
-        return shard_params(params, cfg, self.topology.tp,
-                            self.topology.fsdp, self.devices, place=meta)
+        return shard_decoder(params, cfg, self.topology.tp,
+                             self.topology.fsdp, self.devices, place=meta)
 
     def materialize(self, params: RankParams) -> RankParams:
         return map_placed(
@@ -205,10 +205,10 @@ class MeshPolicy(SingleDevicePolicy):
         tp, fsdp = self.topology.tp, self.topology.fsdp
         if part is None:
             if not isinstance(params, RankParams):
-                params = shard_params(params, cfg, tp, fsdp, self.devices,
-                                      place=_view)
+                params = shard_decoder(params, cfg, tp, fsdp, self.devices,
+                                       place=_view)
             return dict(named_leaves(params))
-        pieces = shard_part(part, params, cfg, tp, fsdp, self.devices,
+        pieces = shard_part(part, params, self.layout(cfg), self.devices,
                             place=_view)
         return {path: t for r, piece in enumerate(pieces)
                 for path, t in named_leaves(piece, f"{r}/{part}")}

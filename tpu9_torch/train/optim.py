@@ -10,7 +10,13 @@ every product runs in that dtype. ``adamw``'s weight decay defaults to
 optax's 1e-4 (``torch.optim.AdamW``'s is 0.01).
 
 A tree is dicts, lists and tuples of tensors; a dict's leaves are taken
-in sorted key order, as JAX flattens a dict.
+in sorted key order, as JAX flattens a dict. A sharded tree
+(``parallel.shard_params``) holds rank shards and pieces: a map keeps
+their types and attributes, maps a tensor that several places share once
+(so a shared replica stays one tensor), and the norm counts each logical
+parameter once (:func:`logical_leaves`), as ``optax.global_norm`` over the
+logical tree does. Replicas of one value on distinct devices get the sum
+of their gradients (:func:`sum_replicas`), so they take the same steps.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from ..parallel.sharding import (RankParams, TreeList, reduce_partials,
+                                 replica_groups, to_device)
 
 Params = Any
 
@@ -32,15 +41,67 @@ def tree_leaves(tree: Params) -> list:
 
 def tree_map(fn: Callable, tree: Params, *rest: Params) -> Params:
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
-    tree of ``rest`` (same structure)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
-               for i, v in enumerate(tree)]
-        return tuple(out) if isinstance(tree, tuple) else out
-    return fn(tree, *rest)
+    tree of ``rest`` (same structure). Rank shards and pieces keep their
+    types and attributes; leaves that are the same tensors as at an
+    earlier position map to the same result."""
+    return _map(fn, {}, tree, *rest)
+
+
+def _map(fn: Callable, memo: dict, t, *r):
+    # module level, not a nested closure: a recursive closure is a
+    # reference cycle, which would hold ``memo``'s results (gradients, the
+    # optimizer's intermediates) until the cyclic collector runs
+    if isinstance(t, dict):
+        return {k: _map(fn, memo, v, *(x[k] for x in r)) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        out = [_map(fn, memo, v, *(x[i] for x in r)) for i, v in enumerate(t)]
+        if isinstance(t, TreeList):
+            return t.like(out)
+        return tuple(out) if isinstance(t, tuple) else out
+    key = (id(t), *map(id, r))
+    if key not in memo:
+        memo[key] = fn(t, *r)
+    return memo[key]
+
+
+def logical_leaves(tree: Params) -> list:
+    """Each logical parameter of ``tree`` once, in the tree's order: a
+    tensor shared by several places once, and of rank shards' replicas of
+    one value (on distinct devices, :func:`replica_groups`) the first."""
+    seen: set = set()
+    return [leaf for leaf in _logical(tree)
+            if id(leaf) not in seen and not seen.add(id(leaf))]
+
+
+def _logical(t):
+    if isinstance(t, RankParams):
+        yield from (group[0] for group in replica_groups(t))
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            yield from _logical(t[k])
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            yield from _logical(v)
+    else:
+        yield t
+
+
+def sum_replicas(grads: Params) -> Params:
+    """``grads`` of rank shards with each group of replicas on distinct
+    devices given the sum of the group's gradients, each on its own
+    device: the all-reduce a replicated parameter's gradient takes, so
+    every replica takes the same step. Other trees are returned as they
+    are."""
+    if not isinstance(grads, RankParams):
+        return grads
+    summed: dict = {}
+    for group in replica_groups(grads):
+        if len(group) > 1:
+            total = reduce_partials(group, group[0].device)
+            summed.update((id(g), to_device(total, g.device)) for g in group)
+    if not summed:
+        return grads
+    return tree_map(lambda g: summed.get(id(g), g), grads)
 
 
 class GradientTransformation(NamedTuple):
@@ -121,6 +182,10 @@ def apply_updates(params: Params, updates: Params) -> Params:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """``optax.global_norm``: the square root of the sum, leaf by leaf in
-    the tree's order, of each leaf's sum of squares (in its dtype)."""
-    total = sum(torch.sum(x * x) for x in tree_leaves(tree))
+    the tree's order, of each leaf's sum of squares (in its dtype), over
+    the logical leaves (:func:`logical_leaves`): a piece's sum on its own
+    device, added on the first leaf's."""
+    leaves = logical_leaves(tree)
+    device = leaves[0].device
+    total = sum(to_device(torch.sum(x * x), device) for x in leaves)
     return torch.sqrt(total)

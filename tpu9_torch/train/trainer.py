@@ -13,12 +13,20 @@ block-aligned shapes each layer's attention is the flash kernel with its
 gradient (``ops.attention.FlashAttention``), so a checkpointed step runs
 the kernel twice a layer: the forward and the backward's recompute.
 
-One device: the reference's ``constrain(tokens, batch_spec)`` is the
-identity there, and its ``mesh``/``param_specs`` arguments wait for the
-sharded train step (ROADMAP queue A14; the serving side's rank shards,
-``parallel/sharding.py``, serve only). Steps are
-functional, as the reference's jitted ones are: they return new trees
-and leave their inputs as they were.
+Sharding comes from the inputs, as in the reference: ``init_train_state
+(params, opt, mesh, param_specs)`` (or ``parallel.shard_params``) places
+the params on a mesh, and the steps take state so placed. One process
+drives the mesh (single-controller): a decoder's rank shards run rank by
+rank (``models/transformer.py``), each layer's fsdp pieces gathered inside
+its checkpoint; the gradient reaches every piece through the copies, and
+the optimizer's state is sharded as the params are. The batch stays whole
+on rank 0's device: the reference's ``constrain(tokens, P(("dp",
+"fsdp"), None))`` is a layout hint here (it checks the axes under a mesh
+context), and dp adds no rows of its own, so the loss is the whole
+batch's mean and a MoE layer's router sees the whole batch's tokens, as
+the reference's capacity does (ROADMAP C10). Steps are functional, as
+the reference's jitted ones are: they return new trees and leave their
+inputs as they were.
 """
 
 from __future__ import annotations
@@ -30,9 +38,10 @@ import torch
 
 from ..models import lora as lora_lib
 from ..models.transformer import DecoderConfig, decoder_core
+from ..parallel.sharding import P, constrain, placed, same_device, shard_params
 from ..utils.platform import default_device
 from .optim import (GradientTransformation, apply_updates, global_norm,
-                    tree_leaves, tree_map)
+                    sum_replicas, tree_leaves, tree_map)
 
 Params = dict[str, Any]
 
@@ -59,34 +68,50 @@ def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     return nll.mean()
 
 
+BATCH_SPEC = P(("dp", "fsdp"), None)
+
+
 def _on(device: torch.device, tree: Params, what: str) -> None:
-    """Every leaf of ``tree`` on ``device`` (of its type, and at its index
-    where it names one, as the engine checks its params), or raise: a step
-    moves no weights."""
-    for leaf in tree_leaves(tree):
-        if leaf.device.type != device.type or (
-                device.index is not None and leaf.device.index != device.index):
-            raise ValueError(f"{what} has a tensor on {leaf.device}, the "
-                             f"step runs on {device}")
+    """Every leaf of ``tree`` on the device it belongs on (a rank shard's
+    or a piece's mesh device, any other leaf ``device``; of its type, and
+    at its index where both name one, as the engine checks its params), or
+    raise: a step moves no weights."""
+    for path, leaf, want in placed(tree, device):
+        if not same_device(leaf.device, want):
+            raise ValueError(f"{what} has a tensor on {leaf.device} at "
+                             f"{path!r}, the step runs it on {want}")
 
 
 def _value_and_grad(loss_fn: Callable, trainable: Params, *args):
     """(loss, grads of ``trainable``): ``loss_fn(trainable, *args)`` under
-    grad over leaves that share ``trainable``'s storage."""
+    grad over leaves that share ``trainable``'s storage (a tensor shared by
+    several places is one leaf, whose gradient sums theirs). A leaf the
+    loss does not read gets zeros; replicas of one value on distinct
+    devices get their sum (``optim.sum_replicas``)."""
     with torch.enable_grad():
         live = tree_map(lambda x: x.detach().requires_grad_(True), trainable)
         loss = loss_fn(live, *args)
-        leaves = tree_leaves(live)
-        by_id = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
-    return loss.detach(), tree_map(lambda x: by_id[id(x)], live)
+        leaves = _unique(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(x): torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)}
+    return loss.detach(), sum_replicas(tree_map(lambda x: by_id[id(x)],
+                                                live))
+
+
+def _unique(tree: Params) -> list:
+    seen: set = set()
+    return [x for x in tree_leaves(tree)
+            if id(x) not in seen and not seen.add(id(x))]
 
 
 def build_train_step(cfg: DecoderConfig, optimizer: GradientTransformation,
                      remat: bool = True, device=None) -> Callable:
     """Full-parameter step: ``step(state, tokens) -> (state, {"loss",
     "grad_norm"})``. Runs on ``device`` (default: the current CUDA device,
-    raising without one; ``"cpu"`` on the CPU), where ``state`` must lie;
-    ``tokens`` move there."""
+    raising without one; ``"cpu"`` on the CPU), where ``state`` must lie
+    (sharded state: each leaf on its mesh device); ``tokens`` move there.
+    ``grad_norm`` counts each logical parameter once."""
     device = default_device(device)
 
     def loss_fn(params, tokens):
@@ -95,7 +120,8 @@ def build_train_step(cfg: DecoderConfig, optimizer: GradientTransformation,
 
     def step(state: TrainState, tokens):
         _on(device, state.params, "state.params")
-        tokens = torch.as_tensor(tokens, device=device)
+        tokens = constrain(torch.as_tensor(tokens, device=device),
+                           BATCH_SPEC)
         loss, grads = _value_and_grad(loss_fn, state.params, tokens)
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.params)
@@ -107,10 +133,15 @@ def build_train_step(cfg: DecoderConfig, optimizer: GradientTransformation,
     return step
 
 
-def init_train_state(params: Params,
-                     optimizer: GradientTransformation) -> TrainState:
+def init_train_state(params: Params, optimizer: GradientTransformation,
+                     mesh=None, param_specs: Optional[Params] = None
+                     ) -> TrainState:
     """The optimizer's state over ``params`` and step 0, on the params'
-    device."""
+    (first) device; with ``mesh`` and ``param_specs`` the params are first
+    placed on the mesh (``parallel.shard_params``), and the state is
+    sharded as they are."""
+    if mesh is not None and param_specs is not None:
+        params = shard_params(params, mesh, param_specs)
     device = tree_leaves(params)[0].device
     return TrainState(params=params, opt_state=optimizer.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=device))
@@ -141,14 +172,16 @@ def build_lora_train_step(cfg: DecoderConfig,
     (adapters, opt_state, {"loss"})``. Gradients reach only the adapters,
     through ``merge``; the base stays frozen. Runs on ``device`` (default:
     the current CUDA device, raising without one; ``"cpu"`` on the CPU),
-    where the adapters and the base must lie; ``tokens`` move there."""
+    where the adapters and the base must lie (sharded ones: each leaf on
+    its mesh device); ``tokens`` move there."""
     device = default_device(device)
     value_and_grad = lora_value_and_grad(cfg, scale, remat)
 
     def step(adapters, opt_state, base_params, tokens):
         _on(device, adapters, "adapters")
         _on(device, base_params, "base_params")
-        tokens = torch.as_tensor(tokens, device=device)
+        tokens = constrain(torch.as_tensor(tokens, device=device),
+                           BATCH_SPEC)
         loss, grads = value_and_grad(adapters, base_params, tokens)
         updates, opt_state = optimizer.update(grads, opt_state, adapters)
         adapters = apply_updates(adapters, updates)

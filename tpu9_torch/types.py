@@ -28,6 +28,10 @@ class GpuSpec:
     hbm_gb_per_chip: int
     bf16_tflops_per_chip: float
 
+    @property
+    def chips_per_host(self) -> int:
+        return self.chips // self.hosts
+
 
 def _h100(chips: int) -> GpuSpec:
     # H100 SXM: 80 GB HBM3, 989 TFLOP/s dense bf16 at 700 W
