@@ -220,6 +220,34 @@ each engine's 8-step decode window from the same lane state, profiled
 labelled "two ranks on one card". Phase 3 checks and times both decode
 kernels at the per-rank heads too. Nothing here ran on two cards.
 
+After the bf16 engine's phases (``phase_bench_reset``):
+``bench_reset_slots(1024, 64)`` gives every slot distinct blocks covering
+1089 positions (host and device table rows, the window's table written in
+place), then the captured 8-step window replays from length 1024 on every
+lane and launches B1 ``n_layers x 8`` times, each lane's keys written
+through its new row.
+
+After the engines, two phases of the port's tooling (``PORT_PHASES``):
+
+- zygote (``phase_zygote``): ``python -m tpu9_torch.runner.zygote``
+  forks a child (``ZYGOTE_CHILD``) over the reference's
+  socket protocol, and a fresh interpreter runs the same module: llama3-8b
+  paged bf16 at full width and depth with phase 4's weights, four greedy
+  requests of 128, 256, 512 and 1024 tokens, 32 new tokens each. The two
+  give the same tokens and B1 ``n_layers x decode steps`` launches (counted
+  in the child between its serve's zeroing and its end), no other
+  kernel's; the child exits 0 and is reaped (``{"exit": 0}``); the zygote
+  reports CUDA uninitialised after its warm-up, is never in
+  ``nvidia-smi --query-compute-apps`` and holds no ``/dev/nvidia`` file,
+  and the child finds CUDA uninitialised at its start. The cold starts,
+  spawn to first token, are printed side by side;
+- graphcheck (``phase_graphcheck``): the graph check's fake-tensor matrix
+  and Pass B without a finding, timed; the ``llama3-8b@1x1`` and
+  ``llama3-8b@2x1+wint8+kvint8`` cells over real CUDA tensors (2 layers,
+  full width) without a finding, B1 and B2 launched the counts their jobs
+  imply; and two seeded faults (an int8 weight into ``torch.matmul``, a
+  pool rebuilt out of place) found as GRA004 and GRA003.
+
 The kernel launch counts are zeroed just before each engine phase's
 requests (and the KV-motion and spec phases') and read just after: each
 decode kernel of the phase's path must have launched ``n_layers x decode
@@ -574,17 +602,18 @@ def check_twin(name: str, label: str, got: torch.Tensor,
 
 
 def paged_kernel_case(name: str, batch: int, head_dim: int, lens: list[int],
-                      seed: int, heads: tuple[int, int] = LLAMA_HEADS
-                      ) -> dict:
+                      seed: int, heads: tuple[int, int] = LLAMA_HEADS,
+                      block_s: int = 128, max_blocks: int = 17) -> dict:
     """The kernel call, its twin and the twin's result, the densified cache
     for the library call, and the bound, for one paged case with ``heads``
-    = (q heads, kv heads)."""
+    = (q heads, kv heads) over a table of ``max_blocks`` blocks of
+    ``block_s`` positions."""
     from tpu9_torch.ops import paged_attention as pa
     quant = name.endswith("_quant")
     launcher = wrapper(name)
     case = paged_case(batch=batch, q_heads=heads[0], kv_heads=heads[1],
-                      head_dim=head_dim, block_s=128,
-                      max_blocks=2048 // 128 + 1, lens=lens, seed=seed,
+                      head_dim=head_dim, block_s=block_s,
+                      max_blocks=max_blocks, lens=lens, seed=seed,
                       quant=quant)
     q, k, v, table, clen = (case[n] for n in ("q", "k", "v", "table", "lens"))
     scales = (case["ks"], case["vs"]) if quant else ()
@@ -655,22 +684,26 @@ def ragged_kernel_case(head_dim: int, lens: list[int], seed: int,
 
 def decode_kernel_case(name: str, batch: int, head_dim: int,
                        lens: list[int],
-                       heads: tuple[int, int] = LLAMA_HEADS) -> dict:
+                       heads: tuple[int, int] = LLAMA_HEADS,
+                       table: tuple[int, int] = (128, 17)) -> dict:
     seed = head_dim + batch + sum(heads) - 48          # llama's: D + B - 8
     if name == "ragged_decode_attention":
         return ragged_kernel_case(head_dim, lens, seed=100 + seed,
                                   heads=heads)
     return paged_kernel_case(name, batch, head_dim, lens, seed=seed,
-                             heads=heads)
+                             heads=heads, block_s=table[0],
+                             max_blocks=table[1])
 
 
 def phase_decode_kernel(name: str, label: str, head_dim: int,
                         batch: int = 8, lens: list[int] = PAGED_LENS,
-                        heads: tuple[int, int] = LLAMA_HEADS) -> dict:
+                        heads: tuple[int, int] = LLAMA_HEADS,
+                        table: tuple[int, int] = (128, 17)) -> dict:
     """One decode kernel at one shape: launched once, checked finite over
     the poisoned blocks (NaN positions) and against its twin, then timed
-    beside the twin, one library call and its bound."""
-    c = decode_kernel_case(name, batch, head_dim, lens, heads)
+    beside the twin, one library call and its bound. ``table`` is a paged
+    case's (block size, table width)."""
+    c = decode_kernel_case(name, batch, head_dim, lens, heads, table)
     launcher = wrapper(name)
     before = launcher.launches
     got = c["kernel"]()
@@ -945,6 +978,10 @@ def phase_kernels() -> list[dict]:
                 keep(dict(row, shape="mixtral-8x7b (as llama3-8b) "
                           + row["shape"].removeprefix("llama3-8b ")),
                      mixtral_paths[name])
+            if batch == 8 and name == "paged_decode_attention":
+                # the zygote phase's forked child serves phase 4's engine
+                keep(dict(row, shape="zygote child " + row["shape"]),
+                     "zygote")
         phase_decode_kernel(name, f"llama-1b {what.format('B=8')} QH=32 KH=8 "
                             f"D=64 {bs}", 64)
         for model, heads in GEMMA_HEADS.items():
@@ -985,6 +1022,20 @@ def phase_kernels() -> list[dict]:
                 quant, f"{model} verify B=8 T={VERIFY_T} {pool} "
                 f"QH={heads[0]} KH={heads[1]} D=256 BS=128 MB=17", 256,
                 heads)
+    # the graph check's real-tensor cells, each rank's heads: their jobs
+    # run with every lane inactive, so every lane at length 1
+    from tpu9_torch.analysis.graphcheck.matrix import find_cells
+    for cell in find_cells(list(GRAPHCHECK_REAL)):
+        tp = int(cell.topology.split("x")[0])
+        heads = (LLAMA_HEADS[0] // tp, LLAMA_HEADS[1] // tp)
+        table = (cell.kv_block_size,
+                 cell.max_seq_len // cell.kv_block_size + 1)
+        keep(phase_decode_kernel(
+            GRAPHCHECK_REAL[cell.name], f"graphcheck {cell.name} decode "
+            f"B={cell.max_batch} len 1 QH={heads[0]} KH={heads[1]} D=128 "
+            f"BS={table[0]} MB={table[1]}", 128, batch=cell.max_batch,
+            lens=[1] * cell.max_batch, heads=heads, table=table),
+            "graphcheck")
     return rows
 
 
@@ -3857,6 +3908,468 @@ def phase_classifier(card: str) -> dict:
 ENCODER_PHASES = {"vision": phase_vision, "classifier": phase_classifier}
 
 
+# -- after phase 4: bench_reset_slots -----------------------------------------
+
+BENCH_CTX0 = 1024
+BENCH_BUDGET = 64
+BENCH_WINDOW = 8
+
+
+def phase_bench_reset(engine, card: str) -> None:
+    """``bench_reset_slots(1024, 64)`` on the bf16 engine once its other
+    phases are done: every slot's table row distinct blocks covering 1089
+    positions, on the host and on the device, then the captured 8-step
+    window replayed from length 1024 on every lane: B1 launched
+    ``n_layers x 8`` times, the lanes advanced by 8 and each lane's new
+    keys written into its own block past 1024 (the window read the new
+    rows)."""
+    from tpu9_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    cfg, pool = engine.cfg, engine.pool
+    engine.bench_reset_slots(BENCH_CTX0, BENCH_BUDGET)
+    need = -(-(BENCH_CTX0 + BENCH_BUDGET + 1) // pool.ecfg.kv_block_size)
+    rows = pool.table_np[:, :need]
+    check(all(len(b) == need for b in pool.slot_blocks),
+          f"bench_reset_slots gave {[len(b) for b in pool.slot_blocks]} "
+          f"blocks, {need} a slot cover {BENCH_CTX0 + BENCH_BUDGET + 1}")
+    check(len(set(rows.ravel().tolist())) == rows.size
+          and pool.trash_block not in rows,
+          "bench_reset_slots rows share blocks or hold the trash block")
+    check(np.array_equal(engine.kv_cache["table"].cpu().numpy(),
+                         pool.table_np), "the device table is not the host's")
+    check(engine.graphs.window.kv_cache["table"] is pool.table,
+          "the window's table was rebound")
+    check(engine._host_len.tolist() == [BENCH_CTX0] * engine.ecfg.max_batch,
+          f"host lengths {engine._host_len.tolist()}")
+    window = engine.graphs.decode_k(BENCH_WINDOW)
+    check(type(window).__name__ == "CapturedWindow",
+          f"the {BENCH_WINDOW}-step window is not captured")
+    engine.cache_len.fill_(BENCH_CTX0)
+    engine._active_dev.fill_(True)
+    engine.last_token.fill_(1)
+    # each lane's block holding positions 1024 onwards
+    blk = torch.as_tensor(
+        pool.table_np[:, BENCH_CTX0 // pool.ecfg.kv_block_size],
+        dtype=torch.long, device=engine.device)
+    k0 = engine.kv_cache["k"][0, blk].clone()
+    torch.cuda.synchronize()
+    pa.paged_decode_attention.launches = 0
+    window()
+    torch.cuda.synchronize()
+    launches = pa.paged_decode_attention.launches
+    want = cfg.n_layers * BENCH_WINDOW
+    check(launches == want, f"the replay launched B1 {launches} times, "
+          f"expected {want}")
+    check(engine.cache_len.tolist() == [BENCH_CTX0 + BENCH_WINDOW]
+          * engine.ecfg.max_batch, f"lanes at {engine.cache_len.tolist()}")
+    k1 = engine.kv_cache["k"][0, blk]
+    written = (k1[:, :BENCH_WINDOW] != k0[:, :BENCH_WINDOW]).flatten(1)
+    check(bool(written.any(1).all()) and bool(torch.isfinite(k1).all()),
+          "a lane's keys past its reset length were not written through "
+          "its new table row")
+    print(f"bench_reset_slots({BENCH_CTX0}, {BENCH_BUDGET}): {need} distinct "
+          f"blocks a slot over {engine.ecfg.max_batch} slots, the table "
+          f"written in place; the captured {BENCH_WINDOW}-step window "
+          f"replayed from {BENCH_CTX0}: B1 {launches} launches "
+          f"({cfg.n_layers} x {BENCH_WINDOW}), every lane's keys written "
+          f"through its new row; {time.perf_counter() - t0:.2f} s ({card})")
+
+
+# -- the runner zygote: llama3-8b served from a forked child --------------------
+
+ZYGOTE_PROMPTS = (128, 256, 512, 1024)
+ZYGOTE_NEW = 32
+ZYGOTE_KERNELS = ("paged_decode_attention", "flash_attention")
+ZYGOTE_LIMIT_S = 240
+# the child module a zygote forks and a fresh interpreter runs: the bf16
+# phase's engine (seed 0, full width and depth), four greedy requests at
+# once; it prints its tokens, its launches between the serve's zeroing and
+# its end, and wall-clock stamps of its start, its engine's readiness and
+# its first token
+ZYGOTE_CHILD = """
+import time
+T_START = time.time()
+import asyncio, json
+import numpy as np
+import torch
+from tpu9_torch.ops import _build, attention, paged_attention
+from tpu9_torch.serving.presets import load_engine
+
+# what loading the libraries before the fork would save: a cache hit
+# after a zygote's KERNEL_PRELOAD, a dlopen here
+t0 = time.perf_counter()
+for name in {kernels!r}:
+    _build.load(name)
+KERNEL_LOAD_S = time.perf_counter() - t0
+
+
+async def main():
+    engine = load_engine("llama3-8b", max_batch=8, max_seq_len=2048,
+                         seed=0, compile_ahead=True)
+    engine.warmup()
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, engine.cfg.vocab_size, n).tolist()
+               for n in {lens!r}]
+    firsts = []
+
+    async def one(p):
+        req = await engine.generate(p, max_new_tokens={new}, stream=True)
+        toks = []
+        while (tok := await req.queue.get()) is not None:
+            if not toks:
+                firsts.append(time.time())
+            toks.append(tok)
+        assert not req.error, req.error
+        return toks
+
+    await engine.start()
+    try:
+        steps0 = engine.stats()["decode_steps"]
+        for w in paged_attention.COUNTED + (attention.flash_attention,):
+            w.launches = 0
+        outs = await asyncio.gather(*[one(p) for p in prompts])
+        launches = {{**paged_attention.launch_counts(),
+                    "flash_attention": attention.flash_attention.launches}}
+        steps = engine.stats()["decode_steps"] - steps0
+    finally:
+        await engine.stop()
+    print("ZYGOTE_CHILD " + json.dumps({{
+        "tokens": outs, "launches": launches, "steps": steps,
+        "n_layers": engine.cfg.n_layers, "start": T_START,
+        "ready": t_ready, "first": min(firsts),
+        "cuda_at_start": CUDA_AT_START,
+        "kernel_load_s": KERNEL_LOAD_S}}), flush=True)
+
+
+CUDA_AT_START = [torch.cuda.is_initialized(), torch.cuda._is_in_bad_fork()]
+asyncio.run(main())
+""".format(lens=ZYGOTE_PROMPTS, new=ZYGOTE_NEW, kernels=ZYGOTE_KERNELS)
+
+
+# what a zygote's --preload of it does: the built kernel libraries loaded
+# before the fork (measured by scripts/zygote_coldstart.py, not kept: the
+# cold start does not show it, PERF.md §6)
+KERNEL_PRELOAD = """
+from tpu9_torch.ops import _build
+for name in {kernels!r}:
+    if _build.library_path(name).exists():
+        _build.load(name)
+""".format(kernels=ZYGOTE_KERNELS)
+
+
+def _compute_pids() -> set:
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    return {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+
+
+def _nvidia_fds(pid: int) -> list:
+    """The ``/dev/nvidia*`` files ``pid`` holds open: a CUDA context opens
+    them, an import or a ``dlopen`` does not."""
+    out = []
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            target = os.readlink(fd)
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return out
+
+
+def _start_zygote(sock: str, log: Path, preload=(),
+                  path: str = "") -> subprocess.Popen:
+    args = [a for m in preload for a in ("--preload", m)]
+    env = _child_env()
+    if path:
+        env["PYTHONPATH"] += os.pathsep + path
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpu9_torch.runner.zygote", "--sock", sock,
+         *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=log.open("w"), start_new_session=True)
+
+
+def _child_env() -> dict:
+    env = {k: os.environ[k] for k in ("PATH", "HOME", "LANG", "CUDA_HOME",
+                                       "LD_LIBRARY_PATH", "TMPDIR")
+           if k in os.environ}
+    env.update(PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    return env
+
+
+def _await_ready(proc: subprocess.Popen, label: str) -> float:
+    t0 = time.perf_counter()
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], ZYGOTE_LIMIT_S)
+    line = proc.stdout.readline().decode() if ready else ""
+    check(line == "zygote: ready\n", f"{label} said {line!r}")
+    return time.perf_counter() - t0
+
+
+def _read_all(fd: int, into: list) -> None:
+    with os.fdopen(fd, "rb") as f:
+        into.append(f.read().decode())
+
+
+def _child_result(out: str, label: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("ZYGOTE_CHILD ")]
+    check(len(lines) == 1, f"{label} printed no result")
+    return json.loads(lines[0][len("ZYGOTE_CHILD "):])
+
+
+def _spawn_forked(sock: str, cwd: str, zygote_pid: int, label: str):
+    """One spawn over the reference protocol (a JSON line with the
+    child's stdout and stderr fds by ``SCM_RIGHTS``, then ``{"pid": N}``
+    and ``{"exit": code}``), sampling the card's compute pids while the
+    child runs. Returns (the child's result, the wall stamp of the spawn,
+    every compute pid seen, the exit reply)."""
+    import socket
+    import threading
+    out_r, out_w = os.pipe()
+    err_r, err_w = os.pipe()
+    payload = json.dumps({"env": _child_env(), "cwd": cwd,
+                          "module": "zygote_child", "argv": []}).encode()
+    t_spawn = time.time()
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(30.0)
+    s.connect(sock)
+    socket.send_fds(s, [payload + b"\n"], [out_w, err_w])
+    os.close(out_w)
+    os.close(err_w)
+    reply = s.makefile("rb")
+    pid = json.loads(reply.readline())["pid"]
+    outs, errs = [], []
+    readers = [threading.Thread(target=_read_all, args=(fd, into))
+               for fd, into in ((out_r, outs), (err_r, errs))]
+    for t in readers:
+        t.start()
+    seen: set = set()
+    while readers[0].is_alive():
+        seen |= _compute_pids()
+        readers[0].join(0.5)
+        check(time.time() - t_spawn < ZYGOTE_LIMIT_S,
+              f"{label} child ran past {ZYGOTE_LIMIT_S} s")
+    for t in readers:
+        t.join()
+    s.settimeout(ZYGOTE_LIMIT_S)
+    exit_line = json.loads(reply.readline())
+    s.close()
+    check(exit_line == {"exit": 0}, f"{label} child ended {exit_line}: "
+          f"{errs[0][-2000:]}")
+    check(zygote_pid not in seen, f"the {label} zygote {zygote_pid} was a "
+          f"CUDA compute app: {sorted(seen)}")
+    return _child_result(outs[0], label), t_spawn, pid, seen
+
+
+def zygote_runs(work: Path, order, card: str) -> list:
+    """Run the child module (``ZYGOTE_CHILD``, written into ``work``) in
+    ``order``: ``"zygote"`` forks it from the zygote,
+    ``"zygote-kernels"`` from one that also preloads a module loading the
+    built kernel libraries (``KERNEL_PRELOAD``, by ``dlopen``), ``"exec"``
+    runs it in a fresh interpreter. Each zygote
+    must report CUDA uninitialised after its warm-up, never be a CUDA
+    compute app and hold no ``/dev/nvidia`` file; each forked child must
+    find CUDA uninitialised at its start and exit 0, reaped
+    (``{"exit": 0}``). Returns ``(label, result, wall stamp of the
+    spawn)`` in ``order``."""
+    (work / "zygote_child.py").write_text(ZYGOTE_CHILD)
+    (work / "zygote_kernels.py").write_text(KERNEL_PRELOAD)
+    zygotes = {}
+    runs = []
+    try:
+        for label in dict.fromkeys(order):
+            if label != "exec":
+                kernels = label == "zygote-kernels"
+                zygotes[label] = _start_zygote(
+                    str(work / f"{label}.sock"), work / f"{label}.log",
+                    ("zygote_kernels",) if kernels else (),
+                    str(work) if kernels else "")
+        for label, proc in zygotes.items():
+            warm_s = _await_ready(proc, label)
+            warm = (work / f"{label}.log").read_text()
+            check("cuda initialized False" in warm, f"{label}: {warm}")
+            print(f"zygote {label}: ready {warm_s:.2f} s after the wait "
+                  f"began, pid {proc.pid}; "
+                  f"{warm.strip().splitlines()[-1]}")
+        for label in order:
+            if label == "exec":
+                t_spawn = time.time()
+                proc = subprocess.run(
+                    [sys.executable, str(work / "zygote_child.py")],
+                    cwd=work, env=_child_env(), capture_output=True,
+                    text=True, timeout=ZYGOTE_LIMIT_S)
+                check(proc.returncode == 0, f"the exec'd child failed: "
+                      f"{proc.stderr[-2000:]}")
+                runs.append((label, _child_result(proc.stdout, label),
+                             t_spawn))
+                continue
+            zproc = zygotes[label]
+            res, t_spawn, pid, seen = _spawn_forked(
+                str(work / f"{label}.sock"), str(work), zproc.pid, label)
+            fds = _nvidia_fds(zproc.pid)
+            check(not fds, f"the {label} zygote holds {fds}")
+            check(res["cuda_at_start"] == [False, False],
+                  f"the {label} child found CUDA state at its start: "
+                  f"{res['cuda_at_start']}")
+            where = ("seen" if pid in seen else "not seen: the card "
+                     "reports pids of another namespace")
+            print(f"zygote {label}: child {pid} served; compute pids seen "
+                  f"{sorted(seen)} (the child {where}), the zygote "
+                  f"{zproc.pid} never; the zygote holds no /dev/nvidia file")
+            runs.append((label, res, t_spawn))
+    finally:
+        for proc in zygotes.values():
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            proc.wait(timeout=30)
+    for label, res, t_spawn in runs:
+        print(f"zygote {label}: from the spawn: module start "
+              f"{res['start'] - t_spawn:.3f} s, engine ready "
+              f"{res['ready'] - t_spawn:.3f} s, first token "
+              f"{res['first'] - t_spawn:.3f} s; kernel libraries loaded in "
+              f"{res['kernel_load_s'] * 1e3:.2f} ms ({card})")
+    return runs
+
+
+def phase_zygote(card: str) -> dict:
+    """The zygote (``python -m tpu9_torch.runner.zygote``) forks the child
+    module (``ZYGOTE_CHILD``: llama3-8b paged bf16 at
+    full width and depth, phase 4's weights, four greedy requests of
+    128-1024 tokens, 32 new tokens each), then a fresh interpreter runs
+    it (``zygote_runs``): the same tokens, B1 ``n_layers x decode steps``
+    launches in each and no other kernel's. Returns the forked child's
+    launches."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="zygote-", dir=ROOT / "build"))
+    try:
+        runs = {label: (res, t) for label, res, t
+                in zygote_runs(work, ("zygote", "exec"), card)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = runs["exec"][0]["tokens"]
+    for label, (res, _) in runs.items():
+        check(res["tokens"] == want, f"{label} tokens differ from the exec'd "
+              f"child's")
+        check(all(len(t) == ZYGOTE_NEW for t in res["tokens"]),
+              f"{label}: a request returned a short stream")
+        b1 = res["n_layers"] * res["steps"]
+        expect = {name: 0 for name in KERNELS}
+        expect["paged_decode_attention"] = b1
+        check(res["steps"] > 0 and res["launches"] == expect,
+              f"{label} launches {res['launches']}, expected {expect}")
+        print(f"zygote {label}: {len(want)} requests x {ZYGOTE_NEW} tokens, "
+              f"the exec'd child's tokens; B1 {b1} launches "
+              f"({res['n_layers']} layers x {res['steps']} decode steps), "
+              f"B2-B4 none ({card})")
+    (fork, t_f), (ex, t_e) = runs["zygote"], runs["exec"]
+    print(f"zygote cold start, spawn to first token: forked "
+          f"{fork['first'] - t_f:.3f} s, exec'd {ex['first'] - t_e:.3f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return fork["launches"]
+
+
+# -- the graph check: the fake matrix, two real cells, two seeded faults ----------
+
+# the cells run again over real CUDA tensors, and the kernel each launches
+GRAPHCHECK_REAL = {"llama3-8b@1x1": "paged_decode_attention",
+                   "llama3-8b@2x1+wint8+kvint8":
+                   "paged_decode_attention_quant"}
+
+
+def _seeded_faults() -> list:
+    """The two seeded faults, traced over fake tensors on this build:
+    an int8 weight sent to ``torch.matmul`` (GRA004) and a pool rebuilt
+    out of place (GRA003). Returns each fault's rule ids."""
+    from tpu9_torch.analysis.graphcheck import passes
+    from tpu9_torch.analysis.graphcheck.matrix import find_cells
+
+    def job(cs, key):
+        return next(a for k, _, a in cs.jobs() if k == key)
+
+    with passes.traced_cell(find_cells(["llama3-8b@2x1+wint8+kvint8"])[0]) \
+            as cs:
+        w = cs.params[0]["layers"][0]["wq"]["q"]
+
+        def leaking(pool, row, scratch):
+            torch.matmul(torch.zeros((2, w.shape[0]), dtype=torch.int8,
+                                     device=w.device), w)
+            return scratch
+
+        int8_fs, _ = passes.check_job(cs, "gather", lambda: leaking,
+                                      job(cs, "gather"))
+    with passes.traced_cell(find_cells(["llama3-8b@1x1"])[0]) as cs:
+        def rebuilding(pool, k, v, offset, phys):
+            return {n: t.clone() for n, t in pool.items()}
+
+        pool_fs, _ = passes.check_job(cs, "splice", lambda: rebuilding,
+                                      job(cs, "splice"))
+    return [sorted({f.rule for f in fs}) for fs in (int8_fs, pool_fs)]
+
+
+def phase_graphcheck(card: str) -> dict:
+    """``python -m tpu9_torch.analysis.graphcheck``'s Pass A over the whole
+    matrix (fake CUDA tensors on this CUDA build) and Pass B, both without
+    a finding; then ``GRAPHCHECK_REAL``'s cells over real CUDA tensors at
+    full width (2 layers): no finding, and each launches its kernel the
+    jobs' count (the 1- and 4-step windows and the verify window, a layer
+    and a rank each); then the two seeded faults, each found under its
+    rule. Returns the real cells' launches."""
+    from tpu9_torch.analysis.graphcheck import lint_tree, passes
+    from tpu9_torch.analysis.graphcheck.matrix import MATRIX, find_cells
+    t0 = time.perf_counter()
+    report = passes.run_matrix()
+    lint = lint_tree(ROOT)
+    fake_s = time.perf_counter() - t0
+    found = [f.format() for f in report["findings"] + lint]
+    check(not found, f"graphcheck findings: {found[:5]}")
+    check(len(report["cells"]) == len(MATRIX), "a cell did not run")
+    print(f"graphcheck: {len(MATRIX)} cells over fake CUDA tensors and Pass "
+          f"B in {fake_s:.2f} s, no finding; cells "
+          f"{[(c['cell'], c['elapsed_s']) for c in report['cells']]} "
+          f"({card})")
+    launches = {name: 0 for name in KERNELS}
+    for cell in find_cells(list(GRAPHCHECK_REAL)):
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        findings, stats = passes.run_cell(cell, real=True)
+        torch.cuda.synchronize()
+        got = _launches()
+        check(not findings, f"graphcheck {cell.name} real: "
+              f"{[f.format() for f in findings][:5]}")
+        tp = int(cell.topology.split("x")[0])
+        name = GRAPHCHECK_REAL[cell.name]
+        want = {n: 0 for n in KERNELS}
+        want[name] = cell.n_layers * (sum(cell.decode_steps) + 1) * tp
+        check(got == want and stats["kernels"] == {name: want[name]},
+              f"graphcheck {cell.name} real launches {got} (recorded "
+              f"{stats['kernels']}), expected {want}")
+        launches[name] += got[name]
+        print(f"graphcheck {cell.name} over real CUDA tensors: {stats['jobs']}"
+              f" jobs in {time.perf_counter() - t1:.2f} s, no finding; "
+              f"{name} {got[name]} launches ({cell.n_layers} layers x "
+              f"{sum(cell.decode_steps) + 1} windows x {tp} ranks); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    rules = _seeded_faults()
+    check(rules == [["GRA004"], ["GRA003"]], f"seeded faults found {rules}")
+    print(f"graphcheck seeded faults: an int8 weight into torch.matmul "
+          f"found as {rules[0]}, a pool rebuilt out of place as {rules[1]}; "
+          f"phase {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
+PORT_PHASES = {"zygote": phase_zygote, "graphcheck": phase_graphcheck}
+
+
 # -- optional (--profile): where each engine's time goes ---------------------
 
 def _profile(fn, label: str, per: int, out_dir: Path) -> None:
@@ -4029,13 +4542,16 @@ def main() -> int:
             # run: their phases serve no spec, KV-motion or restore phase
             if profiling or engine.cfg.n_experts:
                 phase_profile(engine, card, kind)
+            if kind == "bf16":
+                # last: it leaves every slot holding blocks
+                phase_bench_reset(engine, card)
             # free the engine before the next one loads
             del engine
             gc.collect()
             torch.cuda.empty_cache()
             print(f"phase {kind}: {time.perf_counter() - t_phase:.1f} s "
                   f"({card})")
-        for kind, run in {**TRAIN_PHASES, **SHARD_PHASES,
+        for kind, run in {**PORT_PHASES, **TRAIN_PHASES, **SHARD_PHASES,
                           **ENCODER_PHASES}.items():
             t_phase = time.perf_counter()
             launches[kind] = run(card)

@@ -41,8 +41,15 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     # MoE decoder with its presets, and the LoRA and train layers, and the
     # multi-GPU layer (the planner, feasibility, policies, the layout), and
     # the encoders (the CLIP embedder and the text classifier), and the
-    # parallel layer (meshes, ring attention, the pipeline, multi-host)
-    for module in ("models/moe.py", "models/mixtral.py", "models/lora.py",
+    # parallel layer (meshes, ring attention, the pipeline, multi-host),
+    # and the runner zygote and the graph check with its finding record
+    for module in ("runner/zygote.py", "analysis/__init__.py",
+                   "analysis/findings.py", "analysis/graphcheck/__init__.py",
+                   "analysis/graphcheck/__main__.py",
+                   "analysis/graphcheck/matrix.py",
+                   "analysis/graphcheck/passes.py",
+                   "analysis/graphcheck/astrules.py",
+                   "models/moe.py", "models/mixtral.py", "models/lora.py",
                    "models/clip_vit.py", "models/classifier.py",
                    "types.py", "serving/feasibility.py",
                    "serving/shard/__init__.py", "serving/shard/plan.py",
@@ -70,7 +77,10 @@ def test_importing_the_serving_stack_loads_no_jax():
             "tpu9_torch.serving.shard, tpu9_torch.serving.feasibility, "
             "tpu9_torch.parallel, tpu9_torch.parallel.distributed, "
             "tpu9_torch.types, "
-            "tpu9_torch.models.clip_vit, tpu9_torch.models.classifier; "
+            "tpu9_torch.models.clip_vit, tpu9_torch.models.classifier, "
+            "tpu9_torch.runner.zygote, tpu9_torch.analysis.findings, "
+            "tpu9_torch.analysis.graphcheck.passes, "
+            "tpu9_torch.analysis.graphcheck.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

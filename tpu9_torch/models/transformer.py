@@ -153,8 +153,12 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int = 0,
 def embed_scale(dim: int, dtype: torch.dtype) -> float:
     """sqrt(dim) rounded to ``dtype``, as a Python float. Times a tensor
     of ``dtype`` it gives JAX's ``x * jnp.asarray(dim ** 0.5, dtype)``:
-    the product of two bf16 values is exact in f32 and rounds once."""
-    return torch.full((), dim ** 0.5, dtype=dtype).item()
+    the product of two bf16 values is exact in f32 and rounds once. A
+    host constant: it is computed on a real tensor under any dispatch mode
+    (a fake-tensor trace cannot give up a value)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return torch.full((), dim ** 0.5, dtype=dtype).item()
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -84,7 +84,7 @@ from ..parallel.sharding import (RankParams, map_leaves, named_leaves,
 from ..utils.platform import (default_device, env_kv_host_pool_mb,
                               env_kv_tier_on, host_to_device)
 from .flight import FlightRecorder
-from .graphs import GraphFactory, WindowState
+from .graphs import GraphFactory, window_state
 from .kvpool import KvPool, PoolExhausted
 from .paged_kv import PrefixCache, blocks_for
 from .schedule import WindowScheduler
@@ -278,16 +278,12 @@ class InferenceEngine:
             self.kv_cache = policy.init_kv_cache(cfg, b, s)
         # the decode window's device state: owned here at fixed addresses
         # (a captured window replays them) and only written in place
-        self.cache_len = torch.zeros((b,), dtype=torch.int32,
-                                     device=self.device)
-        self.last_token = torch.zeros((b, 1), dtype=torch.int32,
-                                      device=self.device)
-        self._active_dev = torch.zeros((b,), dtype=torch.bool,
-                                       device=self.device)
-        self._toks = torch.zeros((max(engine_cfg.decode_steps), b),
-                                 dtype=torch.int32, device=self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(0)
+        window = window_state(params, self.kv_cache, engine_cfg, self.device)
+        self.cache_len = window.cache_len
+        self.last_token = window.last_token
+        self._active_dev = window.active
+        self._toks = window.toks
+        self._gen = window.generator
         # speculative decoding: one verify bucket, the full draft length.
         # A shorter bucket streams the same weights for fewer tokens, so
         # adaptivity lives in the acceptance gate, not in the window size
@@ -295,19 +291,11 @@ class InferenceEngine:
                                   if engine_cfg.spec_len > 0 else ())
         self._spec_slots: list = [None] * b      # per-slot SlotSpecState
         self._spec_disabled_windows = 0
-        s_max = max(self._spec_lens, default=0)
-        self._drafts = torch.zeros((b, s_max), dtype=torch.int32,
-                                   device=self.device)
-        self._spec_out = torch.zeros((b, 1 + s_max), dtype=torch.int32,
-                                     device=self.device)
-        self._n_acc = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        self.graphs = GraphFactory(
-            cfg, engine_cfg, self._chunk, self.device,
-            window=WindowState(params, self.kv_cache, self.last_token,
-                               self.cache_len, self._active_dev, self._toks,
-                               self._gen, self._drafts, self._spec_out,
-                               self._n_acc),
-            policy=policy)
+        self._drafts = window.drafts
+        self._spec_out = window.out
+        self._n_acc = window.n_acc
+        self.graphs = GraphFactory(cfg, engine_cfg, self._chunk, self.device,
+                                   window=window, policy=policy)
         self.scheduler = WindowScheduler(self)
         # dense prefill buckets, clamped to the cache: a bucket wider than
         # max_seq_len would splice past the slot's lanes
@@ -452,6 +440,23 @@ class InferenceEngine:
             return False
         self._push_table(slot)
         return True
+
+    def bench_reset_slots(self, ctx0: int, budget: int) -> None:
+        """Raw-loop benchmarking support: give every slot physical blocks
+        covering [0, ctx0 + budget] and a host length of ``ctx0``, so a
+        paged decode window moves the HBM traffic it would in production
+        (an all-trash table would read one block B times). Each table row
+        is written in place, so a captured window reads the new rows. A
+        dense engine is left as it is."""
+        if not self.paged:
+            return
+        for slot in range(self.ecfg.max_batch):
+            blocks = self.pool.slot_blocks[slot]
+            if blocks:
+                self.allocator.release(blocks)
+                self.pool.slot_blocks[slot] = []
+            self._ensure_slot_blocks(slot, ctx0 + budget + 1)
+            self._host_len[slot] = ctx0
 
     # -- public API ----------------------------------------------------------
 

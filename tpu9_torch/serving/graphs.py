@@ -44,12 +44,12 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from ..models.transformer import decoder_forward, init_kv_cache, lm_logits
+from ..models.transformer import decoder_forward, lm_logits
 from ..ops.paged_attention import add_launches, captured_launches
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
-from ..parallel.sharding import ranks, to_device
+from ..parallel.sharding import per_rank, ranks, to_device
 from .kvpool import KvPool
 from .shard.policy import SingleDevicePolicy
 
@@ -106,7 +106,8 @@ class GraphFactory:
         self.device = device
         self.window = window
         self.policy = policy or SingleDevicePolicy(device)
-        # a window is captured when every rank is on one CUDA device
+        # a window is captured when every rank is on one CUDA device; the
+        # graph check sets this False to trace the bodies the captures hold
         self.captures = (torch.device(device).type == "cuda"
                          and self.policy.one_device)
         # computed once per engine (the JAX graphs constant-fold it)
@@ -586,20 +587,49 @@ def key_name(key) -> str:
         else str(key)
 
 
-def abstract_state(cfg, ecfg, kv_quant: bool = False) -> dict:
+def window_state(params: Params, kv_cache: Params, ecfg, device,
+                 generator: torch.Generator | None = None) -> WindowState:
+    """A decode window's state over ``params`` and ``kv_cache``, every
+    other tensor zeroed on ``device``: the slots' last tokens, lengths and
+    active mask, the window's token buffer and the verify buffers (0
+    draft columns when speculation is off). ``generator`` defaults to one
+    on ``device`` seeded 0."""
+    b = ecfg.max_batch
+    s_max = max(ecfg.spec_len, 0)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return WindowState(params, kv_cache, last_token=zeros(b, 1),
+                       cache_len=zeros(b), active=zeros(b, dtype=torch.bool),
+                       toks=zeros(max(ecfg.decode_steps), b),
+                       generator=generator, drafts=zeros(b, s_max),
+                       out=zeros(b, 1 + s_max), n_acc=zeros(b))
+
+
+def abstract_state(cfg, ecfg, kv_quant: bool = False, device="meta",
+                   policy=None) -> dict:
     """The serving state an engine of this (model, engine-config) pair
-    holds, as ``device="meta"`` trees: no byte is allocated. The shapes
-    come from the sources the engine allocates from (``KvPool`` for the
-    paged pool and table, ``init_kv_cache`` for the dense cache and the
-    scratch). Returns ``{"kv_cache", "pool", "scratch", "mb"}``; a dense
-    engine's pool and scratch are empty and its mb is 0."""
+    holds, built from the sources the engine allocates from (``KvPool``
+    for the paged pool and table, the policy's ``init_kv_cache`` for the
+    dense cache and the scratch): by default as ``device="meta"`` trees,
+    so no byte is allocated; under a fake-tensor mode on the device the
+    engine would serve from (the graph check). Returns ``{"kv_cache",
+    "pool", "scratch", "mb"}``, one tree per rank under a sharding
+    ``policy``; a dense engine's pool and scratch are empty and its mb is
+    0."""
+    device = torch.device(device)
+    policy = policy or SingleDevicePolicy(device)
     if ecfg.kv_block_size:
-        mgr = KvPool(cfg, ecfg, torch.device("meta"), kv_quant)
+        mgr = KvPool(cfg, ecfg, device, kv_quant, policy=policy)
         kv_cache = mgr.init_arrays()
-        pool = {k: v for k, v in kv_cache.items() if k != "table"}
-        scratch = init_kv_cache(cfg, 1, ecfg.max_seq_len, device="meta")
+        pool = per_rank(lambda kv: {k: v for k, v in kv.items()
+                                    if k != "table"}, kv_cache)
+        scratch = policy.init_kv_cache(cfg, 1, ecfg.max_seq_len)
         return {"kv_cache": kv_cache, "pool": pool, "scratch": scratch,
                 "mb": mgr.mb}
-    kv_cache = init_kv_cache(cfg, ecfg.max_batch, ecfg.max_seq_len,
-                             device="meta")
+    kv_cache = policy.init_kv_cache(cfg, ecfg.max_batch, ecfg.max_seq_len)
     return {"kv_cache": kv_cache, "pool": {}, "scratch": {}, "mb": 0}
