@@ -11,14 +11,16 @@ Phases, each of which must pass or the script exits non-zero:
    ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
    together; one source holds the three decode kernels: bf16 pool, int8
    pool and contiguous cache, each a split-KV pass (GQA group 1, 2, 4, 8
-   at D 64, 128, 256) and a combine pass (D 64, 128, 256); the other the
-   flash kernel's six instances, D 64, 128 and 256, causal or not),
-   prints each instance's registers and spills from ``ptxas -v`` and any
+   at D 64, 128, 256) and a combine pass (D 64, 128, 256); one the flash
+   kernel's six instances, D 64, 128 and 256, causal or not; one its
+   backward's, a dk/dv kernel and a dq kernel at the same six), prints
+   each instance's registers and spills from ``ptxas -v`` and any
    ``ptxas`` note on serialised ``wgmma`` products, and fails if an
    instance a served model runs spills: (G=4, D=128) of the decode kernels
    and D=128 flash (llama3-8b), (G=1, D=256) of the bf16-pool and
    contiguous decode kernels and D=256 flash (gemma-7b), (G=8, D=256) of
-   the int8-pool kernel (gemma-2b);
+   the int8-pool kernel (gemma-2b), or a causal instance of the backward's
+   two kernels;
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
    main paths give it, at llama3-8b's heads (QH 32, KH 8, D 128) and at
    gemma-7b's (QH 16, KH 16, D 256) and gemma-2b's (QH 8, KH 1, D 256):
@@ -140,15 +142,22 @@ Phases, each of which must pass or the script exits non-zero:
     Each phase prints its seconds.
 
 Phase 3 also holds the flash kernel's gradient (``FlashAttention``: the
-kernel forward, a backward in torch ops) at the four train phases' shapes
-(gemma-7b's heads at B=8, T=S=512, and a tp=4 rank's 4 of them; llama-1b's
-at B=4, T=S=1024, and a tp=2 rank's 16/4): the
-forward against the twin, dq, dk and dv against autograd through the f32
-twin on the same bf16 inputs, and the forward kernel, the backward, the
-pair and SDPA's forward and backward timed. In each train phase the flash
-kernel launches ``n_layers x 2 x steps`` times (each layer's forward and
-its recompute in the backward), times the tp ranks in phases 14-15, and no
-other kernel launches.
+kernel forward, which saves each row's log-sum-exp, and the backward
+kernel) at the four train phases' shapes (gemma-7b's heads at B=8,
+T=S=512, and a tp=4 rank's 4 of them; llama-1b's at B=4, T=S=1024, and a
+tp=2 rank's 16/4), at D=128 (llama3-8b's heads, B=2, T=S=512, causal and
+not), at the tails T=S=320 (D 64, 128 and 256, over buffers whose
+sequence after the last is NaN) and at S > T: the forward against the
+twin, its lse against ``xla_attention_lse``, the backward kernel's dq, dk
+and dv against its twin ``xla_attention_backward`` on the same out and lse
+(``backward_limit``) and the Function's against autograd through the f32
+twin on the same bf16 inputs (``grad_limit``); at the train shapes the
+forward kernel, the backward kernel alone (beside its torch-ops twin and
+SDPA's backward alone), the pair and SDPA's forward and backward timed.
+In each train phase the flash kernel launches ``n_layers x 2 x steps``
+times (each layer's forward and its recompute in the backward) and the
+backward kernel ``n_layers x steps``, both times the tp ranks in phases
+14-15, and no other kernel launches.
 
 After phases 4 and 5, KV motion (``phase_kv_motion``), on an engine over
 the same weights with a 1024 MB host tier armed through ``engine_cfg``: a
@@ -324,6 +333,7 @@ def phase_card() -> str:
 PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
                          r"(?:NS_)?\d+(Table|Contiguous)E?Li(\d+)ELi(\d+)E")
 PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])E")
+PTXAS_BACKWARD = re.compile(r"(dkdv_kernel|dq_kernel)ILi(\d+)ELb([01])E")
 # the decode instances the served models run, which must not spill:
 # llama3-8b (G = 4, D = 128), gemma-7b (G = 1, D = 256; bf16 pool and
 # contiguous cache) and gemma-2b-int8 (G = 8, D = 256, int8 pool)
@@ -332,6 +342,11 @@ NO_SPILL = {("bf16", "Table", 4, 128), ("int8", "Table", 4, 128),
             ("bf16", "Contiguous", 1, 256), ("int8", "Table", 8, 256)}
 # the flash instances of llama3-8b's and gemma-7b's prefill (causal or not)
 FLASH_NO_SPILL = {(128, True), (128, False), (256, True), (256, False)}
+# the backward's instances the train steps run (causal; D 256 for gemma-7b,
+# 64 for llama-1b) and D 128's, both of its kernels
+BACKWARD_NO_SPILL = {(kernel, d, True)
+                     for kernel in ("dkdv_kernel", "dq_kernel")
+                     for d in (64, 128, 256)}
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -360,7 +375,7 @@ def phase_build(kernels: list[str]) -> None:
     logs = _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s for {kernels} "
           f"({len(logs)} compiled)")
-    seen, flash_seen = set(), set()
+    seen, flash_seen, backward_seen = set(), set(), set()
     for source, log in logs.items():
         for line in log.splitlines():
             # warnings, and ptxas's notes on serialised wgmma products
@@ -369,6 +384,7 @@ def phase_build(kernels: list[str]) -> None:
         for name, info in sorted(ptxas_report(log).items()):
             m = PTXAS_SPLIT.search(name)
             f = PTXAS_FLASH.search(name)
+            g = PTXAS_BACKWARD.search(name)
             label = name
             if m:
                 key = ("bf16" if m.group(1) != "a" else "int8", m.group(2),
@@ -389,6 +405,14 @@ def phase_build(kernels: list[str]) -> None:
                     flash_seen.add(key)
                     check(info.get("spills") == (0, 0), f"ptxas: {label} "
                           f"spills {info.get('spills')}")
+            elif g:
+                key = (g.group(1), int(g.group(2)), g.group(3) == "1")
+                label = "{}<D={}, {}>".format(
+                    key[0], key[1], "causal" if key[2] else "non-causal")
+                if key in BACKWARD_NO_SPILL:
+                    backward_seen.add(key)
+                    check(info.get("spills") == (0, 0), f"ptxas: {label} "
+                          f"spills {info.get('spills')}")
             print(f"  ptxas {source}: {label}: {info.get('registers')} "
                   f"registers, spill stores/loads {info.get('spills')}")
     if "paged_decode_attention" in logs:
@@ -397,6 +421,10 @@ def phase_build(kernels: list[str]) -> None:
     if "flash_attention" in logs:
         check(flash_seen == FLASH_NO_SPILL, f"ptxas reported no served flash "
               f"instance of {sorted(FLASH_NO_SPILL - flash_seen)}")
+    if "flash_attention_backward" in logs:
+        missing = sorted(BACKWARD_NO_SPILL - backward_seen)
+        check(not missing, f"ptxas reported no backward instance of "
+              f"{missing}")
 
 
 # -- phase 3: kernels against their twins -------------------------------------
@@ -557,6 +585,10 @@ KERNELS = {
                                      DECODE_SRC),
     "flash_attention": ("tpu9/ops/attention.py:119",
                         "tpu9_torch/csrc/flash_attention.cu"),
+    # the gradient of the same TPU kernel, which has none (ROADMAP C11)
+    "flash_attention_backward": (
+        "tpu9/ops/attention.py:119",
+        "tpu9_torch/csrc/flash_attention_backward.cu"),
     "ragged_decode_attention": ("tpu9/ops/paged_attention.py:93",
                                 DECODE_SRC),
 }
@@ -565,7 +597,7 @@ KERNELS = {
 def wrapper(name: str):
     """The port's wrapper of a kernel of ``KERNELS``; it counts launches."""
     from tpu9_torch.ops import attention, paged_attention
-    return getattr(attention if name == "flash_attention" else
+    return getattr(attention if name.startswith("flash_attention") else
                    paged_attention, name)
 
 
@@ -1009,7 +1041,10 @@ def phase_kernels() -> list[dict]:
     decode("ragged_decode_attention", "dense decode {} S=2048", "BS=256")
     # B3 under a gradient, at the train phases' shapes
     for path in GRAD_SHAPES:
-        keep(phase_flash_grad(path), path)
+        for row in phase_flash_grad(path):
+            keep(row, path)
+    for case in BACKWARD_CHECKS:
+        phase_flash_backward_check(*case)
     # the paged verify route: B*T rows through B1 / B2, the spec phases'
     # paths at llama's heads, gemma's heads checked and printed
     for quant, path in ((False, "spec-bf16"), (True, "spec-int8")):
@@ -1064,14 +1099,141 @@ def grad_limit(want: torch.Tensor, group: int) -> torch.Tensor:
     return 2.0 ** -7 * want.abs() + group * 2.0 ** -8 * top + 1e-5 * top
 
 
-def phase_flash_grad(path: str) -> dict:
-    """B3 with its gradient at a train phase's shape: the kernel's output
-    against the twin's (``flash_limit``), the Function's dq, dk and dv on
-    the card against autograd through the f32 twin on the same bf16 inputs
-    (``grad_limit``); then the kernel forward, the backward alone, the
-    Function's forward and backward (the row's ``ms``), the twin's under
-    autograd (``plain_ms``) and SDPA's forward and backward
-    (``library_ms``) timed. Returns the row of the kernels line."""
+def lse_limit(want: torch.Tensor, seq_k: int) -> torch.Tensor:
+    """The forward kernel's row log-sum-exp against the twin's ``want``
+    [B, QH, T]: f32 scores of the same bf16 operands summed in another
+    order and exp2's approximation (2^-22 relative) move it by about 1e-6;
+    the kernel's row sum adds up to S exponentials in f32 (S * 2^-24
+    relative at most), and 1e-5 of 1 + |lse| covers the rest."""
+    return seq_k * 2.0 ** -24 + 1e-5 * (1 + want.abs())
+
+
+def backward_terms(q, k, v, out, lse, d_out, causal: bool):
+    """The products over absolute values that bound the backward kernel's
+    rounding: |P|^T |dO| for dv, scale |dS|^T |Q| for dk and scale |dS| |K|
+    for dq, P and dS from the twin's algebra (``xla_attention_backward``)
+    in f32, in the layouts of dq, dk and dv."""
+    b, t, q_heads, d = q.shape
+    s, kv_heads = k.shape[1], k.shape[2]
+    g = q_heads // kv_heads
+    scale = d ** -0.5
+
+    def rows(x):
+        return x.float().reshape(b, t, kv_heads, g, d).permute(
+            0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
+
+    qf, do = rows(q), rows(d_out)
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))
+    x = (qf * scale) @ kf.transpose(-1, -2)
+    if causal:
+        hidden = (torch.arange(s, device=q.device)[None, :]
+                  > torch.arange(t, device=q.device)[:, None])
+        x.masked_fill_(hidden.repeat(g, 1), -1e30)
+    p = torch.exp(x - lse.reshape(b, kv_heads, g * t, 1))
+    del x
+    ds = (p * (do @ vf.transpose(-1, -2)
+               - (do * rows(out)).sum(-1, keepdim=True))).abs()
+    dv = p.transpose(-1, -2) @ do.abs()
+    del p
+    dk = scale * (ds.transpose(-1, -2) @ qf.abs())
+    dq = (scale * (ds @ kf.abs())).reshape(b, kv_heads, g, t, d).permute(
+        0, 3, 1, 2, 4).reshape(b, t, q_heads, d)
+    return dq, dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def backward_limit(want: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's tolerance against its twin on the same q, k,
+    v, out, lse and d_out. Both take P = exp(x - lse) and delta =
+    rowsum(d_out * out) in f32; the kernel rounds P and dS to bf16 (a
+    relative error of at most 2^-8 each) before the products dV = P^T dO,
+    dK = scale dS^T Q and dQ = scale dS K, so a gradient moves by at most
+    2^-8 of the same product over absolute values (``term``). Both round
+    the f32 result to bf16 once: one bf16 ulp apart (2^-7 of |twin|). The
+    f32 sums run in other orders: 1e-5 of the tensor's largest entry."""
+    return 2.0 ** -7 * want.abs() + 2.0 ** -8 * term + 1e-5 * want.abs().max()
+
+
+def check_backward(label: str, q, k, v, d_out, causal: bool) -> float:
+    """B3 and its backward kernel on one case. The forward kernel's output
+    against the twin's (``flash_limit``, at T = S) and its row log-sum-exp
+    against ``xla_attention_lse`` (``lse_limit``); the backward kernel's
+    dq, dk and dv (one launch) against its twin ``xla_attention_backward``
+    on the same out and lse (``backward_limit``); and the Function's
+    gradients on the card (the kernel forward and backward) against
+    autograd through the f32 twin on the same bf16 inputs (``grad_limit``).
+    Returns the largest error."""
+    from tpu9_torch.ops import attention as at
+    t, s = q.shape[1], k.shape[1]
+    group = q.shape[2] // k.shape[2]
+    counts = (at.flash_attention, at.flash_attention_backward)
+    before = [w.launches for w in counts]
+    out, lse = at.flash_attention(q, k, v, causal=causal, with_lse=True)
+    got = at.flash_attention_backward(q, k, v, out, lse, d_out, causal)
+    torch.cuda.synchronize()
+    check([w.launches for w in counts] == [n + 1 for n in before],
+          f"{label}: the forward or backward kernel did not launch")
+    want_out, want_lse = at.xla_attention_lse(q, k, v, causal=causal)
+    max_err = 0.0
+    if t == s:
+        max_err = check_flash(label, out, want_out.float(), v, causal)
+    err = (lse - want_lse).abs()
+    print(f"kernel flash_attention [{label}]: lse max_abs_err "
+          f"{float(err.max()):.3e} (tolerance |err| <= S*2^-24 + "
+          f"1e-5*(1 + |lse|))")
+    check(bool(torch.isfinite(lse).all())
+          and bool((err <= lse_limit(want_lse, s)).all()),
+          f"{label}: the forward's lse disagrees with the twin's (max abs "
+          f"err {float(err.max())})")
+    twin = at.xla_attention_backward(q, k, v, out, lse, d_out, causal)
+    terms = backward_terms(q, k, v, out, lse, d_out, causal)
+    for name, g, w, term in zip(("dq", "dk", "dv"), got, twin, terms):
+        w = w.float()
+        err = (g.float() - w).abs()
+        print(f"kernel flash_attention_backward [{label}]: {name} against "
+              f"its twin max_abs_err {float(err.max()):.3e} (tolerance |err| "
+              f"<= 2^-7*|twin| + 2^-8*(the product over absolute values) + "
+              f"1e-5*max|twin|: P and dS rounded to bf16 before their "
+              f"products)")
+        check(bool(torch.isfinite(g).all())
+              and bool((err <= backward_limit(w, term)).all()),
+              f"flash_attention_backward {label}: {name} disagrees with its "
+              f"twin (max abs err {float(err.max())})")
+        max_err = max(max_err, float(err.max()))
+    del got, twin, terms
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(at.FlashAttention.apply(*leaves, causal),
+                              leaves, d_out)
+    want = torch.autograd.grad(at.xla_attention(*leaves, causal=causal),
+                               leaves, d_out)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.float()
+        err = (g.float() - w).abs()
+        rel = float(torch.linalg.vector_norm(g.float() - w)
+                    / torch.linalg.vector_norm(w))
+        print(f"kernel flash_attention_backward [{label}]: {name} against "
+              f"autograd through the f32 twin max_abs_err "
+              f"{float(err.max()):.3e}, norm-wise {rel:.3e} (tolerance "
+              f"|err| <= 2^-7*|twin| + {group if name != 'dq' else 1}*2^-8*"
+              f"max|twin| + 1e-5*max|twin|: one bf16 rounding each side, "
+              f"the twin's per-q-head terms rounded before the GQA sum)")
+        check(bool(torch.isfinite(g).all())
+              and bool((err <= grad_limit(w, 1 if name == "dq" else group)
+                        ).all()),
+              f"flash_attention {label}: {name} disagrees with autograd "
+              f"through the twin (max abs err {float(err.max())})")
+        max_err = max(max_err, float(err.max()))
+    return max_err
+
+
+def phase_flash_grad(path: str) -> list[dict]:
+    """B3 with its gradient at a train phase's shape: ``check_backward``;
+    then the forward kernel, the backward kernel, the Function's forward
+    and backward and their twins timed. Returns two rows of the kernels
+    line: the Function's pair (``flash_attention``: ``ms`` the kernel
+    forward and backward, ``plain_ms`` the twin under autograd,
+    ``library_ms`` SDPA's forward and backward) and the backward kernel
+    alone (``flash_attention_backward``: ``plain_ms`` its twin, the
+    torch-ops backward, ``library_ms`` SDPA's backward alone)."""
     import torch.nn.functional as F
     from tpu9_torch.ops import attention as at
     batch, t, (q_heads, kv_heads), head_dim, model = GRAD_SHAPES[path]
@@ -1084,6 +1246,7 @@ def phase_flash_grad(path: str) -> dict:
                for h in (q_heads, kv_heads, kv_heads))
     d_out = torch.randn(q.shape, generator=gen, device=DEVICE
                         ).to(torch.bfloat16)
+    max_err = check_backward(label, q, k, v, d_out, True)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
@@ -1102,50 +1265,79 @@ def phase_flash_grad(path: str) -> dict:
                                              enable_gqa=True)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
-    before = at.flash_attention.launches
-    got = function()
-    fwd = at.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    check(at.flash_attention.launches == before + 2,
-          "the Function did not launch the flash kernel")
-    max_err = check_flash(label, fwd, at.xla_attention(q, k, v).float(), v,
-                          True)
-    group = q_heads // kv_heads
-    for name, g, w in zip(("dq", "dk", "dv"), got, twin()):
-        w = w.float()
-        err = (g.float() - w).abs()
-        rel = float(torch.linalg.vector_norm(g.float() - w)
-                    / torch.linalg.vector_norm(w))
-        print(f"kernel flash_attention [{label}]: {name} max_abs_err "
-              f"{float(err.max()):.3e}, norm-wise {rel:.3e} (tolerance "
-              f"|err| <= 2^-7*|twin| + {group}*2^-8*max|twin| + "
-              f"1e-5*max|twin|: one bf16 rounding each side, and the twin's "
-              f"per-q-head terms rounded before the GQA sum)")
-        check(bool(torch.isfinite(g).all())
-              and bool((err <= grad_limit(w, 1 if name == "dq" else group)
-                        ).all()),
-              f"flash_attention {label}: {name} disagrees with autograd "
-              f"through the twin (max abs err {float(err.max())})")
-        max_err = max(max_err, float(err.max()))
-    del got
     times = measure(function, twin, sdpa)
     times["forward_ms"] = time_ms(lambda: at.flash_attention(q, k, v))
-    times["backward_ms"] = time_ms(lambda: at.flash_attention_backward(
-        q, k, v, d_out, True))
-    # read q, k, v and d_out once, write out, dq, dk and dv once; 4 flops
-    # per (q head, dim) of each attended pair forward (QK^T, PV) and 8
-    # backward (dP, dV, dQ, dK), at the bf16 peak
+    out, lse = at.flash_attention(q, k, v, causal=True, with_lse=True)
+    args = (q, k, v, out, lse, d_out, True)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    bwd = measure(lambda: at.flash_attention_backward(*args),
+                  lambda: at.xla_attention_backward(*args),
+                  lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                              retain_graph=True))
+    # the pair: q, k, v and d_out read once, out, dq, dk and dv written
+    # once; 4 flops per (q head, dim) of each attended pair forward (QK^T,
+    # PV) and 8 backward (dP, dV, dQ, dK), at the bf16 peak
     pairs = batch * t * (t + 1) // 2
     bound = roofline_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()),
                         12 * q_heads * head_dim * pairs)
+    # the backward alone: q, k, v, out, d_out and lse read once, dq, dk and
+    # dv written once; its 8 flops per (q head, dim, pair)
+    bwd_bound = roofline_ms(2 * (4 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel()) + 4 * lse.numel(),
+                            8 * q_heads * head_dim * pairs)
     print_times("flash_attention", label, times, bound,
                 "sdpa forward + backward (is_causal, enable_gqa)")
+    bwd_label = label.replace("forward + gradient", "backward alone")
+    print_times("flash_attention_backward", bwd_label, bwd, bwd_bound,
+                "sdpa backward alone (is_causal, enable_gqa)")
     print(f"kernel flash_attention [{label}]: forward kernel "
-          f"{times['forward_ms']:.4f} ms, backward (torch ops, f32) "
-          f"{times['backward_ms']:.4f} ms, Function forward + backward "
+          f"{times['forward_ms']:.4f} ms, backward kernel "
+          f"{bwd['device_ms']:.4f} ms (its torch-ops twin "
+          f"{bwd['plain_ms']:.4f} ms, sdpa's backward "
+          f"{bwd['library_device_ms']:.4f} ms), Function forward + backward "
           f"{times['ms']:.4f} ms, sdpa forward + backward "
           f"{times['library_ms']:.4f} ms")
-    return kernel_row("flash_attention", label, max_err, times, bound)
+    return [kernel_row("flash_attention", label, max_err, times, bound),
+            kernel_row("flash_attention_backward", bwd_label, max_err, bwd,
+                       bwd_bound)]
+
+
+# B3's backward beside the train shapes: D=128 at llama3-8b's heads, the
+# tails (T = S = 320, not a multiple of 128), and S > T, causal (keys past T
+# see no query) and not. (batch, T, S, (q heads, kv heads), head_dim,
+# causal)
+BACKWARD_CHECKS = ((2, 512, 512, LLAMA_HEADS, 128, True),
+                   (2, 512, 512, LLAMA_HEADS, 128, False),
+                   (2, 320, 320, LLAMA_HEADS, 128, True),
+                   (2, 320, 320, LLAMA_HEADS, 128, False),
+                   (2, 320, 320, GEMMA_HEADS["gemma-7b"], 256, True),
+                   (2, 320, 320, GEMMA_HEADS["gemma-2b"], 256, False),
+                   (2, 320, 320, LLAMA_HEADS, 64, True),
+                   (2, 256, 384, (8, 2), 128, False),
+                   (2, 256, 320, (8, 2), 64, True))
+
+
+def phase_flash_backward_check(batch: int, t: int, s: int,
+                               heads: tuple[int, int], head_dim: int,
+                               causal: bool) -> float:
+    """``check_backward`` at one shape. q, k, v and d_out are the leading
+    ``batch`` sequences of buffers that hold one more, all NaN: a tile that
+    read past the last sequence would put NaN in a gradient, and one that
+    read the next sequence's rows for a tail would disagree."""
+    q_heads, kv_heads = heads
+    label = (f"backward B={batch} T={t} S={s} QH={q_heads} KH={kv_heads} "
+             f"D={head_dim} {'causal' if causal else 'non-causal'}, NaN "
+             f"sequence after")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(t + s + head_dim + sum(heads) + int(causal))
+    bufs = [torch.randn((batch + 1, n, h, head_dim), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+            for n, h in ((t, q_heads), (s, kv_heads), (s, kv_heads),
+                         (t, q_heads))]
+    for buf in bufs:
+        buf[batch] = float("nan")
+    return check_backward(label, *(buf[:batch] for buf in bufs), causal)
 
 
 # -- phases 4 to 9: the engines at full width ---------------------------------
@@ -2887,15 +3079,18 @@ def _report_steps(label: str, card: str, cfg, tokens: tuple[int, int],
           f"allocated {peak_gb:.2f} GB; B3 launches "
           f"{launches['flash_attention']} = {cfg.n_layers} layers x "
           f"{f'{ranks} ranks x ' if ranks > 1 else ''}2 (forward, recompute) "
-          f"x {TRAIN_STEPS} steps ({card})")
+          f"x {TRAIN_STEPS} steps, its backward "
+          f"{launches['flash_attention_backward']} ({card})")
 
 
 def _check_train_launches(label: str, cfg, launches: dict, steps: int,
                           ranks: int = 1) -> None:
     """B3 launched ``n_layers x ranks x 2 x steps`` times (each rank's
-    forward and recompute a layer), no other kernel."""
+    forward and recompute a layer) and its backward ``n_layers x ranks x
+    steps`` times, no other kernel."""
     want = {name: 0 for name in KERNELS}
     want["flash_attention"] = cfg.n_layers * ranks * 2 * steps
+    want["flash_attention_backward"] = cfg.n_layers * ranks * steps
     check(launches == want, f"{label}: launches {launches}, expected {want}")
 
 
@@ -2953,9 +3148,11 @@ def phase_train_lora(card: str) -> dict:
     _zero_launches()
     loss_k, grads_k = value_and_grad(adapters, base, tokens)
     torch.cuda.synchronize()
-    check(_launches()["flash_attention"] == 2 * cfg.n_layers,
-          f"{label}: the gradient's forward and recompute launched "
-          f"{_launches()} (want {2 * cfg.n_layers} flash)")
+    check(_launches()["flash_attention"] == 2 * cfg.n_layers
+          and _launches()["flash_attention_backward"] == cfg.n_layers,
+          f"{label}: the gradient's forward, recompute and backward launched "
+          f"{_launches()} (want {2 * cfg.n_layers} flash, {cfg.n_layers} "
+          f"backward)")
     was = transformer.attention
     transformer.attention = _twin_attention
     try:
@@ -3227,9 +3424,11 @@ def phase_train_lora_fsdp(card: str) -> dict:
         _zero_launches()
         _, grads_s = value_and_grad(sharded(adapters), base_s, tokens)
         torch.cuda.synchronize()
-        check(_launches()["flash_attention"] == 2 * cfg.n_layers * ranks,
-              f"{label}: the gradient's forward and recompute launched "
-              f"{_launches()}")
+        check(_launches()["flash_attention"] == 2 * cfg.n_layers * ranks
+              and _launches()["flash_attention_backward"]
+              == cfg.n_layers * ranks,
+              f"{label}: the gradient's forward, recompute and backward "
+              f"launched {_launches()}")
         _, grads_u = value_and_grad(adapters, base, tokens)
         got, want = _whole_leaves(grads_s), _whole_leaves(grads_u)
         diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(got, want)))
@@ -4027,11 +4226,12 @@ async def main():
     await engine.start()
     try:
         steps0 = engine.stats()["decode_steps"]
-        for w in paged_attention.COUNTED + (attention.flash_attention,):
+        flash = (attention.flash_attention, attention.flash_attention_backward)
+        for w in paged_attention.COUNTED + flash:
             w.launches = 0
         outs = await asyncio.gather(*[one(p) for p in prompts])
         launches = {{**paged_attention.launch_counts(),
-                    "flash_attention": attention.flash_attention.launches}}
+                    **{{w.__name__: w.launches for w in flash}}}}
         steps = engine.stats()["decode_steps"] - steps0
     finally:
         await engine.stop()
@@ -4517,8 +4717,10 @@ def main() -> int:
         return 1
     try:
         card = phase_card()
-        # one source holds the three decode kernels, the other the flash one
-        phase_build(["paged_decode_attention", "flash_attention"])
+        # one source holds the three decode kernels, one the flash forward,
+        # one its backward
+        phase_build(["paged_decode_attention", "flash_attention",
+                     "flash_attention_backward"])
         rows = phase_kernels()
         launches = {}
         profiling = "--profile" in sys.argv[1:]

@@ -6,7 +6,8 @@ with its timing method, so that two checkouts' kernels are timed the same
 way, in turns, in one run on one card: llama3-8b's heads at D=128 and
 gemma-7b's and gemma-2b's at D=256 (``chip_smoke.GEMMA_HEADS``).
 
-    python3 scripts/decode_kernel_times.py [ROOT] [--candidates | --flash]
+    python3 scripts/decode_kernel_times.py [ROOT] [--candidates | --flash |
+                                                   --backward]
 
 ROOT (default: this checkout) holds the ``tpu9_torch`` whose kernels are
 built and timed; the cases, checks and timing are this checkout's
@@ -26,11 +27,19 @@ and gemma), beside SDPA on the same inputs
 (``chip_smoke.phase_flash_kernel``). Either way, a tree whose kernels take
 no head_dim 256 (before gemma's instances) is timed at the shapes it
 takes.
+
+``--backward`` instead checks ROOT's flash backward kernel
+(``flash_attention_backward``) at every shape of ``chip_smoke.GRAD_SHAPES``
+(``chip_smoke.check_backward``: against its twin and through the Function
+against autograd of the f32 twin), times it on the device alone beside
+SDPA's backward alone on the same inputs, and gives the device time of each
+of its three kernels (delta, dk/dv, dq) from ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import re
 import sys
 from pathlib import Path
 
@@ -87,6 +96,50 @@ def candidates(cs, shapes, card: str) -> None:
         pa.SPLIT_TOKENS = kept
 
 
+def backward(cs, card: str) -> None:
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from tpu9_torch.ops import attention as at
+    for batch, t, heads, head_dim, model in cs.GRAD_SHAPES.values():
+        label = (f"{model} B={batch} T=S={t} QH={heads[0]} KH={heads[1]} "
+                 f"D={head_dim} causal")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(batch + t + head_dim)
+        q, k, v = (torch.randn((batch, t, h, head_dim), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (heads[0], heads[1], heads[1]))
+        d_out = torch.randn(q.shape, generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+        cs.check_backward(label, q, k, v, d_out, True)
+        out, lse = at.flash_attention(q, k, v, causal=True, with_lse=True)
+
+        def kernel():
+            return at.flash_attention_backward(q, k, v, out, lse, d_out, True)
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        dot = d_out.transpose(1, 2).contiguous()
+        kernel_ms = cs.time_ms(kernel, hold=True)
+        sdpa_ms = cs.time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), hold=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernel()
+            torch.cuda.synchronize()
+        parts = []
+        for evt in prof.key_averages():
+            total = getattr(evt, "device_time_total", 0) or getattr(
+                evt, "cuda_time_total", 0)
+            if total and evt.count:
+                found = re.search(r"\w+_kernel", evt.key)
+                name = found.group(0) if found else evt.key[:40]
+                parts.append(f"{name} {total / evt.count / 1e3:.4f} ms")
+        print(f"backward kernel [{label}]: {kernel_ms:.4f} ms device alone, "
+              f"sdpa backward {sdpa_ms:.4f} ms; {', '.join(parts)} ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("decode_kernel_times: needs a CUDA device", file=sys.stderr)
@@ -102,6 +155,10 @@ def main() -> int:
     from tpu9_torch.ops import _build
     card = cs.phase_card()
     print(f"kernels of {Path(tpu9_torch.__file__).parent} ({card})")
+    if "--backward" in sys.argv[1:]:
+        _build.build_all(["flash_attention", "flash_attention_backward"])
+        backward(cs, card)
+        return 0
     if "--flash" in sys.argv[1:]:
         from tpu9_torch.ops import attention as at
         _build.build_all(["flash_attention"])

@@ -4,6 +4,7 @@ an entry point with no device does not quietly fall back to the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -67,6 +68,28 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_cuda_sources_include_only_the_toolkit_and_each_other():
+    """The kernels' sources (the flash backward and the header it shares
+    with the forward among them) include CUDA's and the C and C++ standard
+    libraries' headers and files of ``tpu9_torch/csrc`` only."""
+    csrc = PORT / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    for name in ("flash_attention.cu", "flash_attention_backward.cu",
+                 "hopper.cuh", "paged_decode_attention.cu"):
+        assert csrc / name in sources, name
+    system = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "limits.h",
+              "stdint.h", "type_traits"}
+    for path in sources:
+        for line in path.read_text().splitlines():
+            m = re.match(r'\s*#\s*include\s*([<"])([^>"]+)[>"]', line)
+            if not m:
+                continue
+            if m.group(1) == '"':
+                assert (csrc / m.group(2)).exists(), (path.name, line)
+            else:
+                assert m.group(2) in system, (path.name, line)
 
 
 def test_importing_the_serving_stack_loads_no_jax():

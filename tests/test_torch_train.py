@@ -11,11 +11,15 @@ both packages; JAX trees cross with ``params_from_jax``.
 - ``causal_lm_loss`` with and without a mask (the mirror of
   ``tests/test_parallel.py::test_causal_lm_loss_masking``, and random
   logits within ``rtol=1e-6``).
-- ``FlashAttention``'s backward against ``jax.grad`` of
+- ``FlashAttention``'s backward (on a CPU tensor the twin of the backward
+  kernel, ``xla_attention_backward``: probabilities from the forward's
+  saved log-sum-exp, delta from its output) against ``jax.grad`` of
   ``tpu9.ops.attention.xla_attention`` at f32: causal and full, QH/KH 4/4,
-  4/2, 4/1, D 64 and 128, T=S 128 and 256, each gradient within
-  ``1e-5 * max|reference|`` (f32 sums of up to 256 products in other
-  orders); ``attention``'s routing under grad and without it.
+  4/2, 4/1, D 64, 128 and 256, T=S 128 and 256, and full attention over
+  more keys than queries (S = 2T), each gradient within ``1e-5 *
+  max|reference|`` (f32 sums of up to 256 products in other orders);
+  ``attention``'s routing under grad and without it; the backward
+  wrapper's twin, launch count and refusals on the CPU.
 - ``decoder_core``'s parameter gradients against ``jax.value_and_grad`` of
   the reference's loss, remat on and off, ``rtol=1e-4`` of each leaf's
   largest entry.
@@ -214,18 +218,14 @@ def test_causal_lm_loss_matches_the_reference(masked):
 # -- B3's gradient -----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("t", [128, 256])
-@pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)],
-                         ids=["4-4", "4-2", "4-1"])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_flash_backward_matches_jax_grad_of_the_twin(causal, heads, head_dim,
-                                                     t):
+def _flash_grads_against_jax(causal: bool, heads, head_dim: int, t: int,
+                             s: int, seed: int) -> None:
+    """``FlashAttention``'s gradients on CPU tensors against ``jax.grad`` of
+    the JAX ``xla_attention`` on the same f32 inputs."""
     q_heads, kv_heads = heads
-    rng = np.random.default_rng(t + head_dim + q_heads * kv_heads
-                                + int(causal))
+    rng = np.random.default_rng(seed)
     q = rng.standard_normal((2, t, q_heads, head_dim), np.float32)
-    k, v = (rng.standard_normal((2, t, kv_heads, head_dim), np.float32)
+    k, v = (rng.standard_normal((2, s, kv_heads, head_dim), np.float32)
             for _ in range(2))
     d_out = rng.standard_normal(q.shape, np.float32)
 
@@ -243,6 +243,55 @@ def test_flash_backward_matches_jax_grad_of_the_twin(causal, heads, head_dim,
         np.testing.assert_allclose(x.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max(),
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)],
+                         ids=["4-4", "4-2", "4-1"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_matches_jax_grad_of_the_twin(causal, heads, head_dim,
+                                                     t):
+    _flash_grads_against_jax(causal, heads, head_dim, t, t,
+                             t + head_dim + heads[0] * heads[1] + int(causal))
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(4, 2), (2, 1)], ids=["4-2", "2-1"])
+def test_flash_backward_full_attention_over_more_keys(heads, head_dim):
+    """S = 2T, full attention (the flash route takes any S that is a
+    multiple of 128)."""
+    _flash_grads_against_jax(False, heads, head_dim, 128, 256,
+                             7 + head_dim + heads[0])
+
+
+def test_flash_backward_wrapper_on_the_cpu():
+    """On CPU tensors the wrapper computes the twin and counts no launch;
+    the forward's lse is the twin's; an operand the kernel could not take
+    raises before anything touches CUDA."""
+    rng = np.random.default_rng(9)
+    q, d_out = (torch.from_numpy(rng.standard_normal((1, 128, 4, 64),
+                                                     np.float32))
+                for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 64), np.float32))
+            for _ in range(2))
+    out, lse = at.flash_attention(q, k, v, causal=True, with_lse=True)
+    assert torch.equal(out, at.xla_attention(q, k, v))
+    assert lse.shape == (1, 4, 128) and lse.dtype == torch.float32
+    got = at.flash_attention_backward(q, k, v, out, lse, d_out, True)
+    want = at.xla_attention_backward(q, k, v, out, lse, d_out, True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert at.flash_attention_backward.launches == 0
+    bf = [x.bfloat16() for x in (q, k, v, out, d_out)]
+    with pytest.raises(ValueError, match="lse"):
+        at._launch_flash_backward(*bf[:4], lse[:, :, :64], bf[4], True)
+    with pytest.raises(ValueError, match="d_out"):
+        at._launch_flash_backward(*bf[:4], lse, bf[4][:, :64], True)
+    with pytest.raises(ValueError, match="bf16"):
+        at._launch_flash_backward(q, k, v, out, lse, d_out, True)
+    with pytest.raises(ValueError, match="no flash attention backward"):
+        at.flash_attention_backward(*(x.to("meta") for x in
+                                      (q, k, v, out, lse, d_out)), True)
 
 
 def test_attention_routes_to_the_function_only_under_grad():

@@ -8,6 +8,12 @@
 //   q    [B, T, QH, D]   bf16, T a multiple of 64
 //   k/v  [B, S, KH, D]   bf16, S a multiple of 64, KH divides QH
 //   out  [B, T, QH, D]   bf16
+//   lse  [B, QH, T]      f32, optional (null: not written): each row's
+//                        natural-log log-sum-exp of its scaled, masked
+//                        scores, (m + log2 l) ln 2 with the base-2 max m and
+//                        the sum l that normalise the row; the backward
+//                        (flash_attention_backward.cu) recomputes the
+//                        probabilities from it
 //
 // All three are read in their own layout: no transposed copy is made.
 // Query head h reads kv head h / (QH/KH).
@@ -93,22 +99,13 @@
 // T = 2048 prefill takes 0.077 ms at gemma-7b's heads (SDPA 0.099); the
 // shorter buckets, and gemma-2b's one kv head, trail SDPA by 3-12%.
 
-#include <cuda.h>   // CUtensorMap and its encoder's types; the encoder itself
-                    // comes through cudaGetDriverEntryPoint, so no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBlockM = 128;         // q rows per CTA, 64 per consumer warpgroup
 constexpr int kStages = 2;           // k/v ring
 constexpr int kThreads = 384;        // producer warpgroup + 2 consumer warpgroups
-constexpr int kPanel = 64;           // bf16 columns of one 128-byte swizzled panel
-constexpr int kRowBytes = 128;       // bytes of one panel row
-constexpr float kNegInf = -1e30f;    // the TPU kernel's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
@@ -125,163 +122,6 @@ struct Layout {
   static constexpr int kBars = kV + kStages * kKVBytes; // q full/empty, full/empty per k and v stage
   static constexpr int kBytes = kBars + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers and TMA --------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// -- wgmma --------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// returns once at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products (the asm statements above do not name them).
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// A shared-memory matrix descriptor for a 128-byte swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lead >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
-}
-
-#define TPU9_F8(d, i)                                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TPU9_F32(d, i) TPU9_F8(d, i), TPU9_F8(d, i + 8), TPU9_F8(d, i + 16), TPU9_F8(d, i + 24)
-
-#define TPU9_R32                                                                       \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define TPU9_R64                                                                       \
-  TPU9_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
-           "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
-           "%61, %62, %63"
-#define TPU9_R128                                                                      \
-  TPU9_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
-           "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
-           "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "     \
-           "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "    \
-           "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-#define TPU9_F128(d, i) TPU9_F32(d, i), TPU9_F32(d, i + 32), TPU9_F32(d, i + 64), TPU9_F32(d, i + 96)
-
-// d (64 x 128, f32) = a (64 x 16) b (16 x 128) [+ d]: both operands K-major
-// in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" TPU9_R64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : TPU9_F32(d, 0), TPU9_F32(d, 32)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, f32) = a (64 x 16) b (16 x 64) [+ d]: the 64-key tiles of D = 256
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" TPU9_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : TPU9_F32(d, 0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N): b MN-major in
-// shared memory (the transpose bit)
-__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" TPU9_R128
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : TPU9_F128(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" TPU9_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : TPU9_F32(d, 0), TPU9_F32(d, 32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" TPU9_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : TPU9_F32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// 2^x (MUFU.EX2; a result below 2^-126 flushes to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // -- the kernel ---------------------------------------------------------------
 
@@ -331,16 +171,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], Rows& r
   for (int i = 0; i < 2; ++i) r.l[i] = r.l[i] * alpha[i] + rs[i];
 }
 
-// P in the A fragment of each 16-key step kk: score chunks 2kk and 2kk + 1
-// rounded to bf16, in the accumulator's own register order
-template <int kSteps>
-__device__ __forceinline__ void pack_p(const float (&sc)[8 * kSteps], uint32_t (&pa)[kSteps][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-}
-
 template <int N>
 __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
 #pragma unroll
@@ -380,7 +210,7 @@ template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-             int batch, int seq_q, int seq_k, int q_heads, int kv_heads, float scale_log2) {
+             float* __restrict__ lse, int batch, int seq_q, int seq_k, int q_heads, int kv_heads, float scale_log2) {
   using L = Layout<D>;
   constexpr int kBlockN = L::kBlockN;
   constexpr int kPanels = D / kPanel;
@@ -555,11 +385,20 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       fence_operands(o);
       release(empty_v(it - 1));
 
-      float inv[2];
+      float inv[2], row_lse[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float l = r.l[i] + __shfl_xor_sync(0xffffffffu, r.l[i], 1);
-        inv[i] = 1.f / fmaxf(l + __shfl_xor_sync(0xffffffffu, l, 2), 1e-30f);
+        float l = r.l[i] + __shfl_xor_sync(0xffffffffu, r.l[i], 1);
+        l = fmaxf(l + __shfl_xor_sync(0xffffffffu, l, 2), 1e-30f);
+        inv[i] = 1.f / l;
+        // the row's natural-log log-sum-exp of its scaled scores, from the
+        // same max and sum that normalise it
+        row_lse[i] = (r.m[i] * scale_log2 + log2f(l)) * kLn2;
+      }
+      if (lse != nullptr && r.lane % 4 == 0) {
+        float* lse_row = lse + (static_cast<int64_t>(w.b) * q_heads + w.h) * seq_q;
+        if (r.row_a < seq_q) lse_row[r.row_a] = row_lse[0];
+        if (r.row_b < seq_q) lse_row[r.row_b] = row_lse[1];
       }
       const int64_t q_row = static_cast<int64_t>(q_heads) * D;
       __nv_bfloat16* out_a = out + (static_cast<int64_t>(w.b) * seq_q + r.row_a) * q_row +
@@ -581,55 +420,18 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 
 // -- host side ----------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [batch, seq, heads, D] bf16 tensor as the 4-D map (D, heads, seq,
-// batch) with boxes of 64 columns x `rows` rows of one head: rows past
-// `seq` are zero-filled inside the box, never read from the next sequence.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int heads, int seq,
-                int batch, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(heads) * d * 2,
-                                 static_cast<cuuint64_t>(seq) * heads * d * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool kCausal>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int seq_q,
-           int seq_k, int q_heads, int kv_heads, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int seq_q,
+           int seq_k, int q_heads, int kv_heads, float scale, int device, cudaStream_t stream) {
   constexpr int kSmem = Layout<D>::kBytes;
+  // the device's context current on this thread: the tensor-map encoder
+  // needs one, and a thread that made no runtime call yet has none
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   static bool attr_set = false;    // the dynamic shared memory above 48 KB, once
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(flash_kernel<D, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
@@ -642,16 +444,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
     return static_cast<int>(cudaErrorInvalidValue);
   // a persistent grid: one CTA per SM at most, each walking its units of
   // work (the next unit's loads overlap this one's last products)
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_work =
       static_cast<long long>((seq_q + kBlockM - 1) / kBlockM) * q_heads * batch;
   const int grid = static_cast<int>(n_work < sms ? n_work : sms);
   flash_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), batch, seq_q, seq_k, q_heads,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, batch, seq_q, seq_k, q_heads,
       kv_heads, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -661,12 +461,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape the kernel has no instance for (or a
 // tensor map the driver refuses), cudaErrorNotSupported when the driver
-// has no tensor-map encoder. The Python wrapper validates shapes, types,
-// contiguity and alignment first.
+// has no tensor-map encoder. `device` is the CUDA device that holds the
+// tensors. The Python wrapper validates shapes, types, contiguity and
+// alignment first.
 extern "C" int tpu9_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                         float* lse,
                                          int batch, int seq_q, int seq_k, int q_heads,
                                          int kv_heads, int head_dim, int causal, float scale,
-                                         void* stream) {
+                                         int device, void* stream) {
   if (batch == 0) return 0;
   if (kv_heads <= 0 || q_heads % kv_heads != 0 || seq_q <= 0 || seq_k <= 0 ||
       seq_q % 64 != 0 || seq_k % 64 != 0 ||
@@ -675,7 +477,8 @@ extern "C" int tpu9_flash_attention_bf16(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TPU9_CASE(D, C)                                                                   \
   if (head_dim == D && (causal != 0) == C)                                                \
-    return launch<D, C>(q, k, v, out, batch, seq_q, seq_k, q_heads, kv_heads, scale, s);
+    return launch<D, C>(q, k, v, out, lse, batch, seq_q, seq_k, q_heads, kv_heads, scale, \
+                        device, s);
   TPU9_CASE(64, true) TPU9_CASE(64, false) TPU9_CASE(128, true) TPU9_CASE(128, false)
   TPU9_CASE(256, true) TPU9_CASE(256, false)
 #undef TPU9_CASE

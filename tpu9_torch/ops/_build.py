@@ -4,8 +4,9 @@ Each ``tpu9_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/tpu9_torch/`` at the repo
 root, the first time a kernel is launched (or when :func:`build_all` is
 called), then loaded with ``ctypes``. No PyTorch header is included, so a
-build takes seconds. The library file name carries a hash of the source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+build takes seconds. The library file name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -38,8 +39,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``csrc/<name>.cu``: its name hashes the
+    source, every shared header (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -12,8 +12,10 @@ take) and computes its plain twin on a CPU tensor. ``paged_verify_attention``
 (a speculative verify window over the paged pool) runs on the card as one
 call of the block-table decode kernels over every (slot, window position)
 row. Under grad, ``attention`` gives the flash shapes
-:class:`FlashAttention`: the kernel forward and a backward in torch ops,
-the gradient of the twin (the train step's path).
+:class:`FlashAttention` (the train step's path): the kernel forward, which
+also saves each row's log-sum-exp, and the hand-written backward kernel
+``tpu9_torch/csrc/flash_attention_backward.cu``, whose twin
+``xla_attention_backward`` is the gradient of ``xla_attention``.
 """
 
 from __future__ import annotations
@@ -39,9 +41,10 @@ def _expand_gqa(k: torch.Tensor, q_heads: int) -> torch.Tensor:
 
 
 def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+                    mask: Optional[torch.Tensor], with_lse: bool = False):
     """q [B,T,QH,D], k/v [B,S,KH,D], mask broadcastable to [B,H,T,S]
-    (``None``: every key)."""
+    (``None``: every key). With ``with_lse``, also each row's log-sum-exp
+    of its scaled, masked f32 scores, [B, QH, T]."""
     q_heads = q.shape[2]
     k = _expand_gqa(k, q_heads)
     v = _expand_gqa(v, q_heads)
@@ -50,8 +53,16 @@ def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", probs, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhts,bshd->bthd", probs, v.float()).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def _causal_hidden(t: int, s: int, device, kv_offset: int = 0) -> torch.Tensor:
+    """[T, S]: true where key position > query position + ``kv_offset``."""
+    q_pos = torch.arange(t, device=device)[:, None] + kv_offset
+    return torch.arange(s, device=device)[None, :] > q_pos
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,10 +72,20 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's twin (at ``kv_offset=0``)."""
     mask = None
     if causal:
-        q_pos = torch.arange(q.shape[1], device=q.device)[:, None] + kv_offset
-        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = (k_pos <= q_pos)[None, None]
+        mask = ~_causal_hidden(q.shape[1], k.shape[1], q.device,
+                               kv_offset)[None, None]
     return _softmax_attend(q, k, v, mask)
+
+
+def xla_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True):
+    """``xla_attention`` (no offset) and each row's natural-log log-sum-exp
+    of its scaled, masked f32 scores, lse [B, QH, T] f32: the twin of the
+    flash kernel when it saves its statistics for the backward."""
+    mask = None
+    if causal:
+        mask = ~_causal_hidden(q.shape[1], k.shape[1], q.device)[None, None]
+    return _softmax_attend(q, k, v, mask, with_lse=True)
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,44 +129,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return xla_attention(q, k, v, causal=causal, kv_offset=kv_offset)
 
 
-def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, d_out: torch.Tensor,
-                             causal: bool):
+def xla_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, d_out: torch.Tensor,
+                           causal: bool):
     """(dq, dk, dv) of ``xla_attention(q, k, v, causal)`` for the output
-    cotangent ``d_out``, as autograd through the twin gives them: the
-    scaled scores and their f32 softmax recomputed from q, k and v, the
-    causal mask, then the four products of the backward in f32, each
-    gradient cast once to its input's dtype. A kv head's group of q heads
-    shares one product, so dk and dv come out summed over the group
-    (GQA) in f32, before the cast. The JAX package's flash kernel has no
-    backward; this is the gradient XLA takes of the twin."""
+    cotangent ``d_out``, from the forward's ``out`` and ``lse`` [B, QH, T]:
+    the backward kernel's plain twin, with its algebra. The scaled scores
+    x are recomputed from q and k in f32 (masked to -1e30 when causal), the
+    probabilities as P = exp(x - lse), delta = rowsum(d_out * out) in f32
+    and dS = P (dP - delta) with dP = d_out V^T; then dv = P^T d_out,
+    dk = scale dS^T Q and dq = scale dS K in f32, a kv head's dk and dv
+    summed over its group of q heads (GQA) before each gradient's one cast
+    to its input's dtype. The JAX package's flash kernel has no backward:
+    this is the gradient XLA takes of the twin, written as the kernel
+    computes it."""
     b, t, q_heads, d = q.shape
     s, kv_heads = k.shape[1], k.shape[2]
     g = q_heads // kv_heads
     scale = d ** -0.5
-    # [B, KH, G*T, D]: the rows of a kv head's group, in q head order
-    qs = (q.float() * scale).reshape(b, t, kv_heads, g, d) \
-        .permute(0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
-    do = d_out.float().reshape(b, t, kv_heads, g, d) \
-        .permute(0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
+
+    def rows(x):
+        """[B, T, QH, D] -> [B, KH, G*T, D] f32: a kv head's group of q
+        heads' rows, in q head order."""
+        return x.float().reshape(b, t, kv_heads, g, d) \
+            .permute(0, 2, 3, 1, 4).reshape(b, kv_heads, g * t, d)
+
+    qf, do = rows(q), rows(d_out)
     kf = k.float().transpose(1, 2)                      # [B, KH, S, D]
     vf = v.float().transpose(1, 2)
-    logits = qs @ kf.transpose(-1, -2)                  # [B, KH, G*T, S]
+    x = (qf * scale) @ kf.transpose(-1, -2)             # [B, KH, G*T, S]
     if causal:
-        hidden = (torch.arange(s, device=q.device)[None, :]
-                  > torch.arange(t, device=q.device)[:, None])
-        hidden = hidden.repeat(g, 1)                    # [G*T, S]
-        logits.masked_fill_(hidden, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    del logits
+        x.masked_fill_(_causal_hidden(t, s, q.device).repeat(g, 1), NEG_INF)
+    probs = torch.exp(x - lse.float().reshape(b, kv_heads, g * t, 1))
+    del x
+    delta = (do * rows(out)).sum(-1, keepdim=True)
     dv = probs.transpose(-1, -2) @ do                   # [B, KH, S, D]
-    d_probs = do @ vf.transpose(-1, -2)                 # [B, KH, G*T, S]
-    d_logits = probs * (d_probs - (d_probs * probs).sum(-1, keepdim=True))
-    del probs, d_probs
-    if causal:
-        d_logits.masked_fill_(hidden, 0.0)
-    dq = (d_logits @ kf) * scale                        # [B, KH, G*T, D]
-    dk = d_logits.transpose(-1, -2) @ qs                # [B, KH, S, D]
+    d_scores = probs * (do @ vf.transpose(-1, -2) - delta)
+    del probs
+    dq = (d_scores @ kf) * scale                        # [B, KH, G*T, D]
+    dk = (d_scores.transpose(-1, -2) @ qf) * scale      # [B, KH, S, D]
     dq = dq.reshape(b, kv_heads, g, t, d).permute(0, 3, 1, 2, 4) \
         .reshape(b, t, q_heads, d)
     return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
@@ -155,19 +178,23 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with a gradient. Forward: the kernel on a
     CUDA tensor (each call, a checkpoint's recompute included, counts one
-    launch), the twin on a CPU tensor. Backward, on either device:
-    :func:`flash_attention_backward` from the saved q, k and v."""
+    launch), the twin on a CPU tensor, each saving its output and row
+    log-sum-exp beside q, k and v. Backward:
+    :func:`flash_attention_backward`, the backward kernel on a CUDA tensor
+    (one launch a call) and its twin on a CPU tensor."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
-        return flash_attention(q, k, v, causal=causal)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, d_out, ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, d_out,
+                                              ctx.causal)
         return dq, dk, dv, None
 
 
@@ -188,21 +215,31 @@ def flash_kernel_supports(q: torch.Tensor, k: torch.Tensor) -> str:
     return ""
 
 
-def _launch_flash(q, k, v, causal: bool) -> torch.Tensor:
+def _check_kv(q, k, v) -> None:
+    """The flash kernels' operand checks shared by both directions."""
     why = flash_kernel_supports(q, k)
     if why:
         raise ValueError(f"flash_attention kernel needs {why}")
-    batch, t, q_heads, head_dim = q.shape
+    batch, _, _, head_dim = q.shape
     if k.shape != v.shape or v.dtype != k.dtype or k.shape[0] != batch \
             or k.shape[3] != head_dim:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
+
+
+def _launch_flash(q, k, v, causal: bool,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel; it also writes each row's log-sum-exp into
+    ``lse`` [B, QH, T] f32 when one is given."""
+    _check_kv(q, k, v)
+    batch, t, q_heads, head_dim = q.shape
     from .paged_attention import check_launch_layout
-    check_launch_layout((q, k, v))
+    check_launch_layout((q, k, v) if lse is None else (q, k, v, lse))
     out = torch.empty_like(q)
     rc = _flash_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(),
                      batch, t, k.shape[1], q_heads, k.shape[2], head_dim,
-                     int(causal), head_dim ** -0.5,
+                     int(causal), head_dim ** -0.5, q.device.index,
                      torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
@@ -213,31 +250,103 @@ def _launch_flash(q, k, v, causal: bool) -> torch.Tensor:
 def _flash_fn():
     from ._build import load
     fn = load("flash_attention").tpu9_flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, with_lse: bool = False):
     """Blocked online-softmax attention. q [B,T,QH,D]; k/v [B,S,KH,D] with
     KH | QH; ``causal`` masks k_pos > q_pos (no offset). Returns
-    [B,T,QH,D] in q's dtype.
+    [B,T,QH,D] in q's dtype, and with ``with_lse`` also each row's
+    log-sum-exp [B, QH, T] in f32 (what the backward reads).
 
     A CUDA ``q`` launches the kernel (``flash_attention.launches`` counts
     each launch) or raises if the kernel cannot take the operands; a CPU
-    ``q`` computes the plain twin ``xla_attention``."""
+    ``q`` computes the plain twin ``xla_attention`` (``xla_attention_lse``
+    with ``with_lse``)."""
     if q.device.type == "cpu":
+        if with_lse:
+            return xla_attention_lse(q, k, v, causal=causal)
         return xla_attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention path for device {q.device}")
-    out = _launch_flash(q, k, v, causal)
+    lse = None
+    if with_lse:
+        lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=torch.float32, device=q.device)
+    out = _launch_flash(q, k, v, causal, lse)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _launch_flash_backward(q, k, v, out, lse, d_out, causal: bool):
+    _check_kv(q, k, v)
+    batch, t, q_heads, head_dim = q.shape
+    for name, x in (("out", out), ("d_out", d_out)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (batch, q_heads, t) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, QH, T] = {(batch, q_heads, t)} "
+                         f"f32, got {tuple(lse.shape)} {lse.dtype}")
+    d_out = d_out.contiguous()
+    from .paged_attention import check_launch_layout
+    check_launch_layout((q, k, v, out, d_out, lse))
+    if any(x.data_ptr() % 16 for x in (out, d_out, lse)):
+        raise ValueError("out, d_out and lse must be 16-byte aligned")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    rc = _flash_backward_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), batch, t, k.shape[1], q_heads,
+        k.shape[2], head_dim, int(causal), head_dim ** -0.5, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_backward launch failed: "
+                           f"cudaError {rc}")
+    return dq, dk, dv
+
+
+@functools.cache
+def _flash_backward_fn():
+    from ._build import load
+    fn = load("flash_attention_backward").tpu9_flash_attention_backward_bf16
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, d_out: torch.Tensor,
+                             causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` for the output
+    cotangent ``d_out``, from the forward's ``out`` and ``lse`` [B, QH, T]
+    (``flash_attention(..., with_lse=True)``), each in its input's dtype.
+
+    A CUDA ``q`` launches the backward kernel
+    (``flash_attention_backward.launches`` counts each launch: its delta,
+    dk/dv and dq passes are one) or raises if the kernel cannot take the
+    operands; a CPU ``q`` computes the plain twin
+    ``xla_attention_backward``."""
+    if q.device.type == "cpu":
+        return xla_attention_backward(q, k, v, out, lse, d_out, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention backward for device {q.device}")
+    grads = _launch_flash_backward(q, k, v, out, lse, d_out, causal)
+    flash_attention_backward.launches += 1
+    return grads
+
+
+flash_attention_backward.launches = 0
 
 
 def xla_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -9,9 +9,12 @@ each layer checkpointed when ``remat`` is on, the reference's remat on
 the layer boundary: the reference checkpoints the whole forward under
 ``jax.checkpoint``, which computes the same values, and on torch a
 checkpoint around the whole forward would keep nothing less. At
-block-aligned shapes each layer's attention is the flash kernel with its
-gradient (``ops.attention.FlashAttention``), so a checkpointed step runs
-the kernel twice a layer: the forward and the backward's recompute.
+block-aligned shapes each layer's attention is
+``ops.attention.FlashAttention``: the flash kernel forward, which saves
+each row's log-sum-exp, and the hand-written backward kernel
+(``csrc/flash_attention_backward.cu``), so a checkpointed step runs the
+forward kernel twice a layer (the forward and the backward's recompute)
+and the backward kernel once.
 
 Sharding comes from the inputs, as in the reference: ``init_train_state
 (params, opt, mesh, param_specs)`` (or ``parallel.shard_params``) places
