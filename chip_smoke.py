@@ -10,17 +10,15 @@ Phases, each of which must pass or the script exits non-zero:
 2. build: compiles every CUDA kernel of the main paths from
    ``tpu9_torch/csrc`` with ``nvcc`` (one process per source, all started
    together; one source holds the three decode kernels: bf16 pool, int8
-   pool and contiguous cache, each a split-KV pass (GQA group 1, 2, 4, 8
-   at D 64, 128, 256) and a combine pass (D 64, 128, 256); one the flash
-   kernel's six instances, D 64, 128 and 256, causal or not; one its
-   backward's, a dk/dv kernel and a dq kernel at the same six), prints
-   each instance's registers and spills from ``ptxas -v`` and any
-   ``ptxas`` note on serialised ``wgmma`` products, and fails if an
-   instance a served model runs spills: (G=4, D=128) of the decode kernels
-   and D=128 flash (llama3-8b), (G=1, D=256) of the bf16-pool and
-   contiguous decode kernels and D=256 flash (gemma-7b), (G=8, D=256) of
-   the int8-pool kernel (gemma-2b), or a causal instance of the backward's
-   two kernels;
+   pool and contiguous cache, each a split-KV pass (D 64, 128, 256; the GQA
+   group, 1 to 8, is a runtime argument: TMA-staged tiles, wgmma products)
+   and a combine pass (D 64, 128, 256); one the flash kernel's six
+   instances, D 64, 128 and 256, causal or not; one its backward's, a
+   dk/dv kernel and a dq kernel at the same six), prints each instance's
+   registers and spills from ``ptxas -v`` and any ``ptxas`` note on
+   serialised ``wgmma`` products, and fails if any split-pass instance of
+   the decode kernels spills, or the D=128 or D=256 flash instances (llama3-8b,
+   gemma-7b), or a causal instance of the backward's two kernels;
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
    main paths give it, at llama3-8b's heads (QH 32, KH 8, D 128) and at
    gemma-7b's (QH 16, KH 16, D 256) and gemma-2b's (QH 8, KH 1, D 256):
@@ -69,11 +67,12 @@ Phases, each of which must pass or the script exits non-zero:
    ``load_engine("gemma-2b-int8", kv_quant="int8")`` (int8 weights and
    pool, GQA group 8) and ``load_engine("gemma-7b", paged=False)``;
 10. mixtral, the sparse-MoE decoder (8 experts, top-2, llama's attention
-    shape): ``load_engine("mixtral-8x7b-int8", kv_quant="int8")`` at full
-    depth (int8 weights, experts int8 per expert, the int8 pool and B2);
+    shape): mixtral-8x7b-int8 at 16 of its 32 layers, full width (int8
+    weights, experts int8 per expert, the int8 pool and B2; the 32 layers'
+    46.9 GB fit, and the cut keeps the whole run inside its time limit);
 11. mixtral-8x7b in bf16 at 16 of its 32 layers, full width (the 32
-    layers take 93.4 GB), built from the preset's config through the
-    engine's constructor: the bf16 pool and B1.
+    layers take 93.4 GB). Both are built from the preset's config through
+    the engine's constructor: the bf16 pool and B1.
     Both come up serially (a compile-ahead bring-up would hold two copies
     of their 47 GB of weights), so the bring-up's own checks are skipped;
     their greedy tokens are checked against a reference that makes the
@@ -331,15 +330,15 @@ def phase_card() -> str:
 # -- phase 2: build -----------------------------------------------------------
 
 PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
-                         r"(?:NS_)?\d+(Table|Contiguous)E?Li(\d+)ELi(\d+)E")
+                         r"(?:NS_)?\d+(Table|Contiguous)ELi(\d+)E")
 PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])E")
 PTXAS_BACKWARD = re.compile(r"(dkdv_kernel|dq_kernel)ILi(\d+)ELb([01])E")
-# the decode instances the served models run, which must not spill:
-# llama3-8b (G = 4, D = 128), gemma-7b (G = 1, D = 256; bf16 pool and
-# contiguous cache) and gemma-2b-int8 (G = 8, D = 256, int8 pool)
-NO_SPILL = {("bf16", "Table", 4, 128), ("int8", "Table", 4, 128),
-            ("bf16", "Contiguous", 4, 128), ("bf16", "Table", 1, 256),
-            ("bf16", "Contiguous", 1, 256), ("int8", "Table", 8, 256)}
+# every split-pass instance, none of which may spill: (payload, addressing,
+# D); the GQA group (1 to 8) is a runtime argument of each
+NO_SPILL = {(payload, addr, d)
+            for payload, addr in (("bf16", "Table"), ("int8", "Table"),
+                                  ("bf16", "Contiguous"))
+            for d in (64, 128, 256)}
 # the flash instances of llama3-8b's and gemma-7b's prefill (causal or not)
 FLASH_NO_SPILL = {(128, True), (128, False), (256, True), (256, False)}
 # the backward's instances the train steps run (causal; D 256 for gemma-7b,
@@ -388,8 +387,8 @@ def phase_build(kernels: list[str]) -> None:
             label = name
             if m:
                 key = ("bf16" if m.group(1) != "a" else "int8", m.group(2),
-                       int(m.group(3)), int(m.group(4)))
-                label = "split_decode_kernel<{}, {}, G={}, D={}>".format(*key)
+                       int(m.group(3)))
+                label = "split_decode_kernel<{}, {}, D={}>".format(*key)
                 if key in NO_SPILL:
                     seen.add(key)
                     check(info.get("spills") == (0, 0), f"ptxas: {label} "
@@ -416,8 +415,8 @@ def phase_build(kernels: list[str]) -> None:
             print(f"  ptxas {source}: {label}: {info.get('registers')} "
                   f"registers, spill stores/loads {info.get('spills')}")
     if "paged_decode_attention" in logs:
-        check(seen == NO_SPILL, f"ptxas reported no served decode instance "
-              f"of {sorted(NO_SPILL - seen)}")
+        check(seen == NO_SPILL, f"ptxas reported no decode instance of "
+              f"{sorted(NO_SPILL - seen)}")
     if "flash_attention" in logs:
         check(flash_seen == FLASH_NO_SPILL, f"ptxas reported no served flash "
               f"instance of {sorted(FLASH_NO_SPILL - flash_seen)}")
@@ -848,12 +847,17 @@ def print_split_plans() -> None:
     for what, batch, max_blocks, block_s in (
             ("paged", 8, 17, 128), ("paged", 1, 17, 128),
             ("contiguous", 8, 8, 256), ("contiguous", 1, 8, 256)):
-        n_splits, bps = pa.split_plan(max_blocks, block_s)
-        grids = ", ".join(f"KH={kh}: {kh * batch * n_splits}"
-                          for kh in (8, 16, 1))
-        print(f"split plan ({what} B={batch} MB={max_blocks} "
-              f"BS={block_s}, SPLIT_TOKENS {pa.SPLIT_TOKENS}): {n_splits} "
-              f"splits of {bps} blocks, grid CTAs {grids}")
+        for int8 in ((False, True) if what == "paged" else (False,)):
+            plans = []
+            for kv_heads in (8, 16, 1):
+                n_splits, tokens = pa.split_plan(batch, kv_heads, max_blocks,
+                                                 block_s, int8)
+                plans.append(f"KH={kv_heads}: {n_splits} splits of {tokens} "
+                             f"positions, {kv_heads * batch * n_splits} CTAs")
+            pool = " int8 pool" if int8 else ""
+            print(f"split plan ({what}{pool} B={batch} MB={max_blocks} "
+                  f"BS={block_s}, choices {pa.SPLIT_CHOICES}, target "
+                  f"{pa.TARGET_CTAS} CTAs): " + "; ".join(plans))
 
 
 def flash_limit(want: torch.Tensor, v: torch.Tensor, q_heads: int,
@@ -1367,8 +1371,10 @@ ENGINES = {
 # zero-filled storage and the drawn weights until the bind, two copies of
 # mixtral's 47 GB against the card's 80 GB
 SERIAL = {"mixtral-int8", "mixtral-bf16"}
-# depth cut, at full width: mixtral-8x7b's 32 bf16 layers take 93.4 GB
-CUT_LAYERS = {"mixtral-bf16": 16}
+# depth cut, at full width: mixtral-8x7b's 32 bf16 layers take 93.4 GB;
+# the int8 engine's 32 layers (46.9 GB) fit, and are cut to the same 16 to
+# keep the whole run inside its time limit
+CUT_LAYERS = {"mixtral-bf16": 16, "mixtral-int8": 16}
 # the prompts of make_prompts whose greedy tokens a MoE engine's reference
 # check reads beside the reference prompt: 600 tokens (five chunks, the
 # last padded) and 777, both admitted without a prefix hit

@@ -311,10 +311,10 @@ def _jax_kernel(kind: str, c: dict) -> np.ndarray:
     return np.asarray(out)
 
 
-def _merged_splits(c: dict, heads, bps: int) -> torch.Tensor:
+def _merged_splits(c: dict, heads, tokens: int) -> torch.Tensor:
     """Each split's running max, sum and unnormalised output in f32 from
     the densified (dequantized) cache, cut at the plan's boundaries of
-    ``bps`` blocks, merged by ``merge_partials``."""
+    ``tokens`` positions, merged by ``merge_partials``."""
     t = {n: torch.from_numpy(a) for n, a in c.items()}
     if "table" in t:
         k = tpaged.gather_paged(t["k"], t["table"], t.get("ks"), torch.float32)
@@ -324,11 +324,11 @@ def _merged_splits(c: dict, heads, bps: int) -> torch.Tensor:
     group = heads[0] // heads[1]
     k, v = (x.repeat_interleave(group, dim=2) for x in (k, v))
     q = t["q"][:, 0] * D ** -0.5
-    n_splits = -(-MB // bps)
+    n_splits = -(-MB * BS // tokens)
     m = torch.full((len(LENS), heads[0], n_splits), float("nan"))
     l = torch.full_like(m, float("nan"))
     acc = torch.full((len(LENS), heads[0], n_splits, D), float("nan"))
-    span = bps * BS
+    span = tokens
     for i, n in enumerate(LENS):
         for s in range(n_splits):
             lo, hi = s * span, min((s + 1) * span, n)
@@ -339,13 +339,12 @@ def _merged_splits(c: dict, heads, bps: int) -> torch.Tensor:
             p = torch.exp(logits - m[i, :, s, None])
             l[i, :, s] = p.sum(-1)
             acc[i, :, s] = torch.einsum("ht,thd->hd", p, v[i, lo:hi])
-    return tpaged.merge_partials(m, l, acc, t["lens"], BS, bps)
+    return tpaged.merge_partials(m, l, acc, t["lens"], tokens)
 
 
 @pytest.mark.parametrize("group", list(GROUPS))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "ragged"])
-def test_decode_twins_d256_match_jax_kernels_interpret(kind, group,
-                                                       monkeypatch):
+def test_decode_twins_d256_match_jax_kernels_interpret(kind, group):
     """The twin against the JAX kernel at every length but 0 (where the
     contiguous twin's softmax over masked logits gives the mean of v and
     the kernels give zeros), and the split plan's partials merged at every
@@ -368,10 +367,10 @@ def test_decode_twins_d256_match_jax_kernels_interpret(kind, group,
         twin = tattn.paged_attention_dispatch(t["q"], t["k"], t["v"],
                                               t["table"], t["lens"], *scales)
     _close(twin[live], want[live])
-    monkeypatch.setattr(tpaged, "SPLIT_TOKENS", 2 * BS)
-    n_splits, bps = tpaged.split_plan(MB, BS)
-    assert (n_splits, bps) == (4, 2)
-    merged = _merged_splits(c, heads, bps)
+    # 64-position splits, four blocks each: the least a split takes
+    n_splits, tokens = tpaged.split_plan(len(LENS), heads[1], MB, BS)
+    assert (n_splits, tokens) == (2, 64)
+    merged = _merged_splits(c, heads, tokens)
     _close(merged, want)
     assert torch.equal(merged[0], torch.zeros_like(merged[0]))
 
@@ -380,7 +379,8 @@ def test_partials_buffer_holds_the_d256_plan():
     """The launchers size the partials from D: [B, QH, NS, 256] then the
     (max, sum) pairs."""
     q = torch.zeros((8, 1, 16, D), dtype=torch.bfloat16)
-    n_splits, bps, scratch, (acc, ml) = tpaged._plan_and_scratch(q, 17, 128)
+    n_splits, tokens, scratch, (acc, ml) = tpaged._plan_and_scratch(
+        q, 16, 17, 128)
     rows = 8 * 16 * n_splits
     assert scratch.shape == (rows * (D + 2),)
     assert ml - acc == 4 * rows * D

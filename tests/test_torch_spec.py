@@ -270,7 +270,8 @@ def test_card_route_operands_are_ones_the_decode_kernels_take(heads,
     clen = (positions + 1).reshape(-1).to(torch.int32)
     assert clen.dtype == torch.int32 and clen[0] == 1 and clen[-1] == 49
     # the split plan reads only shapes: one plan for every row
-    assert pa.split_plan(mb, bs) == pa.split_plan(rep.shape[1], bs)
+    assert pa.split_plan(b * t, heads[1], mb, bs) == pa.split_plan(
+        rows.shape[0], heads[1], rep.shape[1], bs)
 
 
 def test_verify_route_needs_a_cuda_or_cpu_tensor():

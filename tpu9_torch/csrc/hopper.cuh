@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the flash attention kernels:
-// mbarriers, TMA loads, wgmma products and their shared-memory descriptors,
-// and the host's tensor-map encoder. Included by flash_attention.cu (the
-// forward) and flash_attention_backward.cu (its gradient); ops/_build.py
-// hashes this header into both libraries' names.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA loads, wgmma products and their shared-memory descriptors, and the
+// host's tensor-map encoder. Included by flash_attention.cu (the forward),
+// flash_attention_backward.cu (its gradient) and paged_decode_attention.cu
+// (the decode kernels); ops/_build.py hashes this header into every
+// library's name.
 
 #pragma once
 
@@ -62,6 +63,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D tensor map: column c0, row c1
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy (the
+// operands wgmma reads): after the writes, before the barrier that hands
+// them to the product.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier `id`
+// (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
@@ -204,6 +228,35 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 8, f32) = a (64 x 16) b (16 x 8) [+ d]: both operands K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16, f32) += a (64 x 16) b (16 x 16): a MN-major in shared memory
+// (the transpose bit), b K-major
+__device__ __forceinline__ void wgmma_n16_mn(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 0;\n}\n"
+      : TPU9_F8(d, 0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Byte offset of 16-byte chunk `chunk` (of the 8 in a 128-byte row) of row
+// `row` in a 128-byte-swizzled panel whose base is 1024-byte aligned: the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads.
+__device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
+  return static_cast<uint32_t>(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
 // 2^x (MUFU.EX2; a result below 2^-126 flushes to 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -268,6 +321,23 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major [rows, cols] matrix (row stride `cols` elements of
+// `elem_bytes`) as a 2-D map with boxes of box_cols x box_rows: bf16 in
+// 128-byte swizzled panels (box_cols 64), or int8 unswizzled.
+bool encode_map_2d(EncodeTiled encode, CUtensorMap* map, const void* base, bool int8,
+                   uint64_t cols, uint64_t rows, int box_cols, int box_rows) {
+  const int elem_bytes = int8 ? 1 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -7,18 +7,23 @@ of ``tpu9/ops/paged_attention.py``).
 kernels ``tpu9_torch/csrc/paged_decode_attention.cu``, the port of the TPU
 kernels of the same names. Each call launches two kernels: a split-KV pass
 over a grid of (kv head, sequence, split), whose plan ``split_plan`` takes
-from the shapes alone, and a combine pass that merges each split's partial
-softmax state (``merge_partials`` is its plain twin). On a CUDA tensor each
-wrapper launches them or raises; on a CPU tensor it computes the plain
-twin: ``xla_paged_decode_attention`` (gather the table rows densely,
-dequantize an int8 pool, then a masked softmax) for the pool,
-``xla_decode_attention`` for the contiguous cache. The twins are also the
-kernels' oracles in the tests and in ``chip_smoke.py``.
+from the shapes alone (a split is a run of 64, 128 or 256 positions, and
+may cut a block), and a combine pass that merges each split's partial
+softmax state (``merge_partials`` is its plain twin). A split CTA stages
+its k/v tiles by TMA and takes the GQA group's products on tensor cores.
+On a CUDA tensor each wrapper launches them or raises; on a CPU tensor it
+computes the plain twin: ``xla_paged_decode_attention`` (gather the table
+rows densely, dequantize an int8 pool, then a masked softmax) for the
+pool, ``xla_decode_attention`` for the contiguous cache. The twins are
+also the kernels' oracles in the tests and in ``chip_smoke.py``.
 
 Each wrapper counts its launches in ``.launches``. Inside a CUDA-graph
 capture a wrapper enqueues into the graph and launches nothing, and a
 replay runs no Python: so a capture takes back what its wrappers counted
 (:func:`captured_launches`) and each replay adds it (:func:`add_launches`).
+The kernels' tensor maps are encoded at launch from the pool's address and
+captured with the launch, so a replayed window needs the pool (or cache)
+where it was, as it already does for the plain pointers.
 """
 
 from __future__ import annotations
@@ -36,9 +41,19 @@ HEAD_DIMS = (64, 128, 256)
 GROUPS = (1, 2, 4, 8)
 MAX_BLOCK_S = 1024
 RAGGED_BLOCK_S = 256          # the JAX ragged kernel's default block_s
-# cached positions a split CTA takes at least: the best of 128, 256 and
-# 512 timed on the card (PERF.md §6)
-SPLIT_TOKENS = 128
+# positions a split CTA may take, largest first: whole 64-position tiles.
+# The int8 pool's splits stop at INT8_SPLIT_MAX: each of its tiles costs a
+# widening pass, and at one stage of the ring a longer split walks them one
+# after another (256 positions ran 18% slower than 128 at llama's B=8 on
+# the card, where bf16 ran 6% faster: scripts/decode_kernel_times.py
+# --candidates, PERF.md §6)
+SPLIT_CHOICES = (256, 128, 64)
+INT8_SPLIT_MAX = 128
+# CTAs the split grid should give at least: two a streaming multiprocessor
+# of an H100 (132 SMs)
+TARGET_CTAS = 2 * 132
+# the rows a 32-bit TMA coordinate reaches: the pool's N * BS must stay below
+MAX_POOL_ROWS = 2 ** 31 - 1
 
 
 def gather_paged(pool: torch.Tensor, block_table: torch.Tensor,
@@ -74,30 +89,38 @@ def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return xla_decode_attention(q, k, v, cache_len)
 
 
-def split_plan(max_blocks: int, block_s: int) -> tuple[int, int]:
-    """``(n_splits, blocks_per_split)`` of the split-KV grid (kv_heads,
-    batch, n_splits): split s takes table columns [s * bps, (s + 1) * bps)
-    of every sequence, ``SPLIT_TOKENS`` positions or one block if that is
-    more, and the splits cover all ``max_blocks`` columns. It reads the
-    shapes, never the lengths, so a launch needs no host read of
+def split_plan(batch: int, kv_heads: int, max_blocks: int, block_s: int,
+               int8: bool = False) -> tuple[int, int]:
+    """``(n_splits, split_tokens)`` of the split-KV grid (kv_heads, batch,
+    n_splits): split s takes positions [s * split_tokens, (s + 1) *
+    split_tokens) of every sequence, and the splits cover all ``max_blocks
+    * block_s`` positions of the table. ``split_tokens`` is the largest of
+    ``SPLIT_CHOICES`` (up to ``INT8_SPLIT_MAX`` for the ``int8`` pool) whose
+    grid gives ``TARGET_CTAS`` CTAs, else 64: a split may cut a block, so
+    that a single kv head still fills the card, or span several. It reads
+    the shapes, never the lengths, so a launch needs no host read of
     ``cache_len`` and can be captured in a CUDA graph."""
-    bps = min(max_blocks, max(1, -(-SPLIT_TOKENS // block_s)))
-    return -(-max_blocks // bps), bps
+    positions = max_blocks * block_s
+    fits = [c for c in SPLIT_CHOICES if not int8 or c <= INT8_SPLIT_MAX]
+    tokens = next((c for c in fits
+                   if batch * kv_heads * -(-positions // c) >= TARGET_CTAS),
+                  SPLIT_CHOICES[-1])
+    while -(-positions // tokens) > 65535:      # the grid's z extent
+        tokens *= 2
+    return -(-positions // tokens), tokens
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
-                   cache_len: torch.Tensor, block_s: int,
-                   blocks_per_split: int) -> torch.Tensor:
+                   cache_len: torch.Tensor, split_tokens: int) -> torch.Tensor:
     """Plain twin of the combine kernel: m, l [B, QH, NS] and acc
     [B, QH, NS, D] are each split's running max, sum and unnormalised
-    output in f32; only the ceil(ceil(len/BS)/bps) splits of a sequence
+    output in f32; only the ceil(len/split_tokens) splits of a sequence
     that hold positions are merged: m* = max m_i, out = sum e^(m_i - m*)
     acc_i / max(sum e^(m_i - m*) l_i, 1e-30). Returns [B, 1, QH, D] f32;
     length 0 gives zeros."""
     from .attention import NEG_INF
     n_splits = m.shape[-1]
-    blocks = -(-cache_len.long().clamp(min=0) // block_s)
-    used = -(-blocks // blocks_per_split)                          # [B]
+    used = -(-cache_len.long().clamp(min=0) // split_tokens)        # [B]
     dead = (torch.arange(n_splits, device=m.device)
             >= used[:, None])[:, None, :]                          # [B, 1, NS]
     m = m.masked_fill(dead, NEG_INF)
@@ -159,7 +182,7 @@ def ragged_kernel_supports(q: torch.Tensor, k_cache: torch.Tensor,
 
 def check_launch_layout(tensors) -> None:
     """One device, contiguous, and the first three (q, k, v) 16-byte
-    aligned for the kernels' vector loads."""
+    aligned for the kernels' vector loads and tensor maps."""
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("all operands must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
@@ -168,19 +191,29 @@ def check_launch_layout(tensors) -> None:
         raise ValueError("q, k and v must be 16-byte aligned")
 
 
-def _plan_and_scratch(q, max_blocks: int, block_s: int):
+def _check_rows(kv: torch.Tensor) -> None:
+    """The decode kernels' tensor maps address a pool (or cache) [N, BS,
+    KH, D] as N * BS rows by a 32-bit coordinate."""
+    rows = kv.shape[0] * kv.shape[1]
+    if rows > MAX_POOL_ROWS:
+        raise ValueError(f"k/v hold {rows} rows of positions, more than "
+                         f"the decode kernels' {MAX_POOL_ROWS}")
+
+
+def _plan_and_scratch(q, kv_heads: int, max_blocks: int, block_s: int,
+                      int8: bool = False):
     """The split plan for these shapes, and one new f32 buffer for the
     partials that the split pass writes and the combine pass reads: each
     split's unnormalised output [B, QH, NS, D], then its running max and
     sum [B, QH, NS, 2]. Returns the plan, the buffer (held by the caller
     until both kernels are enqueued) and the two parts' addresses."""
     batch, _, q_heads, head_dim = q.shape
-    n_splits, bps = split_plan(max_blocks, block_s)
+    n_splits, tokens = split_plan(batch, kv_heads, max_blocks, block_s, int8)
     rows = batch * q_heads * n_splits
     scratch = torch.empty(rows * (head_dim + 2), dtype=torch.float32,
                           device=q.device)
     base = scratch.data_ptr()
-    return n_splits, bps, scratch, (base, base + 4 * rows * head_dim)
+    return n_splits, tokens, scratch, (base, base + 4 * rows * head_dim)
 
 
 def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
@@ -206,10 +239,12 @@ def _launch(q, k_pool, v_pool, block_table, cache_len, k_scale=None,
     if block_table.dtype != torch.int32 or cache_len.dtype != torch.int32:
         raise ValueError("block_table and cache_len must be int32")
     check_launch_layout((q, k_pool, v_pool, *scales, block_table, cache_len))
-    n_splits, bps, scratch, parts = _plan_and_scratch(q, max_blocks, block_s)
+    _check_rows(k_pool)
+    n_splits, tokens, scratch, parts = _plan_and_scratch(
+        q, kv_heads, max_blocks, block_s, k_scale is not None)
     out = torch.empty_like(q)
     shape = (batch, q_heads, kv_heads, head_dim, block_s, max_blocks,
-             n_splits, bps, head_dim ** -0.5,
+             n_splits, tokens, head_dim ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, *scales, block_table,
                                    cache_len, out)] + list(parts)
@@ -236,13 +271,14 @@ def _launch_ragged(q, k_cache, v_cache, cache_len, block_s: int
         raise ValueError(f"cache_len must be int32 of shape ({batch},), got "
                          f"{cache_len.dtype} {tuple(cache_len.shape)}")
     check_launch_layout((q, k_cache, v_cache, cache_len))
-    n_splits, bps, scratch, parts = _plan_and_scratch(q, s_max // block_s,
-                                                      block_s)
+    _check_rows(k_cache)
+    n_splits, tokens, scratch, parts = _plan_and_scratch(
+        q, kv_heads, s_max // block_s, block_s)
     out = torch.empty_like(q)
     rc = _kernel_fn("ragged")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(), *parts,
-        batch, q_heads, kv_heads, head_dim, block_s, s_max, n_splits, bps,
+        batch, q_heads, kv_heads, head_dim, block_s, s_max, n_splits, tokens,
         head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: "
@@ -304,7 +340,8 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
     """:func:`paged_decode_attention` over an int8 pool: k/v_pool
     [N_BLOCKS, BS, KH, D] int8, k/v_scale [N_BLOCKS, BS, KH] f32 (one
     absmax scale per (token, head) vector, ``ops.quant.quantize_kv``). The
-    kernel dequantizes in registers, in f32.
+    kernel widens the int8 tiles to bf16 (exact) for its tensor-core
+    products and applies the scales to the f32 scores and probabilities.
 
     A CUDA ``q`` launches the int8 split kernel and the combine kernel
     (``paged_decode_attention_quant.launches`` counts each call) or raises;
