@@ -8,7 +8,7 @@ gemma-7b's and gemma-2b's at D=256 (``chip_smoke.GEMMA_HEADS``).
 
     python3 scripts/decode_kernel_times.py [ROOT] [--candidates | --flash |
                                                    --backward | --split-alone |
-                                                   --steps]
+                                                   --steps | --lora-step]
 
 ROOT (default: this checkout) holds the ``tpu9_torch`` whose kernels are
 built and timed; the cases, checks and timing are this checkout's
@@ -51,7 +51,14 @@ takes.
 (``chip_smoke.check_backward``: against its twin and through the Function
 against autograd of the f32 twin), times it on the device alone beside
 SDPA's backward alone on the same inputs, and gives the device time of each
-of its three kernels (delta, dk/dv, dq) from ``torch.profiler``.
+of its kernels from ``torch.profiler`` (``delta_kernel``, ``dkdv_kernel``,
+``dq_kernel``) and their sum. The names come from each kernel's symbol, so
+a tree with other kernels is split by its own.
+
+``--lora-step`` instead runs ``chip_smoke.phase_train_lora`` (phase 12:
+the gemma-7b LoRA step at (8, 512), its checks, its step time and one
+profiled step) with ROOT's package, so that parent / change / change /
+parent in one call gives the step's move with the backward kernel.
 """
 
 from __future__ import annotations
@@ -222,9 +229,11 @@ def backward(cs, card: str) -> None:
             for _ in range(10):
                 kernel()
             torch.cuda.synchronize()
-        parts = [f"{name} {ms:.4f} ms" for name, ms in device_ms(prof).items()]
+        split = device_ms(prof)
+        parts = [f"{name} {ms:.4f} ms" for name, ms in split.items()]
         print(f"backward kernel [{label}]: {kernel_ms:.4f} ms device alone, "
-              f"sdpa backward {sdpa_ms:.4f} ms; {', '.join(parts)} ({card})")
+              f"sdpa backward {sdpa_ms:.4f} ms; {', '.join(parts)}; sum of "
+              f"the split {sum(split.values()):.4f} ms ({card})")
 
 
 def main() -> int:
@@ -245,6 +254,10 @@ def main() -> int:
     if "--backward" in sys.argv[1:]:
         _build.build_all(["flash_attention", "flash_attention_backward"])
         backward(cs, card)
+        return 0
+    if "--lora-step" in sys.argv[1:]:
+        _build.build_all(["flash_attention", "flash_attention_backward"])
+        cs.phase_train_lora(card)
         return 0
     if "--flash" in sys.argv[1:]:
         from tpu9_torch.ops import attention as at

@@ -26,8 +26,8 @@ the kernel's ``(m + log2 l) ln 2``): delta = rowsum(d_out * out) from the
 bf16 out in f32; P = exp2(x * scale log2(e) - lse log2(e)) in f32 with the
 mask; dS = P (dP - delta); P and dS rounded to bf16 before the products
 dV = P^T dO, dK = dS^T Q (summed over 64-row q tiles, a kv head's group of
-q heads one after another, as a dk/dv CTA walks them) and dQ = dS K
-(summed over the dq kernel's key tiles: 64 keys, 32 at D = 256), each in
+q heads one after another, as a CTA walks them) and dQ = dS K (summed
+over the dq kernel's key tiles in order: 64 keys, 32 at D = 256), each in
 f32, scaled and rounded to bf16 once. At the same shapes it stays within
 ``chip_smoke.grad_limit`` of ``jax.grad`` of the JAX ``xla_attention`` and
 of autograd through the port's twin on bf16 leaves (the two references the
@@ -35,7 +35,11 @@ card's check has: the first exact, the second what the card compares
 with), and within ``chip_smoke.backward_limit`` of the backward's twin
 ``xla_attention_backward`` on the same out and lse. The twin of the
 forward's statistics, ``xla_attention_lse``, matches a log-sum-exp of the
-JAX ``xla_attention`` scores taken with jax at ``atol=1e-5``.
+JAX ``xla_attention`` scores taken with jax at ``atol=1e-5``. Summed over
+the key tiles in any other order (ascending, descending, drawn from a
+seed), dq stays within both limits, and two orders differ by f32 rounding
+alone: within 1e-5 of the twin's largest entry. So the tolerances do not
+rest on the kernel's order of the sum.
 """
 
 import math
@@ -120,9 +124,14 @@ def kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def backward_kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           out: torch.Tensor, lse: torch.Tensor,
-                          d_out: torch.Tensor, causal: bool):
+                          d_out: torch.Tensor, causal: bool,
+                          key_order=None, dq_sum: bool = False):
     """The backward kernel's arithmetic: (dq, dk, dv) in bf16 from bf16
-    values of q, k, v, d_out and the forward's out, and its f32 lse."""
+    values of q, k, v, d_out and the forward's out, and its f32 lse.
+    ``key_order`` lists the dq kernel's key tiles (``dq_key_tile(d)``
+    keys each) in the order dq sums them (default ascending, the
+    kernel's); with ``dq_sum`` dq is returned as its f32 sum before the
+    scale and the rounding."""
     batch, t, q_heads, d = q.shape
     s, kv_heads = k.shape[1], k.shape[2]
     group = q_heads // kv_heads
@@ -159,17 +168,37 @@ def backward_kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv += p.bfloat16().float().transpose(-1, -2) @ dot
             dk += ds.bfloat16().float().transpose(-1, -2) @ qt
     # dq: a q tile's CTA walks the key tiles
-    bn = 32 if d == 256 else 64
+    bn = dq_key_tile(d)
     ke, ve = (x.repeat_interleave(group, dim=1) for x in (kh, vh))
     rows = torch.arange(t)
     dq = torch.zeros((batch, q_heads, t, d))
-    for k0 in range(0, s, bn):
-        cols = k0 + torch.arange(bn)
+    for kt in (range(s // bn) if key_order is None else key_order):
+        cols = kt * bn + torch.arange(bn)
         p = probs(qh @ ke[:, :, cols].transpose(-1, -2), lse2, rows, cols)
         ds = p * (doh @ ve[:, :, cols].transpose(-1, -2) - delta[..., None])
         dq += ds.bfloat16().float() @ ke[:, :, cols]
     back = lambda x: x.permute(0, 2, 1, 3).to(torch.bfloat16)
+    if dq_sum:
+        return dq.permute(0, 2, 1, 3), back(dk * scale), back(dv)
     return back(dq * scale), back(dk * scale), back(dv)
+
+
+def dq_key_tile(d: int) -> int:
+    """Keys of a dq kernel ring stage: 32 at D = 256 (the 128-row q and
+    d_out tiles and two stages of 64-key k and v would pass 227 KB), else
+    64."""
+    return 32 if d == 256 else 64
+
+
+def key_orders(n_tiles: int, seed: int) -> dict:
+    """Orders of dq's f32 sum over ``n_tiles`` key tiles: the kernel's
+    (``None``, ascending), descending, the odd tiles before the even, and
+    one drawn from a seed."""
+    return {"kernel": None,
+            "descending": list(range(n_tiles))[::-1],
+            "odd_first": list(range(1, n_tiles, 2)) + list(range(0, n_tiles, 2)),
+            "shuffled": [int(i) for i in
+                         np.random.default_rng(seed).permutation(n_tiles)]}
 
 
 def _bf16_values(rng, shape) -> np.ndarray:
@@ -234,10 +263,10 @@ def test_lse_twin_matches_jax_logsumexp_of_the_scores(s, d, causal):
         *(torch.from_numpy(x) for x in (q, k, v)), causal=causal))
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("t", [256, 320])
-def test_backward_model_within_chip_tolerance_of_jax_grad(t, d, causal):
+def _check_backward_model(t: int, d: int, causal: bool, order: str) -> None:
+    """The backward model, its dq partials added in ``order``, within
+    ``grad_limit`` of ``jax.grad`` of the JAX ``xla_attention`` and of
+    autograd through the twin, and within ``backward_limit`` of the twin."""
     group = 4
     rng = np.random.default_rng(3000 + t + d + int(causal))
     q = _bf16_values(rng, (2, t, 8, d))
@@ -256,7 +285,8 @@ def test_backward_model_within_chip_tolerance_of_jax_grad(t, d, causal):
         tattn.xla_attention(*leaves, causal=causal), leaves, bf[3])
 
     out, lse = kernel_model(*bf[:3], causal, with_lse=True)
-    got = backward_kernel_model(*bf[:3], out, lse, bf[3], causal)
+    got = backward_kernel_model(*bf[:3], out, lse, bf[3], causal,
+                                key_orders(t // dq_key_tile(d), t + d)[order])
     for ref in (exact, through_twin):
         for name, g, w in zip(("dq", "dk", "dv"), got, ref):
             w = w.float()
@@ -274,3 +304,46 @@ def test_backward_model_within_chip_tolerance_of_jax_grad(t, d, causal):
     # the model is not the twin: the bf16 P and dS move some entries
     assert any(float((g.float() - w.float()).abs().max()) > 0
                for g, w in zip(got, twin))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [256, 320])
+def test_backward_model_within_chip_tolerance_of_jax_grad(t, d, causal):
+    _check_backward_model(t, d, causal, "kernel")
+
+
+@pytest.mark.parametrize("order", ["descending", "odd_first", "shuffled"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_backward_model_any_key_tile_order_within_chip_tolerance(d, causal,
+                                                                 order):
+    """dq summed over the key tiles in another order than the kernel's
+    (T = 320: five key tiles, ten at D = 256) stays within both limits."""
+    _check_backward_model(320, d, causal, order)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_backward_model_key_tile_orders_agree_within_f32(d, causal):
+    """Orders of dq's sum over the key tiles differ in f32 rounding alone:
+    within 1e-5 of the twin's largest |dq|; dk and dv do not depend on
+    it."""
+    rng = np.random.default_rng(4000 + d + int(causal))
+    q = _bf16_values(rng, (2, 320, 8, d))
+    k = _bf16_values(rng, (2, 320, 2, d))
+    v = _bf16_values(rng, (2, 320, 2, d))
+    d_out = _bf16_values(rng, (2, 320, 8, d))
+    bf = [torch.from_numpy(x).bfloat16() for x in (q, k, v, d_out)]
+    out, lse = kernel_model(*bf[:3], causal, with_lse=True)
+    orders = key_orders(320 // dq_key_tile(d), d)
+    sums = {name: backward_kernel_model(*bf[:3], out, lse, bf[3], causal,
+                                        order, dq_sum=True)
+            for name, order in orders.items()}
+    twin = tattn.xla_attention_backward(*bf[:3], out, lse, bf[3], causal)
+    top = float(twin[0].float().abs().max()) / d ** -0.5   # before the scale
+    base = sums["kernel"]
+    for name in ("descending", "odd_first", "shuffled"):
+        assert float((sums[name][0] - base[0]).abs().max()) <= 1e-5 * top
+        assert torch.equal(sums[name][1], base[1])
+        assert torch.equal(sums[name][2], base[2])

@@ -30,49 +30,73 @@
 //    the forward's) and its 64 lse and delta values (the bulk-copy engine)
 //    into a ring of two stages, each guarded by a "full" mbarrier (TMA
 //    transaction bytes) and an "empty" one (one arrival per consumer warp).
-//    Two consumer warpgroups compute, for each q tile:
-//      S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in shared
-//      memory, 64 keys x 64 q rows each), P^T = exp2(S^T scale log2(e) -
-//      lse log2(e)) with the mask, dS^T = P^T (dP^T - delta), then
-//      dV += P^T dO and dK += dS^T Q (wgmma with the bf16 P^T and dS^T as
-//      register A fragments, converted in place from the accumulators, and
-//      dO / Q as MN-major B operands).
-//    Transposing the scores (keys as the rows) is what lets P^T and dS^T
-//    feed the dV and dK products from registers: no score tile is written
-//    to shared memory. dk and dv stay in f32 registers across the walk, so
-//    the group's sum needs no atomics. At D = 64 and 128 each consumer owns
-//    64 of the tile's 128 keys and all D columns; at D = 256 two 64 x 256
-//    f32 accumulators (256 registers a thread) would not fit, so the two
-//    consumers share 64 keys and split the columns of dk and dv (128 each),
-//    and each computes the whole S^T and dP^T: 6 products a q tile where 4
-//    would do, against a 208-register thread.
+//    Two consumer warpgroups; dk and dv stay in f32 registers across the
+//    walk, so the group's sum needs no atomics.
+//    - D = 64, 128: 128 keys a CTA, 64 a consumer, each with all D columns.
+//      A consumer takes S^T = K Q^T and dP^T = V dO^T for its keys (wgmma,
+//      both operands K-major, 64 keys x 64 q rows), P^T = exp2(S^T scale
+//      log2(e) - lse log2(e)) with the mask and dS^T = P^T (dP^T - delta),
+//      then dV += P^T dO and dK += dS^T Q with the bf16 P^T and dS^T as
+//      register A fragments (dO and Q MN-major): four products a tile.
+//    - D = 256: two 64 x 256 f32 accumulators a thread (256 registers)
+//      would not fit, so a CTA takes 64 keys and each consumer one pair of
+//      products over all of them: consumer 0 S^T = K Q^T, P^T and dV +=
+//      P^T dO; consumer 1 dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK
+//      += dS^T Q (each 64 keys x 64 q rows, then one 64 x 256 accumulator
+//      a thread). Consumer 0 hands its f32 P^T to consumer 1 through
+//      shared memory in register order (two buffers, a named-barrier
+//      arrive/sync pair each way), so the two run a step apart and one's
+//      softmax runs under the other's products: four products a tile,
+//      where both consumers taking the whole S^T and dP^T and splitting
+//      the columns took six. Its CTAs run in chunks of (kv head,
+//      sequence) units, each chunk k tile major (heaviest first), the chunk
+//      as many units as have about 4 MB of q and d_out: the units in flight
+//      share their q and d_out tiles in L2. (At D <= 128 the CTAs run k
+//      tile major over every unit.)
 // 3. dq_kernel: one CTA a (128-row q tile, q head, sequence), the forward's
 //    shape: q and d_out tiles stay in shared memory while a producer loads
 //    the k/v tiles (64 keys; 32 at D = 256, where two stages of 64-key tiles
 //    beside the q and d_out tiles would pass 227 KB) into a ring of two
 //    stages; each consumer (64 rows) computes S = Q K^T and dP = dO V^T,
 //    P and dS as above with its rows' lse and delta, and dQ += dS K (dS as
-//    register A fragments, K MN-major).
+//    register A fragments, K MN-major). Its CTAs run in chunks of (q head,
+//    sequence) units with about 8 MB of k and v, each chunk q tile major
+//    (the last, heaviest first). At D = 256 a 64-row CTA over 64-key tiles
+//    (the consumers splitting S, dP and dQ's columns as the dk/dv kernel
+//    does) and consumer 0 skipping the diagonal block's upper half, which
+//    its rows never see, were each timed against this and were slower at
+//    gemma-7b's train shape: it stays as it was.
 //
-// Why a dq kernel and not f32 atomics: the atomics would need dS (or dS^T)
-// written to shared memory for a product whose rows are q rows, an f32
-// workspace of B*T*QH*D zeroed before and cast after, and sums taken in an
-// order that changes from run to run. The dq kernel recomputes S and dP
-// (two more products of the pair's seven) and every result is deterministic.
+// Products per (64-row q tile, 64-key tile) pair: S, dP, dV and dK in the
+// dk/dv kernel, S, dP and dQ again in the dq kernel: seven. Every sum runs
+// in a fixed order (dq over the key tiles in ascending order), so the
+// results are deterministic.
+//
+// The dq route: dQ = dS K taken in the dk/dv kernel from the same dS^T and
+// added into an f32 [B, T, QH, D] workspace by atomics (zeroed by the delta
+// pass, cast to bf16 by a fourth) would save the dq kernel's S and dP. It
+// was built and timed against this one on the H100 and lost: its adds
+// reach the workspace once per tile pair, 302 MB of f32 atomics at
+// gemma-7b's train shape, which L2 took longer to absorb than the dq
+// kernel takes in all, and at D = 256 the third accumulator set leaves no
+// registers to overlap the chain. It also made dq vary from call to call.
 //
 // What bounds it: at the train shapes (gemma-7b B=8, T=S=512, 16/16 heads,
 // D=256; llama-1b B=4, T=S=1024, 32/8 heads, D=64), the bytes (q, k, v,
 // out, d_out read once and dq, dk, dv written once at 3.35 TB/s) for gemma,
 // the tensor-core operations for llama (8 flops per (q head, dim, attended
-// pair) at 989 TFLOP/s). The design keeps every score tile in registers and
-// every product on wgmma; the rounding is the forward's: P and dS rounded
-// to bf16 for their products, sums in f32.
+// pair) at 989 TFLOP/s). Neither bound is near (the kernels reach 18-30%
+// of it): each CTA's chain of products, softmax and waits is, with the k/v
+// (dq) or q/d_out (dk/dv) tiles reread from L2 by every CTA of a unit,
+// which the chunked orders keep resident. The rounding is the forward's: P
+// and dS rounded to bf16 for their products, sums in f32.
 //
-// Rows and keys past T or S: T and S are multiples of 64. The dkdv kernel's
-// 64-row q tiles never pass T; its 128-key tile at D <= 128 may pass S by
-// 64 keys, which TMA zero-fills and the mask gives p = 0, and which are not
-// stored. The dq kernel's 128-row tile may pass T by 64 rows: zero-filled,
-// lse and delta read as 0, so p = 1 and dS = 0 there, and not stored.
+// Rows and keys past T or S: T and S are multiples of 64. The dk/dv
+// kernel's 64-row q tiles never pass T; its 128-key tile at D <= 128 may
+// pass S by 64 keys, which TMA zero-fills and the mask gives p = 0, and
+// which are not stored. The dq kernel's 128-row tile may pass T by 64 rows:
+// zero-filled, lse and delta read as 0, so p = 1 and dS = 0 there, and not
+// stored.
 
 #include "hopper.cuh"
 
@@ -80,24 +104,32 @@ namespace {
 
 constexpr int kThreads = 384;        // producer warpgroup + 2 consumer warpgroups
 constexpr int kStages = 2;           // the rings of both kernels
-constexpr int kBlockQ = 64;          // q rows of a dkdv ring stage
+constexpr int kBlockQ = 64;          // q rows of a tile
 constexpr int kBlockM = 128;         // q rows of a dq CTA, 64 per consumer
+// the bytes a chunk of CTAs rereads (their units' q and d_out in the dk/dv
+// kernel, their k and v in the dq kernel): the sizes timed fastest at the
+// train shapes
+constexpr long long kKVChunkBytes = 4 << 20;
+constexpr long long kQChunkBytes = 8 << 20;
 
 // The dkdv kernel's shared memory: the k and v tiles, the q and d_out rings,
-// the lse/delta ring, the mbarriers; every tile on a 1024-byte boundary.
+// at D = 256 the two f32 P^T hand-off buffers, the lse/delta ring, the
+// mbarriers; every tile on a 1024-byte boundary. At D = 256: 224 KB of
+// tiles.
 template <int D>
 struct KVLayout {
-  static constexpr bool kSplit = D == 256;                 // consumers split the columns
-  static constexpr int kBlockN = kSplit ? 64 : 128;        // keys of the CTA
-  static constexpr int kCols = kSplit ? D / 2 : D;         // dk/dv columns of a consumer
+  static constexpr bool kSplitProducts = D == 256;         // a consumer per product pair
+  static constexpr int kBlockN = kSplitProducts ? 64 : 128;    // keys of the CTA
   static constexpr int kKVBytes = kBlockN * D * 2;
   static constexpr int kQBytes = kBlockQ * D * 2;          // one q (or d_out) stage
+  static constexpr int kXBytes = 64 * kBlockQ * 4;         // P^T, 64 x 64 f32
   static constexpr int kStatBytes = 2 * kBlockQ * 4;       // one stage's lse, then delta
   static constexpr int kK = 0;
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
   static constexpr int kDO = kQ + kStages * kQBytes;
-  static constexpr int kStats = kDO + kStages * kQBytes;
+  static constexpr int kX = kDO + kStages * kQBytes;
+  static constexpr int kStats = kX + (kSplitProducts ? 2 * kXBytes : 0);
   static constexpr int kBars = kStats + kStages * kStatBytes;  // kv_full, full and empty per stage
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
@@ -118,6 +150,17 @@ struct QLayout {
 
 __device__ __forceinline__ uint32_t use(int it) {          // the parity of a stage's it-th use
   return static_cast<uint32_t>((it / kStages) & 1);
+}
+
+// The unit and tile of CTA `cta`: chunks of `chunk` units, each chunk's
+// CTAs tile major, so that a chunk's units run side by side.
+__device__ __forceinline__ void unit_tile(int cta, int units, int tiles, int chunk, int& unit,
+                                          int& tile) {
+  const int first = cta / (chunk * tiles) * chunk;
+  const int in_chunk = min(chunk, units - first);
+  const int r = cta - first * tiles;
+  tile = r / in_chunk;
+  unit = first + r % in_chunk;
 }
 
 // -- 1. delta ------------------------------------------------------------------
@@ -161,13 +204,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
             const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int batch, int seq_q,
-            int seq_k, int q_heads, int kv_heads, float scale, float scale_log2) {
+            int seq_k, int q_heads, int kv_heads, float scale, float scale_log2, int chunk) {
   using L = KVLayout<D>;
   constexpr int kBlockN = L::kBlockN;
   constexpr int kPanels = D / kPanel;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));   // base, generic
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));         // base, generic
   const uint32_t k_sh = base + L::kK;
   const uint32_t v_sh = base + L::kV;
   const uint32_t kv_full = base + L::kBars;
@@ -180,10 +223,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   // the unit: k/v tile kt (tile 0 first: a causal tile walks the q tiles
   // from its first key down, so the low tiles are the heaviest), kv head,
   // sequence
-  const int per_tile = kv_heads * batch;
-  const int kt = blockIdx.x / per_tile;
-  const int kvh = blockIdx.x % kv_heads;
-  const int b = (blockIdx.x % per_tile) / kv_heads;
+  int unit, kt;
+  unit_tile(blockIdx.x, kv_heads * batch, (seq_k + kBlockN - 1) / kBlockN, chunk, unit, kt);
+  const int kvh = unit % kv_heads;
+  const int b = unit / kv_heads;
   const int k0 = kt * kBlockN;
   const int group = q_heads / kv_heads;
   const int q_tiles = seq_q / kBlockQ;
@@ -228,25 +271,24 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
         bulk_load(base + stats(it) + kBlockQ * 4, delta + row, kBlockQ * 4, full(it));
       }
     }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int c = wg - 1;
-    const int warp = (threadIdx.x / 32) % 4;
-    const int lane = threadIdx.x % 32;
-    // this consumer's keys (rows of its k and v operands) and dk/dv columns
-    const int key_off = L::kSplit ? 0 : 64 * c;
-    const int col_off = L::kSplit ? L::kCols * c : 0;
-    const int key_a = k0 + key_off + 16 * warp + lane / 4;   // this thread's two keys
-    const int key_b = key_a + 8;
-    const uint32_t k_rows = k_sh + key_off * kRowBytes;
-    const uint32_t v_rows = v_sh + key_off * kRowBytes;
-    const uint32_t col_panel = (col_off / kPanel) * kBlockQ * kRowBytes;
+    return;
+  }
 
-    float dk_acc[L::kCols / 2], dv_acc[L::kCols / 2];       // 64 keys x kCols
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  if constexpr (!L::kSplitProducts) {
+    // this consumer's 64 keys (rows of its k and v operands), all columns
+    const int key_a = k0 + 64 * c + 16 * warp + lane / 4;    // this thread's two keys
+    const int key_b = key_a + 8;
+    const uint32_t k_rows = k_sh + 64 * c * kRowBytes;
+    const uint32_t v_rows = v_sh + 64 * c * kRowBytes;
+    float dk_acc[D / 2], dv_acc[D / 2];                      // 64 keys x D
     float st[32], dp[32];           // S^T then P^T, dP^T then dS^T: 64 keys x 64 q rows
     uint32_t pa[4][4], da[4][4];    // P^T and dS^T as bf16 A fragments, 4 k-steps of 16 rows
 #pragma unroll
-    for (int i = 0; i < L::kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_iters; ++it) {
@@ -275,7 +317,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       const float* s_lse = reinterpret_cast<const float*>(smem + stats(it));
       const float* s_delta = s_lse + kBlockQ;
       // the mask can be true only where the tile crosses the diagonal or S
-      const bool edge = (kCausal && k0 + key_off + 63 > q0) || k0 + key_off + 64 > seq_k;
+      const bool edge = (kCausal && k0 + 64 * c + 63 > q0) || k0 + 64 * c + 64 > seq_k;
       wgmma_wait<1>();                                       // S^T done
       fence_operands(st);
 #pragma unroll
@@ -299,12 +341,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv(dv_acc, pa[kk],
-                 smem_desc(dos + col_panel + kk * 16 * kRowBytes, kBlockQ * kRowBytes, 1024));
+        wgmma_pv(dv_acc, pa[kk], smem_desc(dos + kk * 16 * kRowBytes, kBlockQ * kRowBytes, 1024));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv(dk_acc, da[kk],
-                 smem_desc(qs + col_panel + kk * 16 * kRowBytes, kBlockQ * kRowBytes, 1024));
+        wgmma_pv(dk_acc, da[kk], smem_desc(qs + kk * 16 * kRowBytes, kBlockQ * kRowBytes, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(dv_acc);
@@ -317,10 +357,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 
     const long long kv_row = static_cast<long long>(kv_heads) * D;
     const long long at_a = (static_cast<long long>(b) * seq_k + key_a) * kv_row +
-                           static_cast<long long>(kvh) * D + col_off + 2 * (lane % 4);
+                           static_cast<long long>(kvh) * D + 2 * (lane % 4);
     const long long at_b = at_a + 8 * kv_row;
 #pragma unroll
-    for (int i = 0; i < L::kCols / 8; ++i) {
+    for (int i = 0; i < D / 8; ++i) {
       if (key_a < seq_k) {
         *reinterpret_cast<__nv_bfloat162*>(dk + at_a + 8 * i) =
             __floats2bfloat162_rn(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
@@ -334,6 +374,103 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
             __floats2bfloat162_rn(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
       }
     }
+  } else {
+    // consumer 0: S^T = K Q^T, P^T, dV += P^T dO; consumer 1: dP^T = V dO^T,
+    // dS^T = P^T (dP^T - delta) with consumer 0's f32 P^T, dK += dS^T Q.
+    // Each holds one 64 x 256 accumulator over the CTA's 64 keys.
+    const int t = threadIdx.x % 128;
+    const int key_a = k0 + 16 * warp + lane / 4;             // this thread's two keys
+    const int key_b = key_a + 8;
+    const uint32_t rows_a = c == 0 ? k_sh : v_sh;             // the score product's operands
+    float acc[D / 2];               // dV (consumer 0) or dK (consumer 1): 64 keys x D
+    float sc[32];                   // S^T then P^T, or dP^T then dS^T: 64 keys x 64 q rows
+    uint32_t fa[4][4];              // P^T or dS^T as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iters; ++it) {
+      const int q0 = (qt0 + it % per_head) * kBlockQ;
+      const uint32_t qs = q_stage(it);
+      const uint32_t dos = do_stage(it);
+      const uint32_t rows_b = c == 0 ? qs : dos;
+      mbar_wait(full(it), use(it));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;              // a fresh sum, not carried
+      fence_operands(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk / 4) * 64 * kRowBytes + (kk % 4) * 32;
+        wgmma_qk(sc, smem_desc(rows_a + col, 16, 1024), smem_desc(rows_b + col, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      const float* s_lse = reinterpret_cast<const float*>(smem + stats(it));
+      const float* s_delta = s_lse + kBlockQ;
+      // P^T in f32, in register order: thread t's 4j..4j+3 at float4 j*128 + t
+      float4* p_buf = reinterpret_cast<float4*>(smem + L::kX + (it % 2) * L::kXBytes) + t;
+      if (c == 0) {
+        // the mask can be true only where the tile crosses the diagonal
+        const bool edge = kCausal && k0 + 63 > q0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);   // q row in the tile
+          const int key = (i / 2) % 2 ? key_b : key_a;
+          const float p = fast_exp2(fmaf(sc[i], scale_log2, -s_lse[col] * kLog2e));
+          sc[i] = edge && key > q0 + col ? 0.f : p;
+        }
+        // the buffer's last P^T (two tiles back) read by consumer 1
+        if (it >= 2) named_barrier(3 + it % 2, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          p_buf[j * 128] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+        named_barrier_arrive(1 + it % 2, 256);               // this tile's P^T is there
+      } else {
+        named_barrier(1 + it % 2, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 p = p_buf[j * 128];
+          const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            sc[i] = pj[e] * (sc[i] - s_delta[8 * (i / 4) + 2 * (lane % 4) + (i & 1)]);
+          }
+        }
+        if (it + 2 < n_iters) named_barrier_arrive(3 + it % 2, 256);   // the buffer is free
+      }
+      pack_p<4>(sc, fa);
+      // dV += P^T dO or dK += dS^T Q: 4 k-steps of 16 q rows, all D columns,
+      // the panels the leading byte offset apart
+      const uint32_t b_op = c == 0 ? dos : qs;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv(acc, fa[kk], smem_desc(b_op + kk * 16 * kRowBytes, kBlockQ * kRowBytes, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(fa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(it));                 // this warp is done with the stage
+    }
+    __nv_bfloat16* out = c == 0 ? dv : dk;
+    const float s_out = c == 0 ? 1.f : scale;
+    const long long kv_row = static_cast<long long>(kv_heads) * D;
+    const long long at_a = (static_cast<long long>(b) * seq_k + key_a) * kv_row +
+                           static_cast<long long>(kvh) * D + 2 * (lane % 4);
+    const long long at_b = at_a + 8 * kv_row;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(out + at_a + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i] * s_out, acc[4 * i + 1] * s_out);
+      *reinterpret_cast<__nv_bfloat162*>(out + at_b + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2] * s_out, acc[4 * i + 3] * s_out);
+    }
   }
 }
 
@@ -345,7 +482,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
           const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
           const float* __restrict__ lse, const float* __restrict__ delta,
           __nv_bfloat16* __restrict__ dq, int batch, int seq_q, int seq_k, int q_heads,
-          int kv_heads, float scale, float scale_log2) {
+          int kv_heads, float scale, float scale_log2, int chunk) {
   using L = QLayout<D>;
   constexpr int kBlockN = L::kBlockN;
   constexpr int kPanels = D / kPanel;
@@ -363,10 +500,11 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
   // the unit: q tile (the last first: a causal tile walks the keys up to
   // its last row), q head, sequence
   const int q_tiles = (seq_q + kBlockM - 1) / kBlockM;
-  const int per_tile = q_heads * batch;
-  const int qt = q_tiles - 1 - blockIdx.x / per_tile;
-  const int h = blockIdx.x % q_heads;
-  const int b = (blockIdx.x % per_tile) / q_heads;
+  int unit, rank;                                            // rank 0: the last q tile
+  unit_tile(blockIdx.x, q_heads * batch, q_tiles, chunk, unit, rank);
+  const int qt = q_tiles - 1 - rank;
+  const int h = unit % q_heads;
+  const int b = unit / q_heads;
   const int q0 = qt * kBlockM;
   int n_tiles = seq_k / kBlockN;
   if (kCausal) n_tiles = min(n_tiles, (min(q0 + kBlockM, seq_q) + kBlockN - 1) / kBlockN);
@@ -493,6 +631,12 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
 
 // -- host side ----------------------------------------------------------------
 
+// Units a chunk of CTAs takes: as many as have about `bytes` of the
+// operands their CTAs reread (`unit_bytes` each), at least one, at most all.
+int chunk_units(long long bytes, long long unit_bytes, int units) {
+  return static_cast<int>(max(1LL, min(static_cast<long long>(units), bytes / unit_bytes)));
+}
+
 template <int D, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* d_out,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int batch, int seq_q,
@@ -535,18 +679,27 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
       rows, seq_q, q_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned kv_ctas = static_cast<unsigned>((seq_k + KV::kBlockN - 1) / KV::kBlockN) *
-                           kv_heads * batch;
-  dkdv_kernel<D, kCausal><<<kv_ctas, kThreads, KV::kBytes, stream>>>(
+  const int kv_units = kv_heads * batch;
+  const int k_tiles = (seq_k + KV::kBlockN - 1) / KV::kBlockN;
+  // a unit's CTAs reread its group's q and d_out; at D <= 128 the CTAs go
+  // k tile major over every unit
+  const int kv_chunk = KV::kSplitProducts
+                     ? chunk_units(kKVChunkBytes, 4LL * q_heads / kv_heads * seq_q * D, kv_units)
+                     : kv_units;
+  dkdv_kernel<D, kCausal><<<static_cast<unsigned>(k_tiles) * kv_units, kThreads, KV::kBytes,
+                            stream>>>(
       q64, do64, k_kv, v_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), batch, seq_q, seq_k, q_heads, kv_heads, scale, scale_log2);
+      static_cast<__nv_bfloat16*>(dv), batch, seq_q, seq_k, q_heads, kv_heads, scale, scale_log2,
+      kv_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned q_ctas =
-      static_cast<unsigned>((seq_q + kBlockM - 1) / kBlockM) * q_heads * batch;
-  dq_kernel<D, kCausal><<<q_ctas, kThreads, Q::kBytes, stream>>>(
+  const int q_units = q_heads * batch;
+  // a unit's CTAs reread its kv head's k and v
+  const int q_chunk = chunk_units(kQChunkBytes, 4LL * seq_k * D, q_units);
+  dq_kernel<D, kCausal><<<static_cast<unsigned>((seq_q + kBlockM - 1) / kBlockM) * q_units,
+                          kThreads, Q::kBytes, stream>>>(
       q128, do128, k_q, v_q, lse, delta, static_cast<__nv_bfloat16*>(dq), batch, seq_q, seq_k,
-      q_heads, kv_heads, scale, scale_log2);
+      q_heads, kv_heads, scale, scale_log2, q_chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,6 +88,14 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrival at hardware barrier `id` without waiting: the threads that
+// bar.sync on it (`threads` together with the arriving ones) go on once all
+// have arrived and see the shared-memory writes made before the arrive, a
+// one-way hand-off
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
 // into shared memory by the bulk-copy engine, completing on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,

@@ -246,12 +246,18 @@ def _launch_flash(q, k, v, causal: bool,
     return out
 
 
+# the forward's C entry and its arguments: q, k, v, out, lse; batch,
+# seq_q, seq_k, q_heads, kv_heads, head_dim, causal; scale; device; stream
+FLASH_ENTRY = "tpu9_flash_attention_bf16"
+FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.cache
 def _flash_fn():
     from ._build import load
-    fn = load("flash_attention").tpu9_flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(load("flash_attention"), FLASH_ENTRY)
+    fn.argtypes = FLASH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -314,12 +320,19 @@ def _launch_flash_backward(q, k, v, out, lse, d_out, causal: bool):
     return dq, dk, dv
 
 
+# the backward's C entry and its arguments: q, k, v, out, d_out, lse,
+# delta, dq, dk, dv; batch, seq_q, seq_k, q_heads, kv_heads, head_dim,
+# causal; scale; device; stream
+FLASH_BACKWARD_ENTRY = "tpu9_flash_attention_backward_bf16"
+FLASH_BACKWARD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.cache
 def _flash_backward_fn():
     from ._build import load
-    fn = load("flash_attention_backward").tpu9_flash_attention_backward_bf16
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(load("flash_attention_backward"), FLASH_BACKWARD_ENTRY)
+    fn.argtypes = FLASH_BACKWARD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

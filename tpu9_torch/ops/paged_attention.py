@@ -291,16 +291,18 @@ def _launch_ragged(q, k_cache, v_cache, cache_len, block_s: int
 _ENTRIES = {"bf16": ("tpu9_paged_decode_attention_bf16", 8),
             "int8": ("tpu9_paged_decode_attention_int8", 10),
             "ragged": ("tpu9_ragged_decode_attention_bf16", 7)}
+# each instance's ctypes argument types, in its C entry's order
+PAGED_ARGTYPES = {instance: [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_void_p]
+                  for instance, (_, n_ptrs) in _ENTRIES.items()}
 
 
 @functools.cache
 def _kernel_fn(instance: str):
     """The entry point of one instance of the library (``_ENTRIES``)."""
     from ._build import load
-    symbol, n_ptrs = _ENTRIES[instance]
-    fn = getattr(load(KERNEL), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = getattr(load(KERNEL), _ENTRIES[instance][0])
+    fn.argtypes = PAGED_ARGTYPES[instance]
     fn.restype = ctypes.c_int
     return fn
 
