@@ -331,7 +331,7 @@ def phase_card() -> str:
 
 PTXAS_SPLIT = re.compile(r"split_decode_kernelI(13__nv_bfloat16|a)"
                          r"(?:NS_)?\d+(Table|Contiguous)ELi(\d+)E")
-PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])E")
+PTXAS_FLASH = re.compile(r"flash_kernelILi(\d+)ELb([01])ELb([01])E")
 PTXAS_BACKWARD = re.compile(r"(dkdv_kernel|dq_kernel)ILi(\d+)ELb([01])E")
 # every split-pass instance, none of which may spill: (payload, addressing,
 # D); the GQA group (1 to 8) is a runtime argument of each
@@ -339,8 +339,10 @@ NO_SPILL = {(payload, addr, d)
             for payload, addr in (("bf16", "Table"), ("int8", "Table"),
                                   ("bf16", "Contiguous"))
             for d in (64, 128, 256)}
-# the flash instances of llama3-8b's and gemma-7b's prefill (causal or not)
-FLASH_NO_SPILL = {(128, True), (128, False), (256, True), (256, False)}
+# the flash instances of llama3-8b's and gemma's prefill (causal or not):
+# (D, causal, keys split between the consumers); D = 256 has both paths
+FLASH_NO_SPILL = {(128, True, False), (128, False, False)} | {
+    (256, causal, split) for causal in (True, False) for split in (True, False)}
 # the backward's instances the train steps run (causal; D 256 for gemma-7b,
 # 64 for llama-1b) and D 128's, both of its kernels
 BACKWARD_NO_SPILL = {(kernel, d, True)
@@ -397,9 +399,10 @@ def phase_build(kernels: list[str]) -> None:
                 label = "combine_kernel<D={}>".format(
                     re.search(r"combine_kernelILi(\d+)E", name).group(1))
             elif f:
-                key = (int(f.group(1)), f.group(2) == "1")
-                label = "flash_kernel<D={}, {}>".format(
-                    key[0], "causal" if key[1] else "non-causal")
+                key = (int(f.group(1)), f.group(2) == "1", f.group(3) == "1")
+                label = "flash_kernel<D={}, {}{}>".format(
+                    key[0], "causal" if key[1] else "non-causal",
+                    ", keys split" if key[2] else "")
                 if key in FLASH_NO_SPILL:
                     flash_seen.add(key)
                     check(info.get("spills") == (0, 0), f"ptxas: {label} "
@@ -889,6 +892,10 @@ def check_flash(label: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
+# T = S of the D = 256 check whose 133 q tiles of 128 rows outnumber the
+# H100's SMs (and end on a half tile)
+LONG_T = 16960
+
 # (T = S, head_dim, causal, heads): llama3-8b's prefill buckets, the
 # llama-1b head_dim at the longest and one non-causal shape; then the same
 # buckets and a non-causal shape at the heads of gemma-7b and gemma-2b
@@ -942,7 +949,7 @@ def phase_flash_kernel(t: int, head_dim: int, causal: bool,
 def phase_flash_tails(causal: bool, batch: int = 2, t: int = 320,
                       head_dim: int = 128,
                       heads: tuple[int, int] = LLAMA_HEADS) -> float:
-    """The flash kernel at T = S = 320 (a multiple of 64, not of the
+    """The flash kernel at T = S = ``t`` (320: a multiple of 64, not of the
     kernel's 128-row tiles) over ``batch`` sequences. q, k and v are the
     leading ``batch`` sequences of buffers that hold one more, all NaN: a
     tile that read past the last sequence would put NaN in the output (a
@@ -1042,6 +1049,11 @@ def phase_kernels() -> list[dict]:
             (256, h) for h in GEMMA_HEADS.values())):
         for causal in (True, False):
             phase_flash_tails(causal, head_dim=head_dim, heads=heads)
+    # D = 256 past one round of whole units: 133 q tiles of 128 rows, more
+    # than the card's 132 SMs, take the heaviest-first order of `place`
+    for causal in (True, False):
+        phase_flash_tails(causal, batch=1, t=LONG_T, head_dim=256,
+                          heads=(1, 1))
     decode("ragged_decode_attention", "dense decode {} S=2048", "BS=256")
     # B3 under a gradient, at the train phases' shapes
     for path in GRAD_SHAPES:
@@ -1112,6 +1124,20 @@ def lse_limit(want: torch.Tensor, seq_k: int) -> torch.Tensor:
     return seq_k * 2.0 ** -24 + 1e-5 * (1 + want.abs())
 
 
+def check_lse(label: str, lse: torch.Tensor, want: torch.Tensor,
+              seq_k: int) -> None:
+    """The forward kernel's row log-sum-exp finite and within
+    ``lse_limit`` of the twin's ``want``."""
+    err = (lse - want).abs()
+    print(f"kernel flash_attention [{label}]: lse max_abs_err "
+          f"{float(err.max()):.3e} (tolerance |err| <= S*2^-24 + "
+          f"1e-5*(1 + |lse|))")
+    check(bool(torch.isfinite(lse).all())
+          and bool((err <= lse_limit(want, seq_k)).all()),
+          f"{label}: the forward's lse disagrees with the twin's (max abs "
+          f"err {float(err.max())})")
+
+
 def backward_terms(q, k, v, out, lse, d_out, causal: bool):
     """The products over absolute values that bound the backward kernel's
     rounding: |P|^T |dO| for dv, scale |dS|^T |Q| for dk and scale |dS| |K|
@@ -1180,14 +1206,7 @@ def check_backward(label: str, q, k, v, d_out, causal: bool) -> float:
     max_err = 0.0
     if t == s:
         max_err = check_flash(label, out, want_out.float(), v, causal)
-    err = (lse - want_lse).abs()
-    print(f"kernel flash_attention [{label}]: lse max_abs_err "
-          f"{float(err.max()):.3e} (tolerance |err| <= S*2^-24 + "
-          f"1e-5*(1 + |lse|))")
-    check(bool(torch.isfinite(lse).all())
-          and bool((err <= lse_limit(want_lse, s)).all()),
-          f"{label}: the forward's lse disagrees with the twin's (max abs "
-          f"err {float(err.max())})")
+    check_lse(label, lse, want_lse, s)
     twin = at.xla_attention_backward(q, k, v, out, lse, d_out, causal)
     terms = backward_terms(q, k, v, out, lse, d_out, causal)
     for name, g, w, term in zip(("dq", "dk", "dv"), got, twin, terms):
@@ -1229,20 +1248,12 @@ def check_backward(label: str, q, k, v, d_out, causal: bool) -> float:
     return max_err
 
 
-def phase_flash_grad(path: str) -> list[dict]:
-    """B3 with its gradient at a train phase's shape: ``check_backward``;
-    then the forward kernel, the backward kernel, the Function's forward
-    and backward and their twins timed. Returns two rows of the kernels
-    line: the Function's pair (``flash_attention``: ``ms`` the kernel
-    forward and backward, ``plain_ms`` the twin under autograd,
-    ``library_ms`` SDPA's forward and backward) and the backward kernel
-    alone (``flash_attention_backward``: ``plain_ms`` its twin, the
-    torch-ops backward, ``library_ms`` SDPA's backward alone)."""
-    import torch.nn.functional as F
-    from tpu9_torch.ops import attention as at
+def grad_inputs(path: str):
+    """A train phase's attention operands on the card, from a seed: its
+    label and bf16 q, k, v and d_out at ``GRAD_SHAPES[path]``."""
     batch, t, (q_heads, kv_heads), head_dim, model = GRAD_SHAPES[path]
     label = (f"{model} train B={batch} T=S={t} QH={q_heads} KH={kv_heads} "
-             f"D={head_dim} causal, forward + gradient")
+             f"D={head_dim} causal")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(batch + t + head_dim)
     q, k, v = (torch.randn((batch, t, h, head_dim), generator=gen,
@@ -1250,6 +1261,59 @@ def phase_flash_grad(path: str) -> list[dict]:
                for h in (q_heads, kv_heads, kv_heads))
     d_out = torch.randn(q.shape, generator=gen, device=DEVICE
                         ).to(torch.bfloat16)
+    return label, q, k, v, d_out
+
+
+def phase_flash_forward(label: str, q, k, v) -> dict:
+    """B3's forward kernel with its row log-sum-exp, alone, causal, as the
+    Function's forward runs it: its output within ``flash_limit`` and its
+    lse within ``lse_limit`` of the twin's (``xla_attention_lse``), then
+    timed beside the twin and SDPA's forward on the same inputs. Bound: q,
+    k and v read once, out and the f32 lse written once; 4 flops per (q
+    head, dim) of each attended pair. Returns its row of the kernels
+    line."""
+    import torch.nn.functional as F
+    from tpu9_torch.ops import attention as at
+    before = at.flash_attention.launches
+    out, lse = at.flash_attention(q, k, v, causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    check(at.flash_attention.launches == before + 1,
+          "flash_attention did not launch its kernel")
+    want, want_lse = at.xla_attention_lse(q, k, v, causal=True)
+    max_err = check_flash(label, out, want.float(), v, True)
+    check_lse(label, lse, want_lse, k.shape[1])
+    del want, want_lse
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    times = measure(
+        lambda: at.flash_attention(q, k, v, causal=True, with_lse=True),
+        lambda: at.xla_attention_lse(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))
+    batch, t, q_heads, head_dim = q.shape
+    pairs = batch * t * (t + 1) // 2
+    bound = roofline_ms(2 * (2 * q.numel() + k.numel() + v.numel())
+                        + 4 * lse.numel(), 4 * q_heads * head_dim * pairs)
+    print_times("flash_attention", label, times, bound,
+                "sdpa forward alone (is_causal, enable_gqa)")
+    return kernel_row("flash_attention", label, max_err, times, bound)
+
+
+def phase_flash_grad(path: str) -> list[dict]:
+    """B3 with its gradient at a train phase's shape: ``check_backward``;
+    then the forward kernel, the backward kernel, the Function's forward
+    and backward and their twins timed. Returns three rows of the kernels
+    line: the Function's pair (``flash_attention``: ``ms`` the kernel
+    forward and backward, ``plain_ms`` the twin under autograd,
+    ``library_ms`` SDPA's forward and backward) and the backward kernel
+    alone (``flash_attention_backward``: ``plain_ms`` its twin, the
+    torch-ops backward, ``library_ms`` SDPA's backward alone), and the
+    forward kernel with its lse alone (``phase_flash_forward``:
+    ``library_ms`` SDPA's forward alone)."""
+    import torch.nn.functional as F
+    from tpu9_torch.ops import attention as at
+    shape, q, k, v, d_out = grad_inputs(path)
+    q_heads, head_dim = q.shape[2], q.shape[3]
+    label = f"{shape}, forward + gradient"
     max_err = check_backward(label, q, k, v, d_out, True)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
@@ -1270,7 +1334,8 @@ def phase_flash_grad(path: str) -> list[dict]:
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
     times = measure(function, twin, sdpa)
-    times["forward_ms"] = time_ms(lambda: at.flash_attention(q, k, v))
+    forward = phase_flash_forward(f"{shape}, forward with lse alone", q, k,
+                                  v)
     out, lse = at.flash_attention(q, k, v, causal=True, with_lse=True)
     args = (q, k, v, out, lse, d_out, True)
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -1282,6 +1347,7 @@ def phase_flash_grad(path: str) -> list[dict]:
     # the pair: q, k, v and d_out read once, out, dq, dk and dv written
     # once; 4 flops per (q head, dim) of each attended pair forward (QK^T,
     # PV) and 8 backward (dP, dV, dQ, dK), at the bf16 peak
+    batch, t = q.shape[:2]
     pairs = batch * t * (t + 1) // 2
     bound = roofline_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()),
                         12 * q_heads * head_dim * pairs)
@@ -1295,8 +1361,9 @@ def phase_flash_grad(path: str) -> list[dict]:
     bwd_label = label.replace("forward + gradient", "backward alone")
     print_times("flash_attention_backward", bwd_label, bwd, bwd_bound,
                 "sdpa backward alone (is_causal, enable_gqa)")
-    print(f"kernel flash_attention [{label}]: forward kernel "
-          f"{times['forward_ms']:.4f} ms, backward kernel "
+    print(f"kernel flash_attention [{label}]: forward kernel with lse "
+          f"{forward['device_ms']:.4f} ms (sdpa's forward "
+          f"{forward['library_device_ms']:.4f} ms), backward kernel "
           f"{bwd['device_ms']:.4f} ms (its torch-ops twin "
           f"{bwd['plain_ms']:.4f} ms, sdpa's backward "
           f"{bwd['library_device_ms']:.4f} ms), Function forward + backward "
@@ -1304,7 +1371,7 @@ def phase_flash_grad(path: str) -> list[dict]:
           f"{times['library_ms']:.4f} ms")
     return [kernel_row("flash_attention", label, max_err, times, bound),
             kernel_row("flash_attention_backward", bwd_label, max_err, bwd,
-                       bwd_bound)]
+                       bwd_bound), forward]
 
 
 # B3's backward beside the train shapes: D=128 at llama3-8b's heads, the

@@ -42,7 +42,10 @@ A/B of two trees, in turns on one card (PERF.md §6):
 ``--flash`` instead checks and times ROOT's flash kernel (B3
 ``flash_attention``) at every shape of ``chip_smoke.FLASH_SHAPES`` (llama
 and gemma), beside SDPA on the same inputs
-(``chip_smoke.phase_flash_kernel``). Either way, a tree whose kernels take
+(``chip_smoke.phase_flash_kernel``), then its forward with the row
+log-sum-exp alone at every shape of ``chip_smoke.GRAD_SHAPES`` (the train
+steps' forward), beside SDPA's forward alone
+(``chip_smoke.phase_flash_forward``). Either way, a tree whose kernels take
 no head_dim 256 (before gemma's instances) is timed at the shapes it
 takes.
 
@@ -265,6 +268,10 @@ def main() -> int:
         for shape in cs.FLASH_SHAPES:
             if shape[1] in at.FLASH_HEAD_DIMS:    # an older tree's instances
                 cs.phase_flash_kernel(*shape)
+        for path in cs.GRAD_SHAPES:
+            label, q, k, v, _ = cs.grad_inputs(path)
+            cs.phase_flash_forward(f"{label}, forward with lse alone", q, k,
+                                   v)
         return 0
     if "--steps" in sys.argv[1:]:
         _build.build_all(["paged_decode_attention", "flash_attention"])

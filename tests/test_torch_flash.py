@@ -2,22 +2,29 @@
 on the CPU, where the kernel cannot run.
 
 ``kernel_model`` repeats the kernel's arithmetic in PyTorch: 128-row q
-tiles over 128-key k/v tiles (64-key at D = 256), zero-filled past T and S
-as TMA fills them;
-scores in f32, scaled by ``D^-0.5 * log2(e)`` for ``exp2``; keys past S and,
-when causal, keys past the row masked to -1e30 (the kernel masks only the
-tiles that cross the diagonal or S, where the mask can be true); a causal q
-tile stops at its diagonal tile; f32 running max, sum and accumulator;
-each probability rounded to bf16 for the PV product; the row sum floored at
-1e-30 and the output rounded to bf16.
+units over 128-key k/v tiles (64-key at D = 256), zero-filled past T and S
+as TMA fills them; at D = 256, where 128-row units would leave the card's
+SMs idle (``split_keys``), 64-row units whose two consumers walk the even
+and the odd key tiles apart and merge their row max, sum and output at the end (each
+partial scaled by 2^(m_c - m)); scores in f32, scaled by ``D^-0.5 *
+log2(e)`` for ``exp2``; keys past S and, when causal, keys past the row
+masked to -1e30 (the kernel masks only the tiles that cross the diagonal
+or S, where the mask can be true); each consumer's 64 rows stop at the
+last tile they reach (a tile wholly above them is skipped, which changes
+no bit: its probabilities would be 0 and its factor 1); f32 running max,
+sum and accumulator; each probability rounded to bf16 for the PV product;
+the row sum floored at 1e-30 and the output rounded to bf16.
 
 On the same inputs made from a seed (bf16 values; B=2, GQA 4, T = S = 256
 and 320, which is a multiple of 64 and not of 128; D 64, 128 and 256; causal
-and not), the JAX Pallas ``flash_attention`` in interpret mode is the
+and not; and at D = 256 both of its paths at gemma-2b's 8/1 heads, T = S =
+128 and 320), the JAX Pallas ``flash_attention`` in interpret mode is the
 reference: the port's twin ``xla_attention`` matches it in f32 at
 ``atol=2e-5``, and the model stays within ``chip_smoke.flash_limit`` of the
-twin, the tolerance ``chip_smoke.py`` holds the kernel to on the card. So
-that tolerance holds for this design by construction.
+twin, the tolerance ``chip_smoke.py`` holds the kernel to on the card, and
+its row log-sum-exp within ``chip_smoke.lse_limit`` of the twin's
+(``xla_attention_lse``). So those tolerances hold for this design by
+construction.
 
 The backward kernel (``tpu9_torch/csrc/flash_attention_backward.cu``)
 likewise: ``backward_kernel_model`` repeats its arithmetic from the model
@@ -56,53 +63,69 @@ from tpu9_torch.ops import attention as tattn
 
 torch.set_num_threads(2)
 
-TILE = 128                    # q rows of a tile
+TILE = 128                    # q rows of a unit
+SMS = 132                     # the H100's SMs: the wrapper's choice of units reads them
 
 
 def key_tile(d: int) -> int:
     """Keys of a k/v tile: 64 at D = 256 (the q tile and two stages of
     128-key k and v tiles would not fit in shared memory), else 128."""
     return 64 if d == 256 else 128
+
+
+def split_keys(batch: int, t: int, q_heads: int, d: int,
+               causal: bool) -> bool:
+    """The wrapper's choice of the split-key units on an H100."""
+    return tattn.flash_split_keys(batch, t, q_heads, d, causal, SMS)
+
+
 ATOL = 2e-5
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
 
 def kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 causal: bool, with_lse: bool = False):
+                 causal: bool, with_lse: bool = False, split=None):
     """The kernel's arithmetic. q [B,T,QH,D], k/v [B,S,KH,D] holding bf16
     values (any float dtype); returns [B,T,QH,D] in bf16, and with
     ``with_lse`` also each row's log-sum-exp [B, QH, T] f32 as the kernel
-    writes it, (m + log2 l) ln 2 of the base-2 max and sum."""
+    writes it, (m + log2 l) ln 2 of the base-2 max and sum. ``split``
+    (default: the wrapper's choice, ``split_keys``) takes the 64-row units
+    whose two consumers walk the even and the odd key tiles apart and merge
+    their max, sum and output at the end; D = 256 only.
+
+    Each consumer's 64 rows walk the key tiles in order from the first,
+    causal up to the last tile their rows reach (at 64 keys a tile,
+    consumer 0 of a 128-row unit stops a tile before consumer 1: a tile
+    wholly above the diagonal is skipped; at 128 keys it is not there to
+    skip)."""
     batch, t, q_heads, d = q.shape
     s, kv_heads = k.shape[1], k.shape[2]
     group = q_heads // kv_heads
     bn = key_tile(d)
+    if split is None:
+        split = split_keys(batch, t, q_heads, d, causal)
+    assert not split or d == 256
     scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
+    heads = lambda x: x.float().permute(0, 2, 1, 3)            # [B, H, L, D]
+    qh = heads(q)
+    n_k = -(-s // bn)
+    # zero-filled past S as TMA fills the last tile
+    kh, vh = (torch.nn.functional.pad(heads(x), (0, 0, 0, n_k * bn - s))
+              .repeat_interleave(group, dim=1) for x in (k, v))
 
-    def tiles(x, n, rows):
-        """[B, L, H, D] -> [B, H, n tiles, rows, D] in f32, zero-filled."""
-        pad = n * rows - x.shape[1]
-        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
-        return x.reshape(batch, n, rows, x.shape[2], d).permute(0, 3, 1, 2, 4)
-
-    n_q, n_k = -(-t // TILE), -(-s // bn)
-    qs = tiles(q, n_q, TILE)
-    ks = tiles(k, n_k, bn).repeat_interleave(group, dim=1)
-    vs = tiles(v, n_k, bn).repeat_interleave(group, dim=1)
-    out = torch.empty((batch, q_heads, n_q, TILE, d), dtype=torch.float32)
-    lse = torch.empty((batch, q_heads, n_q, TILE), dtype=torch.float32)
-    for qt in range(n_q):
-        rows = qt * TILE + torch.arange(TILE)
-        m = torch.full((batch, q_heads, TILE), -1e30)
-        l = torch.zeros((batch, q_heads, TILE))
-        o = torch.zeros((batch, q_heads, TILE, d))
-        # a causal q tile stops at the last key tile its rows reach
-        for j in range(min(n_k, (qt + 1) * TILE // bn) if causal else n_k):
-            x = qs[:, :, qt] @ ks[:, :, j].transpose(-1, -2) * scale_log2
+    def walk(qb, tiles):
+        """Online softmax of q rows [64 qb, 64 qb + 64) over ``tiles``:
+        the row max m (base 2, scaled), sum l and unnormalised output o."""
+        rows = 64 * qb + torch.arange(64)
+        m = torch.full((batch, q_heads, 64), -1e30)
+        l = torch.zeros((batch, q_heads, 64))
+        o = torch.zeros((batch, q_heads, 64, d))
+        for j in tiles:
             cols = j * bn + torch.arange(bn)
-            masked = (cols >= s)[None, :].expand(TILE, bn)
+            x = qh[:, :, rows] @ kh[:, :, cols].transpose(-1, -2) * scale_log2
+            masked = (cols >= s)[None, :].expand(64, bn)
             if causal:
                 masked = masked | (cols[None, :] > rows[:, None])
             x = x.masked_fill(masked, -1e30)
@@ -110,16 +133,31 @@ def kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(x - m_new[..., None])
             l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + p.bfloat16().float() @ vs[:, :, j]
+            o = o * alpha[..., None] + p.bfloat16().float() @ vh[:, :, cols]
             m = m_new
+        return m, l, o
+
+    out = torch.empty((batch, q_heads, t, d), dtype=torch.float32)
+    lse = torch.empty((batch, q_heads, t), dtype=torch.float32)
+    for qb in range(t // 64):
+        # the tiles these rows walk: up to the last their rows reach
+        n = min(n_k, -(-64 * (qb + 1) // bn)) if causal else n_k
+        if split:
+            m, l, o = walk(qb, range(0, n, 2))
+            if n > 1:
+                m1, l1, o1 = walk(qb, range(1, n, 2))
+                mx = torch.maximum(m, m1)
+                a0, a1 = torch.exp2(m - mx), torch.exp2(m1 - mx)
+                l = l * a0 + l1 * a1
+                o = o * a0[..., None] + o1 * a1[..., None]
+                m = mx
+        else:
+            m, l, o = walk(qb, range(n))
         l = torch.clamp(l, min=1e-30)
-        out[:, :, qt] = o / l[..., None]
-        lse[:, :, qt] = (m + torch.log2(l)) * LN2
-    out = out.reshape(batch, q_heads, n_q * TILE, d)[:, :, :t]
+        out[:, :, 64 * qb:64 * qb + 64] = o / l[..., None]
+        lse[:, :, 64 * qb:64 * qb + 64] = (m + torch.log2(l)) * LN2
     out = out.permute(0, 2, 1, 3).to(torch.bfloat16)
-    if with_lse:
-        return out, lse.reshape(batch, q_heads, n_q * TILE)[:, :, :t]
-    return out
+    return (out, lse) if with_lse else out
 
 
 def backward_kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -206,14 +244,16 @@ def _bf16_values(rng, shape) -> np.ndarray:
     return x.bfloat16().float().numpy()
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("t", [256, 320])
-def test_kernel_model_within_chip_tolerance_of_twin_and_jax(t, d, causal):
-    rng = np.random.default_rng(1000 + t + d + int(causal))
-    q = _bf16_values(rng, (2, t, 8, d))
-    k = _bf16_values(rng, (2, t, 2, d))
-    v = _bf16_values(rng, (2, t, 2, d))
+def _check_forward_model(heads, t: int, d: int, causal: bool, seed: int,
+                         split=None) -> None:
+    """The model (``split``: its path at D = 256, default the kernel's
+    choice) within ``flash_limit`` of the twin and of the JAX kernel in
+    interpret mode, and its lse within ``lse_limit`` of the twin's."""
+    q_heads, kv_heads = heads
+    rng = np.random.default_rng(seed)
+    q = _bf16_values(rng, (2, t, q_heads, d))
+    k = _bf16_values(rng, (2, t, kv_heads, d))
+    v = _bf16_values(rng, (2, t, kv_heads, d))
     block = math.gcd(t, TILE)               # the JAX kernel's blocks divide T
     want = np.array(jattn.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
@@ -222,16 +262,56 @@ def test_kernel_model_within_chip_tolerance_of_twin_and_jax(t, d, causal):
     np.testing.assert_allclose(tattn.xla_attention(tq, tk, tv, causal).numpy(),
                                want, atol=ATOL, rtol=0)
 
-    got = kernel_model(tq, tk, tv, causal).float()
+    got, lse = kernel_model(tq, tk, tv, causal, with_lse=True, split=split)
+    got = got.float()
     bf = [x.bfloat16() for x in (tq, tk, tv)]
-    twin = tattn.xla_attention(*bf, causal=causal).float()
+    twin, twin_lse = tattn.xla_attention_lse(*bf, causal=causal)
+    twin = twin.float()
     for ref in (twin, torch.from_numpy(want)):
-        limit = chip_smoke.flash_limit(ref, tv, 8, causal)
+        limit = chip_smoke.flash_limit(ref, tv, q_heads, causal)
         err = (got - ref).abs()
         assert bool((err <= limit).all()), float((err - limit).max())
+    err = (lse - twin_lse).abs()
+    limit = chip_smoke.lse_limit(twin_lse, t)
+    assert bool((err <= limit).all()), float((err - limit).max())
     # the model is not the twin: the bf16 probabilities move some outputs
     assert float((got - twin).abs().max()) > 0
 
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [256, 320])
+def test_kernel_model_within_chip_tolerance_of_twin_and_jax(t, d, causal):
+    _check_forward_model((8, 2), t, d, causal, 1000 + t + d + int(causal))
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 320])
+def test_d256_paths_within_chip_tolerance_of_twin_and_jax(t, causal, split):
+    """Both of the D = 256 paths at gemma-2b's heads (8/1): 128-row units
+    over 64-key tiles, consumer 0 skipping the tile above its rows, and
+    64-row units whose consumers split the keys (one tile at a time for
+    the first 64 rows, where consumer 1 has none)."""
+    _check_forward_model((8, 1), t, 256, causal, 5000 + t + int(causal),
+                         split)
+
+
+def test_split_keys_follows_the_unit_count():
+    """The wrapper's choice (``flash_split_keys``, which it passes to the
+    kernel) at the served D = 256 shapes on an H100: the prefill
+    buckets up to 512 (causal or not) and gemma-2b's causal 2048 split the
+    keys; gemma-7b's 2048 bucket, its train shape and its tp=4 rank's
+    (128 units of 4 q tiles: two waves of split units) take 128-row
+    units."""
+    assert all(split_keys(1, t, h, 256, causal) for t in (128, 512)
+               for h in (16, 8) for causal in (True, False))
+    assert split_keys(1, 2048, 8, 256, True)
+    assert not split_keys(1, 2048, 8, 256, False)
+    assert not split_keys(1, 2048, 16, 256, True)
+    assert not split_keys(8, 512, 16, 256, True)
+    assert not split_keys(8, 512, 4, 256, True)
+    assert not split_keys(1, 128, 8, 128, True)
 
 
 def _jax_lse(q, k, causal: bool) -> np.ndarray:

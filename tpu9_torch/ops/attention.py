@@ -227,6 +227,24 @@ def _check_kv(q, k, v) -> None:
                          f"match q {tuple(q.shape)}")
 
 
+def flash_split_keys(batch: int, seq_q: int, q_heads: int, head_dim: int,
+                     causal: bool, sms: int) -> bool:
+    """Whether the forward kernel takes 64-row units whose two consumers
+    split the key tiles (D = 256 only) on a card of ``sms`` SMs: where its
+    128-row units would leave SMs idle and the split units fill at most one
+    wave, or where one round of long causal rows (8 q tiles or more) would
+    wait for its heaviest unit, far above the mean."""
+    q_tiles = -(-seq_q // 128)
+    units = q_tiles * q_heads * batch
+    return head_dim == 256 and (2 * units <= sms or (
+        causal and q_tiles >= 8 and units < sms))
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_flash(q, k, v, causal: bool,
                   lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel; it also writes each row's log-sum-exp into
@@ -236,10 +254,13 @@ def _launch_flash(q, k, v, causal: bool,
     from .paged_attention import check_launch_layout
     check_launch_layout((q, k, v) if lse is None else (q, k, v, lse))
     out = torch.empty_like(q)
+    split = flash_split_keys(batch, t, q_heads, head_dim, causal,
+                             _sm_count(q.device.index))
     rc = _flash_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(),
                      batch, t, k.shape[1], q_heads, k.shape[2], head_dim,
-                     int(causal), head_dim ** -0.5, q.device.index,
+                     int(causal), int(split), head_dim ** -0.5,
+                     q.device.index,
                      torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
@@ -247,9 +268,10 @@ def _launch_flash(q, k, v, causal: bool,
 
 
 # the forward's C entry and its arguments: q, k, v, out, lse; batch,
-# seq_q, seq_k, q_heads, kv_heads, head_dim, causal; scale; device; stream
+# seq_q, seq_k, q_heads, kv_heads, head_dim, causal, split; scale; device;
+# stream
 FLASH_ENTRY = "tpu9_flash_attention_bf16"
-FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
