@@ -398,12 +398,29 @@ def test_flight_recorder_copy_matches_the_reference(cap, monkeypatch):
 
 @pytest.mark.parametrize("n", [1, 50, 3000])
 def test_latency_summary_copy_matches_the_reference(n):
+    """Below the reservoir's cap the port's summary is the reference's.
+    Past it the port keeps a uniform sample (the reference overwrites the
+    sorted rank ``count % cap``, which biases its quantiles): the count
+    and mean stay the reference's, p50 and p95 lie within 1.5% of rank of
+    the exact quantiles of every value."""
     values = np.random.default_rng(n).exponential(0.01, n).tolist()
     ours, ref = _Summary(), JaxSummary()
     for v in values:
         ours.observe(v)
         ref.observe(v)
-    assert ours.snapshot() == ref.snapshot()
+    got, want = ours.snapshot(), ref.snapshot()
+    if n <= ref.cap:
+        assert got == want
+        return
+    assert (got["count"], got["mean"]) == (want["count"], want["mean"])
+    exact = sorted(values)
+
+    def rank(q):
+        return exact[min(int(q * n), n - 1)]
+
+    for q, key in ((0.50, "p50"), (0.95, "p95")):
+        assert rank(q - 0.015) <= got[key] <= rank(q + 0.015), key
+    assert got["max"] == exact[-1]
 
 
 # -- the torch engine behind the real runner (LocalStack) ----------------------

@@ -4,40 +4,48 @@ reads (``_Summary`` and the ``summaries`` of ``Metrics.to_dict``)."""
 
 from __future__ import annotations
 
-import bisect
+import random
 import threading
 
 
 class _Summary:
-    """Bounded reservoir giving p50/p95/max (enough for phase reports)."""
+    """Count, mean and max of every value, and p50/p95 from a uniform
+    sample of at most ``cap`` of them (Algorithm R, from a generator of
+    fixed seed, so one stream of values gives one sample). Below ``cap``
+    the sample is every value and the quantiles are exact; the sort is paid
+    in ``snapshot``."""
 
     def __init__(self, cap: int = 2048):
         self.cap = cap
         self.values: list[float] = []
         self.count = 0
         self.total = 0.0
+        self.max = 0.0
+        self._rng = random.Random(0)
 
     def observe(self, v: float) -> None:
         self.count += 1
         self.total += v
-        if len(self.values) >= self.cap:
-            # reservoir: replace a pseudo-random slot (deterministic walk)
-            self.values[self.count % self.cap] = v
-            self.values.sort()
-        else:
-            bisect.insort(self.values, v)
-
-    def quantile(self, q: float) -> float:
-        if not self.values:
-            return 0.0
-        idx = min(int(q * len(self.values)), len(self.values) - 1)
-        return self.values[idx]
+        self.max = v if self.count == 1 else max(self.max, v)
+        if len(self.values) < self.cap:
+            self.values.append(v)
+            return
+        # the count-th value replaces a kept one with probability cap/count
+        j = self._rng.randrange(self.count)
+        if j < self.cap:
+            self.values[j] = v
 
     def snapshot(self) -> dict:
+        vals = sorted(self.values)
+
+        def quantile(q: float) -> float:
+            return vals[min(int(q * len(vals)), len(vals) - 1)] \
+                if vals else 0.0
+
         return {"count": self.count,
                 "mean": self.total / self.count if self.count else 0.0,
-                "p50": self.quantile(0.50), "p95": self.quantile(0.95),
-                "max": self.values[-1] if self.values else 0.0}
+                "p50": quantile(0.50), "p95": quantile(0.95),
+                "max": self.max}
 
 
 class Metrics:

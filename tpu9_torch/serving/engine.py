@@ -46,6 +46,13 @@ carries a remote trace context records the reference's spans:
 ``engine.prefill`` and one ``engine.decode_window`` for each window that
 delivered it tokens; ``blackbox()`` ships the tracer's tail.
 
+The serve loop times itself (``observability/spans.py``): its phases tile
+its wall time on the host's clock, each decode or verify window and each
+admission dispatch is a device unit between two timing events (a window's
+end event is the one the loop waits on), and at the loop's own sync points
+the device's idle gaps between units are put down to the phase that was
+running (``span_totals``; one row per window in ``spans.rows``).
+
 Compile-ahead, as the reference's: an engine built on an abstract param
 tree (``abstract_params``: ``device="meta"`` leaves) gives every leaf
 zero-filled storage on its device, ``precompile()`` builds and captures
@@ -77,6 +84,7 @@ import torch
 
 from ..models.transformer import DecoderConfig
 from ..observability.metrics import Metrics
+from ..observability.spans import SpanRecorder
 from ..ops.quant import validate_quant_mode
 from ..ops.sampling import sample_logits
 from ..parallel.sharding import (RankParams, map_leaves, named_leaves,
@@ -345,6 +353,8 @@ class InferenceEngine:
         host state only, read by ``stats()`` at heartbeat cadence."""
         self.flight = FlightRecorder()
         self.metrics = Metrics()
+        # the serve loop's phases and device units (span_totals)
+        self.spans = SpanRecorder("serve", self.device)
         # bring-up seconds, set by load_engine and the runner; stats()
         # forwards them flat
         self.bringup: dict = {}
@@ -975,6 +985,17 @@ class InferenceEngine:
                 self.allocator.reserved / max(self.allocator.n_blocks, 1))
         return out
 
+    def span_totals(self) -> dict:
+        """The serve loop's seconds since the engine was built, kept apart
+        from ``stats()`` (whose key set is the reference's): host self time
+        by phase (``serve.admit``, ``serve.first_token``,
+        ``serve.window_wait``, ``serve.fanout``, ``serve.dispatch``,
+        ``serve.yield``, ``serve.park``), device time by unit (``window``,
+        ``admit``) and the device's idle gaps by the phase that left the
+        card waiting (or ``unattributed``). The device figures are empty
+        without a CUDA device."""
+        return self.spans.totals()
+
     # -- the pressure heartbeat's tiering hooks ------------------------------
     # Event-loop synchronous like the kvwire methods: pure host state.
 
@@ -1045,9 +1066,9 @@ class InferenceEngine:
             attrs={"request_id": req.request_id}, end_mono=t0_mono)
 
     def _obs_admit_end(self, req: _Request, t0_mono: float, t0_wall: float,
-                       il0: int) -> None:
-        dur = max(time.monotonic() - t0_mono, 0.0)
-        self._last_progress_mono = time.monotonic()   # admission = progress
+                       il0: int, t1_mono: float) -> None:
+        dur = max(t1_mono - t0_mono, 0.0)
+        self._last_progress_mono = t1_mono            # admission = progress
         self.metrics.observe("tpu9_engine_prefill_s", dur)
         interleaved = self._stats["admit_interleaved_windows"] - il0
         if req.span is not None:
@@ -1076,11 +1097,10 @@ class InferenceEngine:
                            self.allocator.reserved)
         return win
 
-    def _obs_window(self, win: _Window, t_host0: float) -> None:
+    def _obs_window(self, win: _Window, t_host0: float, now_m: float) -> None:
         """One flight record at host processing. ``wait_s`` (dispatch →
         fan-out start) includes the deliberate one-window overlap;
-        ``host_s`` is the fan-out."""
-        now_m = time.monotonic()
+        ``host_s`` is the fan-out, to ``now_m``."""
         self.metrics.observe("tpu9_engine_decode_window_s",
                              max(t_host0 - win.t_mono, 0.0))
         self._windows_processed += 1
@@ -1217,15 +1237,17 @@ class InferenceEngine:
     async def _admit(self, req: _Request, slot: int):
         """Prefill and splice one request into ``slot`` and sample its first
         token. Returns the first token as a device value; the serve loop
-        reads all admissions' first tokens in one copy."""
-        t0_mono, t0_wall = time.monotonic(), time.time()
+        reads all admissions' first tokens in one copy. Its times are the
+        ``serve.admit`` phase's boundaries."""
+        t0_mono, t0_wall = self.spans.switch("serve.admit") / 1e9, time.time()
         self._obs_admit_start(req, t0_mono)
         il0 = self._stats["admit_interleaved_windows"]
         if self.paged:
             first = await self._admit_paged(req, slot)
         else:
             first = self._admit_dense(req, slot)
-        self._obs_admit_end(req, t0_mono, t0_wall, il0)
+        self._obs_admit_end(req, t0_mono, t0_wall, il0,
+                            self.spans.switch("serve.admit") / 1e9)
         return first
 
     def _admit_dense(self, req: _Request, slot: int):
@@ -1235,6 +1257,7 @@ class InferenceEngine:
         bucket = self._bucket_for(n)
         tokens = np.zeros((1, bucket), dtype=np.int32)
         tokens[0, :n] = req.prompt[:bucket]
+        unit = self.spans.unit_start("admit")
         last, cache = self.graphs.prefill_fn(bucket)(
             self.params, torch.from_numpy(tokens).to(self.device), n)
         self.graphs.dense_splice_fn(bucket)(
@@ -1246,6 +1269,7 @@ class InferenceEngine:
                               temperature=self.ecfg.temperature,
                               top_k=self.ecfg.top_k, top_p=self.ecfg.top_p)
         self.last_token[slot, 0] = first
+        self.spans.unit_end(unit)
         self._occupy_slot(req, slot)
         return first
 
@@ -1295,9 +1319,12 @@ class InferenceEngine:
         row = np.full((self.pool.mb,), trash, dtype=np.int32)
         row[:len(blocks)] = blocks
 
+        sp = self.spans
         scratch = self._scratch
         if p:
+            unit = sp.unit_start("admit")
             scratch = self.graphs.gather_fn()(self._pool_dict(), row, scratch)
+            sp.unit_end(unit)
             self._stats["admit_dispatches"] += 1
 
         c = self._chunk
@@ -1323,6 +1350,7 @@ class InferenceEngine:
                 idx = first_block + j
                 if idx < len(blocks):
                     phys_all[k_chunk, j] = blocks[idx]
+        unit = sp.unit_start("admit")
         toks_dev = torch.from_numpy(toks_all).to(self.device)
 
         last = None
@@ -1346,16 +1374,21 @@ class InferenceEngine:
                     self._pool_dict(), scratch["k"], scratch["v"],
                     int(offsets[k_chunk]), phys_all[k_chunk])
                 self._stats["admit_dispatches"] += 2
+            sp.unit_end(unit)
             k_chunk += g
             if k_chunk < n_chunks:
                 # long admission: keep the decode batch producing tokens
                 self._interleave_decode_window()
+                sp.enter("serve.yield")
                 await asyncio.sleep(0)
+                sp.exit()
+                unit = sp.unit_start("admit")
         self._scratch = scratch
 
         if self.ecfg.prefix_cache_blocks > 0:
             self.prefix_cache.insert(req.prompt, blocks)
 
+        unit = sp.unit_start("admit")
         self._push_table(slot)            # the real row becomes visible now
         self.cache_len[slot] = n
         self._host_len[slot] = n
@@ -1363,6 +1396,7 @@ class InferenceEngine:
                               temperature=self.ecfg.temperature,
                               top_k=self.ecfg.top_k, top_p=self.ecfg.top_p)
         self.last_token[slot, 0] = first
+        sp.unit_end(unit)
         self._occupy_slot(req, slot)
         return first
 
@@ -1381,7 +1415,8 @@ class InferenceEngine:
         fut = self._uppage_inflight.get(key)
         if fut is not None:
             cache.release_pin(entry)
-            await fut
+            with self.spans.phase("serve.yield"):
+                await fut
             ent = cache._entries.get(key)
             if ent is None or ent.tier != "device":
                 return None                 # the first up-page failed
@@ -1400,6 +1435,7 @@ class InferenceEngine:
                 if entry.pins == 0:
                     cache.drop(key, kind="evict")
                 return None
+            unit = self.spans.unit_start("admit")
             try:
                 self.pool.complete_uppage(self._pool_dict(), entry, planes)
             except PoolExhausted:
@@ -1408,9 +1444,12 @@ class InferenceEngine:
                 self._note_recompute(entry, request_id, "pool_exhausted")
                 cache.release_pin(entry)
                 return None
+            finally:
+                self.spans.unit_end(unit)
             # the copy is queued, not waited for: the admission's own work
             # is queued behind it on the same stream
-            await asyncio.sleep(0)
+            with self.spans.phase("serve.yield"):
+                await asyncio.sleep(0)
             dt = time.perf_counter() - t0
             self._stats["kvtier_uppages"] += 1
             self.metrics.observe("tpu9_kvtier_uppage_s", dt)
@@ -1602,78 +1641,100 @@ class InferenceEngine:
             raise
 
     async def _serve_loop_inner(self) -> None:
-        while True:
-            # an armed profile stops once its windows are processed
-            self._profile_maybe_stop()
-            # an imminent admission first drains the in-flight window: its
-            # steps occupy the slack interleaved windows need, and its
-            # retirements may free the slot being admitted into
-            if self._deferred_windows and self.scheduler.admission_can_proceed():
+        # the loop is always in one phase of its span recorder, so the
+        # phases tile its wall time (span_totals)
+        sp = self.spans
+        sp.enter("serve.dispatch")
+        try:
+            while True:
+                await self._serve_turn(sp)
+        finally:
+            sp.close_phases()
+
+    async def _serve_turn(self, sp: SpanRecorder) -> None:
+        """One turn of the serve loop: admissions, then one window."""
+        # an armed profile stops once its windows are processed
+        sp.switch("serve.dispatch")
+        self._profile_maybe_stop()
+        # an imminent admission first drains the in-flight window: its
+        # steps occupy the slack interleaved windows need, and its
+        # retirements may free the slot being admitted into
+        if self._deferred_windows and self.scheduler.admission_can_proceed():
+            self._drain_windows()
+        sp.switch("serve.admit")
+        pending: list[tuple[_Request, Any]] = []
+        while not self.active.all():
+            req = self._next_admittable()
+            if req is None:
+                break
+            slot = int(np.argmin(self.active))
+            self._admitting = req
+            pending.append((req, await self._admit(req, slot)))
+            self._admitting = None
+
+        if not self.active.any() and not pending:
+            if self.paged and self._wait_room:
+                # idle with a waiting head: reservations are zero, so it
+                # is bigger than the whole pool — fail it loudly
+                head = self._wait_room.pop(0)
+                self._finish(head, error="request exceeds KV pool capacity")
+                return
+            if self._deferred_windows:
                 self._drain_windows()
-            pending: list[tuple[_Request, Any]] = []
-            while not self.active.all():
-                req = self._next_admittable()
-                if req is None:
-                    break
-                slot = int(np.argmin(self.active))
-                self._admitting = req
-                pending.append((req, await self._admit(req, slot)))
-                self._admitting = None
+            # parked idle time must not leak into an armed trace
+            sp.switch("serve.dispatch")
+            self._profile_maybe_stop(idle=True)
+            sp.switch("serve.park")
+            req = await self._queue.get()       # idle: block for work
+            sp.switch("serve.admit")
+            if req.cancelled:
+                self._finish(req)
+                return
+            if self._req_expired(req):
+                self._expire_unadmitted(req)
+                return
+            if not self._room_for(req):
+                self._wait_room.append(req)
+                return
+            self._admitting = req
+            pending.append((req, await self._admit(req, 0)))
+            self._admitting = None
 
-            if not self.active.any() and not pending:
-                if self.paged and self._wait_room:
-                    # idle with a waiting head: reservations are zero, so it
-                    # is bigger than the whole pool — fail it loudly
-                    head = self._wait_room.pop(0)
-                    self._finish(head, error="request exceeds KV pool capacity")
-                    continue
-                if self._deferred_windows:
-                    self._drain_windows()
-                # parked idle time must not leak into an armed trace
-                self._profile_maybe_stop(idle=True)
-                req = await self._queue.get()       # idle: block for work
-                if req.cancelled:
-                    self._finish(req)
-                    continue
-                if self._req_expired(req):
-                    self._expire_unadmitted(req)
-                    continue
-                if not self._room_for(req):
-                    self._wait_room.append(req)
-                    continue
-                self._admitting = req
-                pending.append((req, await self._admit(req, 0)))
-                self._admitting = None
+        if pending:
+            # one copy for every admitted request's first token
+            sp.switch("serve.first_token")
+            unit = sp.unit_start("admit")
+            firsts = torch.stack([f.reshape(()) for _, f in pending]).cpu()
+            sp.unit_end(unit)
+            sp.resolve()
+            for (req, _), first in zip(pending, firsts.tolist()):
+                self._deliver_first(req, int(first))
+            # windows dispatched during those admissions are done by now
+            self._drain_windows()
 
-            if pending:
-                # one copy for every admitted request's first token
-                firsts = torch.stack([f.reshape(()) for _, f in pending]).cpu()
-                for (req, _), first in zip(pending, firsts.tolist()):
-                    self._deliver_first(req, int(first))
-                # windows dispatched during those admissions are done by now
+        if not self.active.any():
+            if self._deferred_windows:
                 self._drain_windows()
+            return
 
-            if not self.active.any():
-                if self._deferred_windows:
-                    self._drain_windows()
-                continue
-
-            # window boundary: down-page LRU prefixes to host DRAM when the
-            # pool nears eviction pressure (no-op without a host tier)
-            if self.paged and self.pool.tiered:
-                self._kvtier_tick()
-            # one window for the whole batch: a verify window when the
-            # acceptance EWMAs justify it, a classic k-step window otherwise
-            self._profile_window_start()
-            win = self._dispatch_window()
-            if win is not None:
-                self._profile_window_dispatched()
-                self._deferred_windows.append(win)
-            # keep exactly one window in flight: the host fan-out of the
-            # older one runs while the new one computes
-            while len(self._deferred_windows) > 1:
-                self._process_window(self._deferred_windows.pop(0))
-            await asyncio.sleep(0)
+        # window boundary: down-page LRU prefixes to host DRAM when the
+        # pool nears eviction pressure (no-op without a host tier)
+        sp.switch("serve.dispatch")
+        if self.paged and self.pool.tiered:
+            self._kvtier_tick()
+        # one window for the whole batch: a verify window when the
+        # acceptance EWMAs justify it, a classic k-step window otherwise
+        self._profile_window_start()
+        win = self._dispatch_window()
+        if win is not None:
+            self._profile_window_dispatched()
+            self._deferred_windows.append(win)
+        # keep exactly one window in flight: the host fan-out of the
+        # older one runs while the new one computes
+        while len(self._deferred_windows) > 1:
+            self._process_window(self._deferred_windows.pop(0))
+        sp.switch("serve.yield")
+        await asyncio.sleep(0)
 
     def _launch_window(self, k: int) -> _Window:
         """Grow every active slot's blocks for ``k`` more writes (paged),
@@ -1684,11 +1745,13 @@ class InferenceEngine:
                 self._ensure_slot_blocks(
                     slot, min(int(self._host_len[slot]) + self._inflight_steps
                               + k + 1, self.ecfg.max_seq_len))
+        unit = self.spans.unit_start("window")
         host_to_device(self._active_dev, self.active)
         self.graphs.decode_k(k)()
         self._stats["decode_steps"] += k
         self._inflight_steps += k
-        (host,), ready = _to_host(self._toks[:k])
+        (host,) = _to_host(self._toks[:k])
+        ready = self.spans.unit_end(unit, row=(k, self._pick_reason))
         return self._obs_stamp_window(
             _Window(k=k, toks=host, ready=ready, mask=self.active.copy(),
                     reqs=tuple(self.slot_req)))
@@ -1723,13 +1786,15 @@ class InferenceEngine:
                 self._ensure_slot_blocks(
                     slot, min(int(self._host_len[slot]) + t + 1,
                               self.ecfg.max_seq_len))
+        unit = self.spans.unit_start("window")
         host_to_device(self._active_dev, self.active)
         host_to_device(self._drafts[:, :s], drafts)
         self.graphs.verify_fn(s)()
         self._stats["spec_windows"] += 1
         self._inflight_steps += t
         self._pick_reason = "spec"
-        (out, n_acc), ready = _to_host(self._spec_out[:, :t], self._n_acc)
+        out, n_acc = _to_host(self._spec_out[:, :t], self._n_acc)
+        ready = self.spans.unit_end(unit, row=(t, self._pick_reason))
         return self._obs_stamp_window(
             _Window(k=t, toks=out, ready=ready, mask=self.active.copy(),
                     reqs=tuple(self.slot_req), kind="verify", n_acc=n_acc,
@@ -1744,17 +1809,21 @@ class InferenceEngine:
         """Host fan-out of one window, after its copy has landed (the one
         host sync per window): a decode window's [k, B] tokens, or a verify
         window's model tokens [B, 1 + s] and accepted counts, 1 to 1 + s
-        tokens a slot."""
+        tokens a slot. The device units it has passed are resolved here."""
+        sp = self.spans
+        sp.enter("serve.window_wait")
         if win.ready is not None:
             win.ready.synchronize()
         window = win.toks.numpy()
-        t_host0 = time.monotonic()
+        t_host0 = sp.switch("serve.fanout")
+        sp.resolve()
         self._inflight_steps -= win.k
         if win.kind == "verify":
             self._process_verify(win, window, win.n_acc.numpy())
         else:
             self._process_decode(win, window)
-        self._obs_window(win, t_host0)
+        self._obs_window(win, t_host0 / 1e9, sp.switch("serve.fanout") / 1e9)
+        sp.exit()
 
     def _retire_if_gone(self, slot: int) -> bool:
         """Retire a slot whose client went away (cancel) or whose deadline
@@ -1864,22 +1933,20 @@ class InferenceEngine:
             self._retire(slot)
 
 
-def _to_host(*tensors: torch.Tensor):
+def _to_host(*tensors: torch.Tensor) -> tuple:
     """Start copies of ``tensors`` to the host. On CUDA they go to pinned
     buffers, queued behind the window on the stream (the next window's
-    writes to the device buffers come after them), and the returned event
-    marks their landing; on the CPU they are clones and the event is
-    None."""
+    writes to the device buffers come after them); the window unit's end
+    event, recorded next, marks their landing. On the CPU they are
+    clones."""
     if not tensors[0].is_cuda:
-        return tuple(t.clone() for t in tensors), None
+        return tuple(t.clone() for t in tensors)
     hosts = []
     for t in tensors:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         hosts.append(host)
-    ready = torch.cuda.Event()
-    ready.record()
-    return tuple(hosts), ready
+    return tuple(hosts)
 
 
 def _tensor_leaves(tree):

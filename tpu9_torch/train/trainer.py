@@ -30,10 +30,20 @@ batch's mean and a MoE layer's router sees the whole batch's tokens, as
 the reference's capacity does (ROADMAP C10). Steps are functional, as
 the reference's jitted ones are: they return new trees and leave their
 inputs as they were.
+
+Each built step times itself (``observability/spans.py``, ``step.spans``):
+``train.forward`` (the merge, the forward, the loss), ``train.backward``
+(the gradient and ``sum_replicas``) and ``train.update`` (the optimizer and
+``apply_updates``) are each a host phase and a device unit between two
+timing events, and each step leaves one row with both, closed by the
+update. A step resolves the units of earlier steps that the device has
+passed as it begins, never waiting; ``spans.last("train")`` reaches the
+newest step's recorder once the step is gone.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -41,6 +51,7 @@ import torch
 
 from ..models import lora as lora_lib
 from ..models.transformer import DecoderConfig, decoder_core
+from ..observability.spans import SpanRecorder
 from ..parallel.sharding import P, constrain, placed, same_device, shard_params
 from ..utils.platform import default_device
 from .optim import (GradientTransformation, apply_updates, global_norm,
@@ -85,21 +96,33 @@ def _on(device: torch.device, tree: Params, what: str) -> None:
                              f"{path!r}, the step runs it on {want}")
 
 
-def _value_and_grad(loss_fn: Callable, trainable: Params, *args):
+def _value_and_grad(loss_fn: Callable, trainable: Params, *args,
+                    spans: Optional[SpanRecorder] = None):
     """(loss, grads of ``trainable``): ``loss_fn(trainable, *args)`` under
     grad over leaves that share ``trainable``'s storage (a tensor shared by
     several places is one leaf, whose gradient sums theirs). A leaf the
     loss does not read gets zeros; replicas of one value on distinct
-    devices get their sum (``optim.sum_replicas``)."""
+    devices get their sum (``optim.sum_replicas``). With ``spans`` the
+    forward and the backward are its ``train.forward`` and
+    ``train.backward`` spans."""
     with torch.enable_grad():
-        live = tree_map(lambda x: x.detach().requires_grad_(True), trainable)
-        loss = loss_fn(live, *args)
-        leaves = _unique(live)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    by_id = {id(x): torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)}
-    return loss.detach(), sum_replicas(tree_map(lambda x: by_id[id(x)],
-                                                live))
+        with _timed(spans, "train.forward"):
+            live = tree_map(lambda x: x.detach().requires_grad_(True),
+                            trainable)
+            loss = loss_fn(live, *args)
+        with _timed(spans, "train.backward"):
+            leaves = _unique(live)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            by_id = {id(x): torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads)}
+            grads = sum_replicas(tree_map(lambda x: by_id[id(x)], live))
+    return loss.detach(), grads
+
+
+def _timed(spans: Optional[SpanRecorder], name: str):
+    """``spans.span(name)``: a host phase and a device unit of the step
+    (``observability/spans.py``), or nothing without a recorder."""
+    return nullcontext() if spans is None else spans.span(name)
 
 
 def _unique(tree: Params) -> list:
@@ -114,25 +137,31 @@ def build_train_step(cfg: DecoderConfig, optimizer: GradientTransformation,
     "grad_norm"})``. Runs on ``device`` (default: the current CUDA device,
     raising without one; ``"cpu"`` on the CPU), where ``state`` must lie
     (sharded state: each leaf on its mesh device); ``tokens`` move there.
-    ``grad_norm`` counts each logical parameter once."""
+    ``grad_norm`` counts each logical parameter once. The step times
+    itself (``step.spans``, module docstring)."""
     device = default_device(device)
+    spans = SpanRecorder("train", device)
 
     def loss_fn(params, tokens):
         logits = decoder_core(params, tokens, cfg, remat=remat)
         return causal_lm_loss(logits, tokens)
 
     def step(state: TrainState, tokens):
+        spans.resolve()
         _on(device, state.params, "state.params")
         tokens = constrain(torch.as_tensor(tokens, device=device),
                            BATCH_SPEC)
-        loss, grads = _value_and_grad(loss_fn, state.params, tokens)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
-        params = apply_updates(state.params, updates)
+        loss, grads = _value_and_grad(loss_fn, state.params, tokens,
+                                      spans=spans)
+        with spans.span("train.update", row=(1, "full")):
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.params)
+            params = apply_updates(state.params, updates)
         return (TrainState(params=params, opt_state=opt_state,
                            step=state.step + 1),
                 {"loss": loss, "grad_norm": global_norm(grads)})
 
+    step.spans = spans
     return step
 
 
@@ -152,17 +181,19 @@ def init_train_state(params: Params, optimizer: GradientTransformation,
 
 def lora_value_and_grad(cfg: DecoderConfig, scale: float = 2.0,
                         remat: bool = True) -> Callable:
-    """``fn(adapters, base_params, tokens) -> (loss, grads)``: the LoRA
-    step's loss over ``merge(base_params, adapters, scale)`` and its
-    gradient with respect to the adapters alone."""
+    """``fn(adapters, base_params, tokens, spans=None) -> (loss, grads)``:
+    the LoRA step's loss over ``merge(base_params, adapters, scale)`` and
+    its gradient with respect to the adapters alone (``spans``: a step's
+    recorder, which times the forward and the backward)."""
 
     def loss_fn(adapters, base_params, tokens):
         merged = lora_lib.merge(base_params, adapters, scale)
         logits = decoder_core(merged, tokens, cfg, remat=remat)
         return causal_lm_loss(logits, tokens)
 
-    def value_and_grad(adapters, base_params, tokens):
-        return _value_and_grad(loss_fn, adapters, base_params, tokens)
+    def value_and_grad(adapters, base_params, tokens, spans=None):
+        return _value_and_grad(loss_fn, adapters, base_params, tokens,
+                               spans=spans)
 
     return value_and_grad
 
@@ -176,18 +207,23 @@ def build_lora_train_step(cfg: DecoderConfig,
     through ``merge``; the base stays frozen. Runs on ``device`` (default:
     the current CUDA device, raising without one; ``"cpu"`` on the CPU),
     where the adapters and the base must lie (sharded ones: each leaf on
-    its mesh device); ``tokens`` move there."""
+    its mesh device); ``tokens`` move there. The step times itself
+    (``step.spans``, module docstring)."""
     device = default_device(device)
     value_and_grad = lora_value_and_grad(cfg, scale, remat)
+    spans = SpanRecorder("train", device)
 
     def step(adapters, opt_state, base_params, tokens):
+        spans.resolve()
         _on(device, adapters, "adapters")
         _on(device, base_params, "base_params")
         tokens = constrain(torch.as_tensor(tokens, device=device),
                            BATCH_SPEC)
-        loss, grads = value_and_grad(adapters, base_params, tokens)
-        updates, opt_state = optimizer.update(grads, opt_state, adapters)
-        adapters = apply_updates(adapters, updates)
+        loss, grads = value_and_grad(adapters, base_params, tokens, spans)
+        with spans.span("train.update", row=(1, "lora")):
+            updates, opt_state = optimizer.update(grads, opt_state, adapters)
+            adapters = apply_updates(adapters, updates)
         return adapters, opt_state, {"loss": loss}
 
+    step.spans = spans
     return step
