@@ -235,6 +235,18 @@ place), then the captured 8-step window replays from length 1024 on every
 lane and launches B1 ``n_layers x 8`` times, each lane's keys written
 through its new row.
 
+After each paged engine phase (``phase_admission``): the engine's
+captured admission graphs against the same bodies run eagerly (a second
+factory over the engine's weights, a copy of its pool and scratch and its
+own admission buffers), on the same prompts (a fused group of four
+chunks, three single chunks, a prefix gather and two chunks): the
+scratch, every written pool block (with the int8 scale planes) and each
+admission's last-token logits bit for bit; a decode window replayed
+between two chunk replays leaves the first chunk's logits as they were;
+every dispatch counted as a replay; and one 128-token chunk (the step and
+its splice) timed on the host's clock to its end, eager and captured in
+turns.
+
 After the engines, two phases of the port's tooling (``PORT_PHASES``):
 
 - zygote (``phase_zygote``): ``python -m tpu9_torch.runner.zygote``
@@ -4180,6 +4192,163 @@ def phase_classifier(card: str) -> dict:
 ENCODER_PHASES = {"vision": phase_vision, "classifier": phase_classifier}
 
 
+# -- after each paged engine phase: admission captured against eager -----------
+
+ADMIT_REPS = 10                     # timed chunks a turn
+
+
+def admit_once(f, params, pool, scratch, prompt: list[int], p: int,
+               blocks: list[int]) -> torch.Tensor:
+    """One admission through factory ``f`` as the engine dispatches it
+    (one staged copy; the gather after a prefix of ``p`` tokens; full
+    groups fused, the rest chunk by chunk; no window between them).
+    Returns a copy of the last-token logits."""
+    a = f.admit
+    n = a.stage(blocks, prompt[p:], p)
+    if p:
+        f.gather_fn()(pool, a.row, scratch)
+    group = f.ecfg.admit_group_chunks
+    k, last = 0, None
+    while k < n:
+        g = group if n - k >= group else 1
+        a.take(k, g)
+        if g > 1:
+            _, scratch, last = f.chunk_group_fn(g)(
+                params, pool, scratch, a.toks[:g], a.offsets[:g],
+                a.last_idx[:g], a.phys[:g])
+        else:
+            last, scratch = f.chunk_fn()(params, a.toks[:1], a.offsets[:1],
+                                         scratch, a.last_idx[:1])
+            f.splice_fn()(pool, scratch["k"], scratch["v"], a.offsets[:1],
+                          a.phys[0])
+        k += g
+    return last.clone()
+
+
+def _same(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{label}: captured and eager differ (max abs "
+          f"{(got.float() - want.float()).abs().max().item():.3e})")
+
+
+def phase_admission(engine, card: str, kind: str) -> None:
+    """The engine's captured admission graphs against the same bodies run
+    eagerly, bit for bit, a window replayed between two chunk replays, and
+    one chunk timed both ways in turns (module docstring). The blocks it
+    writes are allocated and released here; the scratch and the admission
+    buffers keep its values, which an admission never reads: it stages
+    its own and writes every scratch position it attends first."""
+    from tpu9_torch.serving.graphs import GraphFactory
+    e = engine
+    f = e.graphs
+    c = f.chunk
+    check(f.captures and e.ecfg.admit_group_chunks == 4, f"{kind} engine: "
+          f"captures={f.captures}, group {e.ecfg.admit_group_chunks}")
+    eager = GraphFactory(e.cfg, e.ecfg, c, e.device, window=f.window,
+                         policy=e.policy)
+    eager.captures = False
+    pool = e._pool_dict()
+    epool = {n: t.clone() for n, t in pool.items()}
+    escr = {n: t.clone() for n, t in e._scratch.items()}
+    counts0 = dict(e.spans.counts)
+    rng = np.random.default_rng(11)
+    vocab = e.cfg.vocab_size
+    first = rng.integers(0, vocab, 4 * c).tolist()
+    second = rng.integers(0, vocab, 3 * c).tolist()
+    third = first[:2 * c] + rng.integers(0, vocab, 200).tolist()
+    bs = e.ecfg.kv_block_size
+    b1 = e.pool.alloc_blocks(-(-(len(first) + 1) // bs))
+    b2 = e.pool.alloc_blocks(-(-(len(second) + 1) // bs))
+    b3 = b1[:2 * c // bs] + e.pool.alloc_blocks(
+        -(-(len(third) + 1) // bs) - 2 * c // bs)
+    cases = ((first, 0, b1, "a fused group of 4 chunks"),
+             (second, 0, b2, "3 chunks one by one"),
+             (third, 2 * c, b3, f"a {2 * c}-token prefix gather, 2 chunks"))
+    try:
+        for prompt, p, blocks, label in cases:
+            got = admit_once(f, e.params, pool, e._scratch, prompt, p,
+                             blocks)
+            want = admit_once(eager, e.params, epool, escr, prompt, p,
+                              blocks)
+            _same(f"{kind} admission, {label}: last-token logits", got, want)
+        for n in ("k", "v"):
+            _same(f"{kind} admission: scratch {n}", e._scratch[n], escr[n])
+        ids = torch.tensor(sorted(set(b1 + b2 + b3)), device=e.device)
+        for n, t in pool.items():
+            _same(f"{kind} admission: pool {n}", t[:, ids], epool[n][:, ids])
+        counts = {k: v - counts0.get(k, 0) for k, v in e.spans.counts.items()
+                  if v != counts0.get(k, 0)}
+        check(counts == {"chunkgroup.replayed": 1, "chunk.replayed": 5,
+                         "splice.replayed": 5, "gather.replayed": 1},
+              f"{kind} admission: dispatches {counts}")
+
+        # a decode window between two chunk replays: the chunk's logits
+        # live outside the graphs' shared pool
+        two = rng.integers(0, vocab, 2 * c).tolist()
+        a, ea = f.admit, eager.admit
+        want = []
+        ea.stage([], two, 0)
+        for k in range(2):
+            ea.take(k, 1)
+            last, _ = eager.chunk_fn()(e.params, ea.toks[:1],
+                                       ea.offsets[:1], escr, ea.last_idx[:1])
+            want.append(last.clone())
+        a.stage([], two, 0)
+        e._active_dev.zero_()
+        f.chunk_fn()(e.params, a.toks[:1], a.offsets[:1], e._scratch,
+                     a.last_idx[:1])
+        f.decode_k(e.ecfg.decode_steps[0])()
+        torch.cuda.synchronize()
+        _same(f"{kind} admission: a chunk's logits after a window replay",
+              a.logits, want[0])
+        a.take(1, 1)
+        f.chunk_fn()(e.params, a.toks[:1], a.offsets[:1], e._scratch,
+                     a.last_idx[:1])
+        _same(f"{kind} admission: the next chunk's logits", a.logits,
+              want[1])
+
+        # one 128-token chunk, step and splice, to its end on the host's
+        # clock: eager, captured, captured, eager
+        def chunk(fac, pl, scr):
+            ad = fac.admit
+            fac.chunk_fn()(e.params, ad.toks[:1], ad.offsets[:1], scr,
+                           ad.last_idx[:1])
+            fac.splice_fn()(pl, scr["k"], scr["v"], ad.offsets[:1],
+                            ad.phys[0])
+            torch.cuda.synchronize()
+
+        one = rng.integers(0, vocab, c).tolist()
+        a.stage([], one, 0)
+        ea.stage([], one, 0)
+        turns = (("eager", eager, epool, escr), ("captured", f, pool,
+                                                 e._scratch))
+        times: dict = {"eager": [], "captured": []}
+        for name, fac, pl, scr in turns + turns[::-1]:
+            chunk(fac, pl, scr)
+            for _ in range(ADMIT_REPS):
+                t0 = time.perf_counter()
+                chunk(fac, pl, scr)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        med = {n: float(np.median(v)) for n, v in times.items()}
+        print(f"admission {kind}: captured = eager bit for bit (logits of 3 "
+              f"admissions, scratch, {len(ids)} pool blocks"
+              f"{' and scale planes' if 'k_scale' in pool else ''}); a "
+              f"decode window between two chunk replays left the logits; "
+              f"dispatches {counts}")
+        print(f"admission {kind}: one {c}-token chunk (step + splice) to its "
+              f"end, {ADMIT_REPS} a turn, eager / captured / captured / "
+              f"eager medians: "
+              f"{np.median(times['eager'][:ADMIT_REPS]):.3f} / "
+              f"{np.median(times['captured'][:ADMIT_REPS]):.3f} / "
+              f"{np.median(times['captured'][ADMIT_REPS:]):.3f} / "
+              f"{np.median(times['eager'][ADMIT_REPS:]):.3f} ms; "
+              f"{med['eager'] / med['captured']:.2f}x ({card})")
+    finally:
+        e.allocator.release(sorted(set(b1 + b2 + b3)))
+        del epool, escr
+        torch.cuda.empty_cache()
+
+
 # -- after phase 4: bench_reset_slots -----------------------------------------
 
 BENCH_CTX0 = 1024
@@ -4763,15 +4932,14 @@ def phase_profile(engine, card: str, kind: str) -> None:
         return
     g, c = 4, e.graphs.chunk
     group = e.graphs.chunk_group_fn(g)
-    toks = torch.randint(0, e.cfg.vocab_size, (g, c), device=e.device,
-                         dtype=torch.int32)
-    offs = (np.arange(g) * c).astype(np.int32)
-    lasts = np.full((g,), c - 1, dtype=np.int32)
-    phys = np.full((g, c // e.ecfg.kv_block_size), e.pool.trash_block,
-                   dtype=np.int32)
-    _profile(lambda: group(e.params, e._pool_dict(), e._scratch, toks, offs,
-                           lasts, phys), f"{kind}_prefill_chunk_{c}", g,
-             out_dir)
+    a = e.graphs.admit
+    # four chunks of random tokens at offsets 0 to 3C, every block written
+    # the trash block
+    a.stage([], np.random.default_rng(0).integers(
+        0, e.cfg.vocab_size, g * c).tolist(), 0)
+    _profile(lambda: group(e.params, e._pool_dict(), e._scratch, a.toks[:g],
+                           a.offsets[:g], a.last_idx[:g], a.phys[:g]),
+             f"{kind}_prefill_chunk_{c}", g, out_dir)
     print(f"profile {kind}: per decode step (B={b}, lengths {lens}) and per "
           f"{c}-token prefill chunk ({card})")
 
@@ -4800,6 +4968,8 @@ def main() -> int:
         for kind in ENGINES:
             t_phase = time.perf_counter()
             launches[kind], engine = phase_engine(card, kind)
+            if engine.paged:
+                phase_admission(engine, card, kind)
             if kind == "bf16":
                 phase_sampled(engine, card)
             if kind in ("bf16", "int8"):

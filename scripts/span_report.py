@@ -15,7 +15,9 @@ to ``--out``):
   ``window`` and ``admit`` units; the idle gaps by the phase they are put
   down to (``serve.park`` and ``unattributed`` among them); the partition
   (units + gaps) and its ratio to those seconds; the windows by pick reason
-  and size (count, device ms a step); the host seconds by phase;
+  and size (count, device ms a step); the host seconds by phase; the
+  admission dispatches of the engine's life by kind, replayed as a CUDA
+  graph or run eagerly, and each kind's replayed share;
 - training: the steps, the seconds a step (the window's open to its end
   over the steps run), each unit's median device ms and their sum's share
   of a step, and the host seconds by phase a step.
@@ -55,7 +57,21 @@ def serving_report(run) -> dict:
             "by_pick": {f"{pick}/k{k}": {"windows": n,
                                          "device_ms_a_step": span / st * 1e3}
                         for (pick, k), (n, span, st) in sorted(picks.items())},
-            "host_s": host}
+            "host_s": host, "dispatches": dispatches()}
+
+
+def dispatches() -> dict:
+    """The serve recorder's admission counts (``chunk.replayed``,
+    ``splice.eager``, ...) and, by kind, the replayed share."""
+    from tpu9_torch.observability import spans
+    rec = spans.last("serve")
+    counts = dict(rec.counts) if rec is not None else {}
+    kinds = sorted({name.split(".")[0] for name in counts})
+    share = {}
+    for kind in kinds:
+        done = counts.get(f"{kind}.replayed", 0)
+        share[kind] = done / (done + counts.get(f"{kind}.eager", 0))
+    return {"counts": counts, "replayed_share": share}
 
 
 def training_report(run) -> dict:

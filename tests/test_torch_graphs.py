@@ -6,7 +6,14 @@ outside the sealed set is one counted and timed miss. The window's static
 device state keeps its addresses (the verify buffers too), sampled
 windows draw anew each window in the eager engine's order (a verify window
 one [B, t] draw), and a replayed window adds the launches its capture
-counted (a stand-in graph object: there is no card here)."""
+counted (a stand-in graph object: there is no card here). The paged
+admission bodies, which read their offsets, last-token indices, block ids
+and table row on the device, give bit for bit what the host-int bodies
+they replaced gave (written out here as the reference); the admission
+buffers keep their addresses; a captured admission replays only the
+tensors it was captured over; and every admission dispatch is counted, as
+a replay on a capturing factory (stand-in graphs) and as an eager run on
+the CPU."""
 
 import asyncio
 import dataclasses
@@ -25,11 +32,13 @@ from tpu9.serving.graphs import GraphFactory as JaxGraphFactory
 from tpu9.serving.shard.policy import SingleDevicePolicy
 from tpu9_torch.bridge import params_from_jax
 from tpu9_torch.models.llama import LLAMA_PRESETS
-from tpu9_torch.models.transformer import decoder_forward
+from tpu9_torch.models.transformer import decoder_forward, init_decoder
 from tpu9_torch.ops import paged_attention as pa
+from tpu9_torch.ops.quant import dequantize_kv, quantize_kv
 from tpu9_torch.ops.sampling import sample_logits
 from tpu9_torch.serving.engine import EngineConfig, InferenceEngine
-from tpu9_torch.serving.graphs import CapturedWindow, GraphFactory
+from tpu9_torch.serving.graphs import (CapturedAdmission, CapturedWindow,
+                                       GraphFactory)
 
 torch.set_num_threads(2)
 
@@ -445,3 +454,246 @@ def test_cpu_windows_are_the_eager_loop_and_need_the_window_state(tiny):
     teng = _engine(tiny, PAGED)
     assert not isinstance(teng.graphs.decode_k(1), CapturedWindow)
     assert teng.graphs.capture_s == {} and teng.graphs.pool_bytes == 0
+
+
+# -- paged admission over device-resident inputs -----------------------------
+
+ADMIT = dict(max_batch=2, max_seq_len=128, prefill_buckets=(16, 64),
+             decode_steps=(1, 4), kv_block_size=8, prefill_chunk=16,
+             admit_group_chunks=3)
+# (prompt tokens, cached prefix tokens): one chunk; a full group of 3; a
+# group and a partial tail; 2 chunks after a 32-token prefix gather
+ADMISSIONS = {"chunk": (11, 0), "group": (48, 0), "tail": (61, 0),
+              "prefix": (60, 32)}
+
+
+def _host_chunk_step(f, params, scratch, tok_row, offset: int,
+                     last_idx: int):
+    """The chunk step as it was with a host-int offset and index."""
+    positions = offset + torch.arange(f.chunk)[None, :]
+    logits, scratch = decoder_forward(
+        params, tok_row[None, :], f.cfg, positions=positions,
+        kv_cache=scratch, cache_len=offset + f.chunk, rope=f.rope)
+    return logits[0, last_idx], scratch
+
+
+def _host_splice(f, pool, scratch, offset: int, phys) -> None:
+    """The splice as it was: block by block over host block ids."""
+    bs = f.ecfg.kv_block_size
+    for j in range(f.chunk // bs):
+        start, blk = offset + j * bs, int(phys[j])
+        for name in ("k", "v"):
+            block = scratch[name][:, 0, start:start + bs]
+            if "k_scale" in pool:
+                block, pool[f"{name}_scale"][:, blk] = quantize_kv(block)
+            pool[name][:, blk] = block
+
+
+def _host_gather(f, pool, row, scratch) -> None:
+    """The prefix gather as it was, over a numpy table row."""
+    idx = torch.from_numpy(np.asarray(row, dtype=np.int64))
+    for name in ("k", "v"):
+        g = pool[name][:, idx]
+        if f"{name}_scale" in pool:
+            g = dequantize_kv(g, pool[f"{name}_scale"][:, idx],
+                              scratch[name].dtype)
+        l_, mb, bs, kh, d = g.shape
+        scratch[name][:, 0] = g.reshape(l_, mb * bs, kh,
+                                        d)[:, :f.ecfg.max_seq_len]
+
+
+def _admission_inputs(f, prompt, p, blocks):
+    """An admission's host values, as the engine builds them: the table
+    row and each chunk's tokens, offset, last-token index and blocks
+    (past the slot's blocks: the trash block 0)."""
+    c, bs = f.chunk, f.ecfg.kv_block_size
+    mb = f.ecfg.max_seq_len // bs + 1
+    row = np.zeros((mb,), np.int32)
+    row[:len(blocks)] = blocks
+    suffix = prompt[p:]
+    n = -(-len(suffix) // c)
+    toks = np.zeros((n, c), np.int32)
+    offs, lasts = np.zeros((n,), np.int32), np.zeros((n,), np.int32)
+    phys = np.zeros((n, c // bs), np.int32)
+    for k, i in enumerate(range(0, len(suffix), c)):
+        valid = min(c, len(suffix) - i)
+        toks[k, :valid] = suffix[i:i + valid]
+        offs[k], lasts[k] = p + i, valid - 1
+        for j in range(c // bs):
+            if (p + i) // bs + j < len(blocks):
+                phys[k, j] = blocks[(p + i) // bs + j]
+    return row, toks, offs, lasts, phys
+
+
+@pytest.mark.parametrize("case", list(ADMISSIONS))
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_device_admission_bodies_match_the_host_int_bodies(case, kv):
+    """The admission computations over device-resident inputs (one packed
+    copy, rows moved to the front per dispatch, the fused group for full
+    groups) leave the scratch, every pool block but the trash block, the
+    int8 scale planes and the last-token logits bit for bit as the host-int
+    bodies did, chunk by chunk."""
+    cfg = LLAMA_PRESETS["llama-tiny"]
+    assert cfg.dtype == torch.bfloat16
+    ecfg = EngineConfig(**ADMIT, kv_quant="int8" if kv == "int8" else "")
+    f = GraphFactory(cfg, ecfg, 16, torch.device("cpu"))
+    params = init_decoder(cfg, torch.Generator().manual_seed(3), "cpu")
+    gen = torch.Generator().manual_seed(4)
+    n_blocks, bs = 40, ecfg.kv_block_size
+    shape = (cfg.n_layers, n_blocks, bs, cfg.n_kv_heads, cfg.head_dim)
+    if kv == "int8":
+        pool = {n: torch.randint(-127, 128, shape, generator=gen,
+                                 dtype=torch.int8) for n in ("k", "v")}
+        pool.update({f"{n}_scale": torch.rand(shape[:-1], generator=gen)
+                     for n in ("k", "v")})
+    else:
+        pool = {n: torch.randn(shape, generator=gen).to(torch.bfloat16)
+                for n in ("k", "v")}
+    scr_shape = (cfg.n_layers, 1, ecfg.max_seq_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+    scratch = {n: torch.randn(scr_shape, generator=gen).to(torch.bfloat16)
+               for n in ("k", "v")}
+    n, p = ADMISSIONS[case]
+    prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    blocks = torch.randperm(n_blocks - 1, generator=gen)[:n // bs + 1] + 1
+    row, toks, offs, lasts, phys = _admission_inputs(f, prompt, p,
+                                                     blocks.tolist())
+
+    want_pool = {k: t.clone() for k, t in pool.items()}
+    want_scr = {k: t.clone() for k, t in scratch.items()}
+    if p:
+        _host_gather(f, want_pool, row, want_scr)
+    for k in range(len(toks)):
+        want, want_scr = _host_chunk_step(
+            f, params, want_scr, torch.from_numpy(toks[k]), int(offs[k]),
+            int(lasts[k]))
+        _host_splice(f, want_pool, want_scr, int(offs[k]), phys[k])
+
+    a = f.admit
+    assert a.stage(blocks.tolist(), prompt[p:], p) == len(toks)
+    for got_rows, want_rows in ((a.row, row), (a.toks, toks),
+                                (a.offsets, offs), (a.last_idx, lasts),
+                                (a.phys, phys)):
+        assert got_rows[:len(want_rows)].tolist() == want_rows.tolist()
+    if p:
+        f.gather_fn()(pool, a.row, scratch)
+    k, group = 0, ecfg.admit_group_chunks
+    while k < len(toks):
+        g = group if len(toks) - k >= group else 1
+        a.take(k, g)
+        if g > 1:
+            _, scratch, got = f.chunk_group_fn(g)(
+                params, pool, scratch, a.toks[:g], a.offsets[:g],
+                a.last_idx[:g], a.phys[:g])
+        else:
+            got, scratch = f.chunk_fn()(params, a.toks[:1], a.offsets[:1],
+                                        scratch, a.last_idx[:1])
+            f.splice_fn()(pool, scratch["k"], scratch["v"], a.offsets[:1],
+                          a.phys[0])
+        k += g
+    assert case != "tail" or group == 3 and len(toks) == 4
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for name in ("k", "v"):
+        torch.testing.assert_close(scratch[name], want_scr[name], rtol=0,
+                                   atol=0)
+    for name, t in pool.items():
+        # block 0 is the trash block: padded chunk positions land there
+        torch.testing.assert_close(t[:, 1:], want_pool[name][:, 1:], rtol=0,
+                                   atol=0)
+
+
+def test_admission_buffers_keep_their_addresses(tiny):
+    """A captured admission replays fixed addresses: mixed traffic (a
+    prefix hit, single chunks, a full group, a group and a tail) writes
+    the admission buffers, the scratch and the pool in place."""
+    teng = _engine(tiny, PAGED)
+    a = teng.graphs.admit
+
+    def ptrs():
+        out = {n: getattr(a, n).data_ptr()
+               for n in ("packed", "row", "chunks", "toks", "offsets",
+                         "last_idx", "phys", "logits")}
+        out.update({f"scratch_{n}": t.data_ptr()
+                    for n, t in teng._scratch.items()})
+        out.update({f"kv_{n}": t.data_ptr()
+                    for n, t in teng.kv_cache.items()})
+        return out
+
+    before = ptrs()
+    assert a.chunks.data_ptr() == a.packed[a.row.numel():].data_ptr()
+    assert a.toks.shape == (PAGED["max_seq_len"] // 16, 16)
+    assert a.phys.shape == (PAGED["max_seq_len"] // 16, 1)
+    assert a.logits.shape == (tiny[2].vocab_size,)
+    teng.warmup()
+    asyncio.run(_serve(teng, _traffic()))
+    assert ptrs() == before
+    assert teng.graphs.admit is a
+    assert teng.stats()["prefix_cache"]["hits"] > 0
+
+
+def test_admission_replay_adds_the_launches_its_capture_counted():
+    """A captured admission replays its graph, adds the launches its
+    capture counted, returns what the capture left, and refuses tensors
+    other than those it was captured over."""
+    start = pa.launch_counts()
+
+    class StandIn:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    graph = StandIn()
+    toks, offset = torch.zeros((1, 16), dtype=torch.int32), torch.zeros(
+        (1,), dtype=torch.int32)
+    logits = torch.zeros((8,))
+    adm = CapturedAdmission(
+        CapturedWindow(graph, {"paged_decode_attention": 2}),
+        (toks.data_ptr(), offset.data_ptr()), (logits, {"k": None}))
+    for _ in range(3):
+        assert adm({}, toks, offset)[0] is logits
+    assert graph.replays == 3
+    assert pa.launch_counts()["paged_decode_attention"] == start[
+        "paged_decode_attention"] + 6
+    with pytest.raises(ValueError, match="captured over"):
+        adm({}, toks.clone(), offset)
+    assert graph.replays == 3
+    pa.add_launches({"paged_decode_attention": -6})
+    assert pa.launch_counts() == start
+
+
+@pytest.mark.parametrize("captures", [False, True],
+                         ids=["cpu_eager", "stand_in_graphs"])
+def test_admission_dispatches_are_counted_replayed_or_eager(tiny, captures):
+    """Every admission dispatch is counted in the engine's spans: on the
+    CPU as an eager run; on a capturing factory (stand-in graphs whose
+    replay runs what was captured over the fixed buffers) as one replay a
+    dispatch, the warmup's included, and the served tokens are the eager
+    engine's."""
+    want = asyncio.run(_serve(_engine(tiny, PAGED), _traffic()))
+    teng = _engine(tiny, PAGED)
+    f = teng.graphs
+    if captures:
+        class StandIn:
+            def __init__(self, fn):
+                self.replay = fn
+
+        def capture(key, window, draws=True):
+            window()                        # the warm run before a capture
+            return CapturedWindow(StandIn(window), {})
+
+        f.captures, f._capture = True, capture
+    teng.warmup()
+    got = asyncio.run(_serve(teng, _traffic()))
+    assert got == want
+    st = teng.stats()
+    assert st["graph_compiles_post_warmup"] == 0
+    counts = teng.span_totals()["counts"]
+    how = "replayed" if captures else "eager"
+    assert {name.split(".")[1] for name in counts} == {how}
+    assert {name.split(".")[0] for name in counts} == {
+        "chunk", "splice", "gather", "chunkgroup"}
+    # warmup dispatches each kind once; then admit_dispatches counts them
+    assert sum(counts.values()) == st["admit_dispatches"] + 4
+    assert counts[f"chunk.{how}"] == counts[f"splice.{how}"]
+    assert counts[f"gather.{how}"] == st["prefix_cache"]["hits"] + 1

@@ -127,7 +127,9 @@ def test_chunked_prefill_splice_and_paged_decode_match(tiny):
         # the port splices with its own graph; the JAX side by hand
         for off in range(0, len(prompt), C):
             phys = table[b, off // BS:(off + C) // BS]
-            graphs.traced_splice(tpool, tscr["k"], tscr["v"], off, phys)
+            graphs.traced_splice(tpool, tscr["k"], tscr["v"],
+                                 torch.tensor([off], dtype=torch.int32),
+                                 torch.from_numpy(phys))
             for j, blk in enumerate(phys):
                 sl = slice(off + j * BS, off + (j + 1) * BS)
                 jk[:, blk] = np.asarray(jscr["k"])[:, 0, sl]

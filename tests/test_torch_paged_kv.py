@@ -210,8 +210,9 @@ def test_int8_splice_and_prefix_gather_match_jax_graphs():
     jpool = {n: jnp.asarray(a) for n, a in zeros.items()}
     for offset, phys in ((0, [4, 1]), (c, [2, 5])):
         tg.traced_splice(tpool, torch.from_numpy(scratch["k"]),
-                         torch.from_numpy(scratch["v"]), offset,
-                         np.array(phys, np.int32))
+                         torch.from_numpy(scratch["v"]),
+                         torch.tensor([offset], dtype=torch.int32),
+                         torch.tensor(phys, dtype=torch.int32))
         jpool = jg.traced_splice(jpool, jnp.asarray(scratch["k"]),
                                  jnp.asarray(scratch["v"]), offset,
                                  jnp.asarray(phys, jnp.int32))
@@ -222,7 +223,7 @@ def test_int8_splice_and_prefix_gather_match_jax_graphs():
                                       np.asarray(jpool[name]))
     row = np.zeros((s // BS + 1,), np.int32)      # trash past the prefix
     row[:4] = [4, 1, 2, 5]
-    got = tg.gather_fn()(tpool, row, {
+    got = tg.gather_fn()(tpool, torch.from_numpy(row), {
         n: torch.zeros(scr_shape) for n in ("k", "v")})
     want = jg.gather_fn()(jpool, jnp.asarray(row))
     for name in ("k", "v"):

@@ -394,7 +394,9 @@ def test_int8_prefill_splice_and_paged_decode_match(tiny_int8):
                 positions=torch.from_numpy(pos), kv_cache=tscr,
                 cache_len=off + C)
             phys = table[b, off // BS:(off + C) // BS]
-            graphs.traced_splice(tpool, tscr["k"], tscr["v"], off, phys)
+            graphs.traced_splice(tpool, tscr["k"], tscr["v"],
+                                 torch.tensor([off], dtype=torch.int32),
+                                 torch.from_numpy(phys))
             for j, blk in enumerate(phys):
                 sl = slice(off + j * BS, off + (j + 1) * BS)
                 for name in ("k", "v"):

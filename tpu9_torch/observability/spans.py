@@ -18,6 +18,9 @@ train step) and keeps three things:
   dispatch with two timing events on the current stream of the recorder's
   device; the start's host enqueue time is kept. Without a CUDA device there
   are no events: a unit records nothing.
+- **Counts.** ``count(name)`` adds one to a named count: how often a
+  mechanism engaged (the engine's admission dispatches, replayed as a
+  graph or run eagerly).
 - **Resolution.** ``resolve()`` runs where the loop already waits on the
   device and never waits itself: for each unit the device has passed, in
   stream order, its span is ``elapsed(start, end)`` and the gap before it
@@ -136,6 +139,7 @@ class SpanRecorder:
         self.host_ns: dict = {}     # phase -> self time, ns
         self.device_s: dict = {}    # unit kind -> device seconds
         self.gap_s: dict = {}       # phase (or unattributed) -> gap seconds
+        self.counts: dict = {}      # name -> count
         self.rows: deque = deque(maxlen=ROWS)
         self._ring: deque = deque(maxlen=RING)
         self._stack: list = []      # [name, record_function or None]
@@ -249,6 +253,11 @@ class SpanRecorder:
             self.exit()
             self.unit_end(u, row)
 
+    # -- counts ----------------------------------------------------------------
+
+    def count(self, name: str) -> None:
+        self.counts[name] = self.counts.get(name, 0) + 1
+
     # -- resolution ----------------------------------------------------------
 
     def resolve(self) -> None:
@@ -293,8 +302,10 @@ class SpanRecorder:
     def totals(self) -> dict:
         """Seconds since the recorder was built: host self time by phase,
         device time by unit kind, device gaps by the phase they are put
-        down to; the resolved row count and the clock anchor."""
+        down to; the resolved row count, the counts and the clock
+        anchor."""
         host = dict(self.host_ns)
         return {"host_s": {name: ns / 1e9 for name, ns in host.items()},
                 "device_s": dict(self.device_s), "gap_s": dict(self.gap_s),
-                "rows": len(self.rows), "anchor_ns": self.anchor}
+                "rows": len(self.rows), "counts": dict(self.counts),
+                "anchor_ns": self.anchor}

@@ -302,8 +302,12 @@ class InferenceEngine:
         self._drafts = window.drafts
         self._spec_out = window.out
         self._n_acc = window.n_acc
+        # the serve loop's phases and device units (span_totals); the
+        # factory counts the admission dispatches there
+        self.spans = SpanRecorder("serve", self.device)
         self.graphs = GraphFactory(cfg, engine_cfg, self._chunk, self.device,
-                                   window=window, policy=policy)
+                                   window=window, policy=policy,
+                                   spans=self.spans)
         self.scheduler = WindowScheduler(self)
         # dense prefill buckets, clamped to the cache: a bucket wider than
         # max_seq_len would splice past the slot's lanes
@@ -353,8 +357,6 @@ class InferenceEngine:
         host state only, read by ``stats()`` at heartbeat cadence."""
         self.flight = FlightRecorder()
         self.metrics = Metrics()
-        # the serve loop's phases and device units (span_totals)
-        self.spans = SpanRecorder("serve", self.device)
         # bring-up seconds, set by load_engine and the runner; stats()
         # forwards them flat
         self.bringup: dict = {}
@@ -608,31 +610,26 @@ class InferenceEngine:
             timings[f"dsplice_{bucket}_s"] = time.perf_counter() - t0
 
     def _warmup_paged(self, timings: dict) -> None:
-        """The paged admission paths: chunk step, splice, prefix gather and
-        the fused group."""
-        bs = self.ecfg.kv_block_size
-        c = self._chunk
-        trash = np.full((c // bs,), self.pool.trash_block, dtype=np.int32)
+        """The paged admission paths over the zeroed admission buffers
+        (every write on the trash block): chunk step, splice, prefix gather
+        and the fused group; on the card each is captured here."""
+        a = self.graphs.admit
+        a.packed.zero_()
         t0 = time.perf_counter()
-        toks = torch.zeros((1, c), dtype=torch.int32, device=self.device)
         last, self._scratch = self.graphs.chunk_fn()(
-            self.params, toks, 0, self._scratch, 0)
+            self.params, a.toks[:1], a.offsets[:1], self._scratch,
+            a.last_idx[:1])
         self.graphs.splice_fn()(self._pool_dict(), self._scratch["k"],
-                                self._scratch["v"], 0, trash)
-        self.graphs.gather_fn()(self._pool_dict(), self.pool.table_np[0],
-                                self._scratch)
+                                self._scratch["v"], a.offsets[:1], a.phys[0])
+        self.graphs.gather_fn()(self._pool_dict(), a.row, self._scratch)
         self._sync(last)
-        timings[f"chunk_{c}_s"] = time.perf_counter() - t0
+        timings[f"chunk_{self._chunk}_s"] = time.perf_counter() - t0
         g = max(1, self.ecfg.admit_group_chunks)
         if g > 1:
             t0 = time.perf_counter()
-            offs = np.minimum(np.arange(g) * c,
-                              self.ecfg.max_seq_len - c).astype(np.int32)
             _, self._scratch, last = self.graphs.chunk_group_fn(g)(
-                self.params, self._pool_dict(), self._scratch,
-                torch.zeros((g, c), dtype=torch.int32, device=self.device),
-                offs, np.full((g,), c - 1, dtype=np.int32),
-                np.full((g, c // bs), self.pool.trash_block, dtype=np.int32))
+                self.params, self._pool_dict(), self._scratch, a.toks[:g],
+                a.offsets[:g], a.last_idx[:g], a.phys[:g])
             self._sync(last)
             timings[f"chunk_group_{g}_s"] = time.perf_counter() - t0
 
@@ -991,9 +988,11 @@ class InferenceEngine:
         by phase (``serve.admit``, ``serve.first_token``,
         ``serve.window_wait``, ``serve.fanout``, ``serve.dispatch``,
         ``serve.yield``, ``serve.park``), device time by unit (``window``,
-        ``admit``) and the device's idle gaps by the phase that left the
-        card waiting (or ``unattributed``). The device figures are empty
-        without a CUDA device."""
+        ``admit``), the device's idle gaps by the phase that left the
+        card waiting (or ``unattributed``), and the admission dispatches
+        counted by kind as replayed graphs or eager runs (``counts``:
+        ``chunk.replayed``, ``splice.eager``, ...). The device figures are
+        empty without a CUDA device."""
         return self.spans.totals()
 
     # -- the pressure heartbeat's tiering hooks ------------------------------
@@ -1312,46 +1311,24 @@ class InferenceEngine:
         total_blocks = blocks_for(n + 1, bs)
         fresh = self.pool.alloc_blocks(total_blocks - len(shared))
         blocks = self.pool.slot_blocks[slot] = shared + fresh
-        trash = self.pool.trash_block
         # the device table row stays all-trash until admission completes:
         # decode windows interleaved below write every inactive lane at
-        # position 0 through its row, which must not be a block in use here
-        row = np.full((self.pool.mb,), trash, dtype=np.int32)
-        row[:len(blocks)] = blocks
+        # position 0 through its row, which must not be a block in use
+        # here. The prefix gather reads the row from the admission buffers.
 
         sp = self.spans
         scratch = self._scratch
-        if p:
-            unit = sp.unit_start("admit")
-            scratch = self.graphs.gather_fn()(self._pool_dict(), row, scratch)
-            sp.unit_end(unit)
-            self._stats["admit_dispatches"] += 1
-
-        c = self._chunk
-        nb = c // bs
-        suffix = req.prompt[p:]
-        m = len(suffix)
-        n_chunks = -(-m // c)
+        a = self.graphs.admit
+        unit = sp.unit_start("admit")
+        # one copy of the row and every chunk's inputs; the graphs read them
+        # on the device
+        n_chunks = a.stage(blocks, req.prompt[p:], p)
         req.admit_cached = p
         req.admit_chunks = n_chunks
-        toks_all = np.zeros((n_chunks, c), dtype=np.int32)
-        offsets = np.zeros((n_chunks,), dtype=np.int32)
-        last_idxs = np.zeros((n_chunks,), dtype=np.int32)
-        # chunk tail past the slot's blocks is padding: it goes to the
-        # trash block, never a real one
-        phys_all = np.full((n_chunks, nb), trash, dtype=np.int32)
-        for k_chunk, i in enumerate(range(0, m, c)):
-            valid = min(c, m - i)
-            toks_all[k_chunk, :valid] = suffix[i:i + valid]
-            offsets[k_chunk] = p + i
-            last_idxs[k_chunk] = valid - 1
-            first_block = (p + i) // bs
-            for j in range(nb):
-                idx = first_block + j
-                if idx < len(blocks):
-                    phys_all[k_chunk, j] = blocks[idx]
-        unit = sp.unit_start("admit")
-        toks_dev = torch.from_numpy(toks_all).to(self.device)
+        if p:
+            scratch = self.graphs.gather_fn()(self._pool_dict(), a.row,
+                                              scratch)
+            self._stats["admit_dispatches"] += 1
 
         last = None
         group = max(1, self.ecfg.admit_group_chunks)
@@ -1360,19 +1337,19 @@ class InferenceEngine:
             # full groups take the fused path; a partial tail runs chunk by
             # chunk, as the JAX engine does to keep its graph set closed
             g = group if n_chunks - k_chunk >= group else 1
-            sl = slice(k_chunk, k_chunk + g)
+            a.take(k_chunk, g)
             if g > 1:
                 _, scratch, last = self.graphs.chunk_group_fn(g)(
-                    self.params, self._pool_dict(), scratch, toks_dev[sl],
-                    offsets[sl], last_idxs[sl], phys_all[sl])
+                    self.params, self._pool_dict(), scratch, a.toks[:g],
+                    a.offsets[:g], a.last_idx[:g], a.phys[:g])
                 self._stats["admit_dispatches"] += 1
             else:
                 last, scratch = self.graphs.chunk_fn()(
-                    self.params, toks_dev[sl], int(offsets[k_chunk]),
-                    scratch, int(last_idxs[k_chunk]))
+                    self.params, a.toks[:1], a.offsets[:1], scratch,
+                    a.last_idx[:1])
                 self.graphs.splice_fn()(
                     self._pool_dict(), scratch["k"], scratch["v"],
-                    int(offsets[k_chunk]), phys_all[k_chunk])
+                    a.offsets[:1], a.phys[0])
                 self._stats["admit_dispatches"] += 2
             sp.unit_end(unit)
             k_chunk += g

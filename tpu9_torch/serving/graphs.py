@@ -13,11 +13,16 @@ misses, is sealed once warmup has built every key the serve loop can reach
 
 On a CUDA engine a decode window is one CUDA graph per window size, and a
 verify window one per draft length, each captured once over the engine's
-static device state (``WindowState``) and replayed; all of an engine's
-window graphs share one memory pool. On a CPU engine each is the same
-computation run eagerly. The admission computations
-run eagerly on both and write the pool and scratch in place (the JAX graphs
-donated them).
+static device state (``WindowState``) and replayed; the paged admission
+computations (the chunk step, the splice, the prefix gather and the fused
+group) are captured the same way over the engine's admission buffers
+(``AdmitState``: the chunks' tokens, offsets, last-token indices and
+physical blocks, and the table row, on the device) at their first call and
+replayed. All of an engine's graphs share one memory pool; what a graph
+leaves for later reads lives outside it, in the engine's static buffers.
+On a CPU engine each is the same computation run eagerly. The admission
+computations write the pool and scratch in place (the JAX graphs donated
+them). The dense engine's prefill and splice run eagerly on both.
 
 Compile-ahead: ``lowering_jobs`` enumerates every key with the inputs of one
 inactive run, ``precompile`` builds and runs each of them (capturing the
@@ -29,9 +34,9 @@ Under a sharding policy (``shard/policy.py``) the params are rank shards
 and every KV tree (pool, scratch, dense cache) one tree per rank: the
 forward runs the ranks and their reductions (``models/transformer.py``),
 and the splice, gather and dense splice run rank by rank. Whether a
-window is captured is decided by the placement: with every rank on one
-device a window is one CUDA graph holding all of them; ranks on distinct
-devices run their windows eagerly.
+window or an admission computation is captured is decided by the
+placement: with every rank on one device it is one CUDA graph holding all
+of them; ranks on distinct devices run it eagerly.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rotary import rope_table
 from ..ops.sampling import sample_logits
 from ..parallel.sharding import per_rank, ranks, to_device
+from ..utils.platform import host_to_device
 from .kvpool import KvPool
 from .shard.policy import SingleDevicePolicy
 
@@ -91,23 +97,125 @@ class CapturedWindow:
         add_launches(self.launches)
 
 
+@dataclass
+class AdmitState:
+    """The device inputs and output of paged admission. A captured
+    admission replays these addresses, so the engine owns every tensor here
+    for its life and only ever writes them in place. ``packed`` holds the
+    slot's table row [MB] (what the prefix gather reads), then one row a
+    chunk [C + 2 + C/BS]: its tokens, its offset, its last-token index and
+    its physical blocks; ``row``, ``toks``, ``offsets``, ``last_idx`` and
+    ``phys`` are views of it. The graphs read the first chunk rows; the
+    host writes an admission's values with one copy (:meth:`stage`) and
+    moves each later dispatch's rows to the front (:meth:`take`)."""
+    packed: torch.Tensor        # int32
+    row: torch.Tensor           # [MB]
+    chunks: torch.Tensor        # [S / C, C + 2 + C/BS]
+    toks: torch.Tensor          # [S / C, C]
+    offsets: torch.Tensor       # [S / C]
+    last_idx: torch.Tensor      # [S / C]
+    phys: torch.Tensor          # [S / C, C/BS]
+    logits: torch.Tensor        # [V] f32: a captured chunk's or group's
+    #                             last-token logits
+
+    def stage(self, blocks: list, suffix: list, p: int) -> int:
+        """Write one admission's inputs with one copy on the current
+        stream, queued behind the work already there (``host_to_device``:
+        the pinned staging buffer is kept until the copy has run): the
+        slot's table row (``blocks``, then the trash block 0), and for each
+        C-token chunk of ``suffix``, the prompt from position ``p``, its
+        tokens (zero-padded), offset, last-token index and physical blocks
+        (past ``blocks``: the trash block, so a padded tail writes no real
+        one). Returns the number of chunks."""
+        mb, width = self.row.numel(), self.chunks.shape[1]
+        c, nb = self.toks.shape[1], self.phys.shape[1]
+        n = -(-len(suffix) // c)
+        host = np.zeros((mb + n * width,), dtype=np.int32)
+        host[:len(blocks)] = blocks
+        chunks = host[mb:].reshape(n, width)
+        toks = np.zeros((n * c,), dtype=np.int32)
+        toks[:len(suffix)] = suffix
+        chunks[:, :c] = toks.reshape(n, c)
+        starts = c * np.arange(n)
+        chunks[:, c] = p + starts
+        chunks[:, c + 1] = np.minimum(c, len(suffix) - starts) - 1
+        logical = (p + starts[:, None]) // (c // nb) + np.arange(nb)
+        chunks[:, c + 2:] = np.where(logical < len(blocks),
+                                     host[np.minimum(logical, mb - 1)], 0)
+        host_to_device(self.packed[:host.size], host)
+        return n
+
+    def take(self, k: int, g: int) -> None:
+        """Chunk rows [k, k + g) to the front, where the graphs read them
+        (a device copy queued behind the dispatches that read the front)."""
+        if k:
+            self.chunks[:g].copy_(self.chunks[k:k + g])
+
+
+def admit_state(cfg, ecfg, chunk: int, device) -> AdmitState:
+    """A paged engine's admission buffers on ``device``, zeroed: every
+    chunk at offset 0 writing the trash block (physical block 0)."""
+    bs = ecfg.kv_block_size
+    mb = ecfg.max_seq_len // bs + 1
+    width = chunk + 2 + chunk // bs
+    rows = ecfg.max_seq_len // chunk
+    packed = torch.zeros((mb + rows * width,), dtype=torch.int32,
+                         device=device)
+    chunks = packed[mb:].view(rows, width)
+    return AdmitState(packed, packed[:mb], chunks, toks=chunks[:, :chunk],
+                      offsets=chunks[:, chunk], last_idx=chunks[:, chunk + 1],
+                      phys=chunks[:, chunk + 2:],
+                      logits=torch.zeros((cfg.vocab_size,),
+                                         dtype=torch.float32, device=device))
+
+
+@dataclass
+class CapturedAdmission:
+    """One admission computation captured as a CUDA graph over the
+    arguments of its first call. A call replays it and returns what the
+    capture left: the pool and scratch it writes in place and, for a chunk
+    or a group, the last-token logits in ``AdmitState.logits``. Every call
+    must pass the tensors it was captured over (the addresses of its
+    tensor arguments are checked; the trees are the engine's own)."""
+    window: CapturedWindow
+    ptrs: tuple
+    out: Any
+
+    def __call__(self, *args):
+        if _tensor_ptrs(args) != self.ptrs:
+            raise ValueError("an admission graph replays the tensors it was "
+                             "captured over: pass the AdmitState's views")
+        self.window()
+        return self.out
+
+
+def _tensor_ptrs(args) -> tuple:
+    return tuple(a.data_ptr() for a in args if isinstance(a, torch.Tensor))
+
+
 class GraphFactory:
     """The engine's computations for one (model, engine-config) pair.
     ``chunk`` is the validated chunked-prefill length (0 = dense mode);
     ``window`` the engine's static decode state (``decode_k`` needs it);
     ``policy`` the sharding policy (the identity policy on ``device`` by
-    default)."""
+    default); ``spans`` the span recorder that counts the admission
+    dispatches, replayed and eager (none counts nothing). A paged
+    factory allocates the admission buffers (``admit``) on ``device``."""
 
     def __init__(self, cfg, ecfg, chunk: int, device,
-                 window: WindowState | None = None, policy=None):
+                 window: WindowState | None = None, policy=None,
+                 spans=None):
         self.cfg = cfg
         self.ecfg = ecfg
         self.chunk = chunk
         self.device = device
         self.window = window
         self.policy = policy or SingleDevicePolicy(device)
-        # a window is captured when every rank is on one CUDA device; the
-        # graph check sets this False to trace the bodies the captures hold
+        self.admit = admit_state(cfg, ecfg, chunk, device) if chunk else None
+        self.spans = spans
+        # a window or an admission computation is captured when every rank
+        # is on one CUDA device; the graph check sets this False to trace
+        # the bodies the captures hold
         self.captures = (torch.device(device).type == "cuda"
                          and self.policy.one_device)
         # computed once per engine (the JAX graphs constant-fold it)
@@ -290,21 +398,24 @@ class GraphFactory:
             return window
         return self._capture(("verify", s), window)
 
-    def _capture(self, key, window) -> CapturedWindow:
+    def _capture(self, key, window, draws: bool = True) -> CapturedWindow:
         """Capture ``window`` as a CUDA graph in the shared pool; ``key``
-        names it in ``capture_s``. A failed capture raises: the card never
-        runs the eager window."""
+        names it in ``capture_s``; ``draws``: its replays draw from the
+        engine's generator. A failed capture raises: the card never runs
+        the eager computation."""
         if not self._sealed:
-            # warmup, every lane inactive: one eager run loads the kernels
-            # and the libraries' handles before the capture. A post-seal
-            # capture skips it, or live lanes would advance twice.
+            # warmup, every lane inactive (every admission write on the
+            # trash block): one eager run loads the kernels and the
+            # libraries' handles before the capture. A post-seal capture
+            # skips it, or live lanes would advance twice.
             window()
         t0 = time.perf_counter()
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        # replays draw from the engine's generator and advance it
-        graph.register_generator_state(self.window.generator)
+        if draws:
+            # replays draw from the engine's generator and advance it
+            graph.register_generator_state(self.window.generator)
 
         def capture() -> None:
             with torch.cuda.graph(graph, pool=self._graph_pool,
@@ -373,108 +484,151 @@ class GraphFactory:
     # -- paged chunked prefill -----------------------------------------------
 
     @torch.no_grad()
-    def traced_chunk_step(self, params, scratch, tok_row, offset: int,
-                          last_idx: int):
-        """Prefill one C-token chunk into the scratch at ``offset`` and
-        return the logits at ``last_idx`` (shared by the single-chunk and
-        fused-group admission paths)."""
+    def traced_chunk_step(self, params, scratch, tok_row, offset, last_idx):
+        """Prefill one C-token chunk ``tok_row`` [C] into the scratch at
+        ``offset`` and return the logits at ``last_idx`` (shared by the
+        single-chunk and fused-group admission paths). ``offset`` and
+        ``last_idx`` are [1] int32 on the device, so a graph replays them."""
         c = self.chunk
-        positions = offset + torch.arange(c, device=self.device)[None, :]
+        positions = offset[:, None] + torch.arange(c, device=offset.device)
         logits, scratch = decoder_forward(
             params, tok_row[None, :], self.cfg, positions=positions,
             kv_cache=scratch, cache_len=offset + c, rope=self.rope)
-        return logits[0, last_idx], scratch
+        return logits[0].index_select(0, last_idx)[0], scratch
 
     @torch.no_grad()
-    def traced_splice(self, pool, scratch_k, scratch_v, offset: int, phys):
+    def traced_splice(self, pool, scratch_k, scratch_v, offset, phys):
         """Block copy: scratch positions [offset, offset+C) → pool blocks
-        phys[0..C/BS). An int8 pool quantizes each block on the way in, its
-        per-vector scales landing in the scale planes at the same physical
-        index. In place: the JAX splice graph donated the pool. Rank by
-        rank under a sharding policy."""
-        bs = self.ecfg.kv_block_size
+        phys[0..C/BS), ``offset`` [1] and ``phys`` [C/BS] int32 on the
+        device. An int8 pool quantizes each block on the way in (one scale
+        a (position, head) vector), its scales landing in the scale planes
+        at the same physical index. In place: the JAX splice graph donated
+        the pool. Rank by rank under a sharding policy."""
+        c, bs = self.chunk, self.ecfg.kv_block_size
+        pos = offset.long() + torch.arange(c, device=offset.device)
+        ids = phys.long()
         for pool_r, k_r, v_r in zip(ranks(pool), ranks(scratch_k),
                                     ranks(scratch_v)):
-            for j in range(self.chunk // bs):
-                start = offset + j * bs
-                blk = int(phys[j])
-                for name, scratch in (("k", k_r), ("v", v_r)):
-                    block = scratch[:, 0, start:start + bs]  # [L,BS,KH,D]
-                    if "k_scale" in pool_r:
-                        block, pool_r[f"{name}_scale"][:, blk] = \
-                            quantize_kv(block)
-                    pool_r[name][:, blk] = block
+            pos_r = to_device(pos, k_r.device)
+            ids_r = to_device(ids, pool_r["k"].device)
+            for name, scratch in (("k", k_r), ("v", v_r)):
+                rows = scratch[:, 0].index_select(1, pos_r)  # [L,C,KH,D]
+                blocks = rows.reshape(rows.shape[0], c // bs, bs,
+                                      *rows.shape[2:])
+                if "k_scale" in pool_r:
+                    blocks, scale = quantize_kv(blocks)
+                    pool_r[f"{name}_scale"].index_copy_(1, ids_r, scale)
+                pool_r[name].index_copy_(1, ids_r, blocks)
         return pool
 
     def chunk_fn(self):
         """One C-token chunk prefilled into the scratch at ``offset``:
-        (params, tokens [1, C], offset, scratch, last_idx) → (the logits at
-        ``last_idx``, scratch)."""
-        def build():
-            def chunk(params, tokens, offset: int, scratch, last_idx: int):
-                return self.traced_chunk_step(params, scratch, tokens[0],
-                                              offset, last_idx)
+        (params, tokens [1, C], offset [1], scratch, last_idx [1]) → (the
+        logits at ``last_idx``, scratch)."""
+        def chunk(params, tokens, offset, scratch, last_idx):
+            return self.traced_chunk_step(params, scratch, tokens[0], offset,
+                                          last_idx)
 
-            return chunk
-
-        return self._build(("chunk", self.chunk), build)
+        key = ("chunk", self.chunk)
+        return self._build(key, lambda: self._admission(key, chunk))
 
     def splice_fn(self):
         """One chunk's blocks from the scratch into their pool blocks
         (:meth:`traced_splice`)."""
-        return self._build("splice", lambda: self.traced_splice)
+        return self._build("splice", lambda: self._admission(
+            "splice", self.traced_splice))
 
     def gather_fn(self):
-        """Densify one slot's table row into the scratch (prefix reuse: the
-        cached blocks become the prefix chunk prefill attends). An int8
-        pool is dequantized here, in f32, then cast to the model dtype: the
-        scratch always holds the model dtype. The row's final, always-trash
-        column is sliced off so the scratch keeps its [L, 1, S, KH, D]
-        shape. Writes the scratch in place."""
+        """Densify one slot's table row [MB] (int32 on the device) into the
+        scratch (prefix reuse: the cached blocks become the prefix chunk
+        prefill attends). An int8 pool is dequantized here, in f32, then
+        cast to the model dtype: the scratch always holds the model dtype.
+        The row's final, always-trash column is sliced off so the scratch
+        keeps its [L, 1, S, KH, D] shape. Writes the scratch in place."""
         s = self.ecfg.max_seq_len
 
-        def build():
-            @torch.no_grad()
-            def gather(pool, row, scratch):
-                idx = torch.from_numpy(np.asarray(row, dtype=np.int64)).to(
-                    self.device)
-                for pool_r, scratch_r in zip(ranks(pool), ranks(scratch)):
-                    idx_r = to_device(idx, pool_r["k"].device)
-                    for name in ("k", "v"):
-                        g = pool_r[name][:, idx_r]        # [L, MB, BS, KH, D]
-                        if f"{name}_scale" in pool_r:
-                            g = dequantize_kv(
-                                g, pool_r[f"{name}_scale"][:, idx_r],
-                                scratch_r[name].dtype)
-                        l_, mb, bs, kh, d = g.shape
-                        scratch_r[name][:, 0] = g.reshape(l_, mb * bs, kh,
-                                                          d)[:, :s]
-                return scratch
+        @torch.no_grad()
+        def gather(pool, row, scratch):
+            idx = row.long()
+            for pool_r, scratch_r in zip(ranks(pool), ranks(scratch)):
+                idx_r = to_device(idx, pool_r["k"].device)
+                for name in ("k", "v"):
+                    g = pool_r[name][:, idx_r]        # [L, MB, BS, KH, D]
+                    if f"{name}_scale" in pool_r:
+                        g = dequantize_kv(
+                            g, pool_r[f"{name}_scale"][:, idx_r],
+                            scratch_r[name].dtype)
+                    l_, mb, bs, kh, d = g.shape
+                    scratch_r[name][:, 0] = g.reshape(l_, mb * bs, kh,
+                                                      d)[:, :s]
+            return scratch
 
-            return gather
-
-        return self._build("gather", build)
+        return self._build("gather", lambda: self._admission("gather",
+                                                             gather))
 
     def chunk_group_fn(self, g: int):
         """Fused admission: ``g`` chunks, each prefilled into the scratch
-        and spliced into the pool. toks [g, C] on the device; offsets,
-        last_idxs [g] and phys [g, C/BS] on the host. Returns (pool,
-        scratch, the final chunk's last-token logits)."""
-        def build():
-            def group(params, pool, scratch, toks, offsets, last_idxs, phys):
-                last = None
-                for i in range(g):
-                    last, scratch = self.traced_chunk_step(
-                        params, scratch, toks[i], int(offsets[i]),
-                        int(last_idxs[i]))
-                    pool = self.traced_splice(pool, scratch["k"],
-                                              scratch["v"], int(offsets[i]),
-                                              phys[i])
-                return pool, scratch, last
+        and spliced into the pool. toks [g, C], offsets and last_idxs [g],
+        phys [g, C/BS], all int32 on the device. Returns (pool, scratch,
+        the final chunk's last-token logits)."""
+        def group(params, pool, scratch, toks, offsets, last_idxs, phys):
+            last = None
+            for i in range(g):
+                off = offsets[i:i + 1]
+                last, scratch = self.traced_chunk_step(
+                    params, scratch, toks[i], off, last_idxs[i:i + 1])
+                pool = self.traced_splice(pool, scratch["k"], scratch["v"],
+                                          off, phys[i])
+            return pool, scratch, last
 
-            return group
+        key = ("chunkgroup", g)
+        return self._build(key, lambda: self._admission(key, group))
 
-        return self._build(("chunkgroup", g), build)
+    def _admission(self, key, body):
+        """``body`` as the serve loop dispatches it: on a factory that
+        captures, a CUDA graph captured at the first call over that call's
+        arguments (precompile or warmup passes the ``AdmitState``'s views)
+        and replayed by every call (:class:`CapturedAdmission`); else
+        ``body`` run eagerly. Each dispatch is counted in ``spans`` as
+        ``<kind>.replayed`` or ``<kind>.eager``."""
+        kind = key[0] if isinstance(key, tuple) else key
+        count = self.spans.count if self.spans is not None \
+            else (lambda name: None)
+        if not self.captures:
+            def eager(*args):
+                out = body(*args)
+                count(f"{kind}.eager")
+                return out
+            return eager
+        captured = None
+
+        def replay(*args):
+            nonlocal captured
+            if captured is None:
+                captured = self._capture_admission(key, body, args)
+            out = captured(*args)
+            count(f"{kind}.replayed")
+            return out
+
+        return replay
+
+    def _capture_admission(self, key, body, args) -> CapturedAdmission:
+        """Capture ``body(*args)``; its fresh result, the last-token logits
+        (a bare tensor among the results), is copied into
+        ``AdmitState.logits``, outside the shared pool, where a window
+        replayed before the first token's sample cannot overwrite it."""
+        held = {}
+
+        def run() -> None:
+            out = body(*args)
+            if isinstance(out, tuple):
+                out = tuple(self.admit.logits.copy_(o)
+                            if isinstance(o, torch.Tensor) else o
+                            for o in out)
+            held["out"] = out
+
+        window = self._capture(key, run, draws=False)
+        return CapturedAdmission(window, _tensor_ptrs(args), held["out"])
 
     # -- compile-ahead -------------------------------------------------------
 
@@ -496,23 +650,21 @@ class GraphFactory:
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
         if self.chunk:
-            bs = self.ecfg.kv_block_size
-            c = self.chunk
-            trash = np.zeros((c // bs,), dtype=np.int32)
-            yield (("chunk", c), self.chunk_fn,
-                   (params, zeros(1, c), 0, scratch, 0))
+            # the admission buffers as allocated: every chunk at offset 0,
+            # every write on the trash block
+            a = self.admit
+            yield (("chunk", self.chunk), self.chunk_fn,
+                   (params, a.toks[:1], a.offsets[:1], scratch,
+                    a.last_idx[:1]))
             yield ("splice", self.splice_fn,
-                   (pool, scratch["k"], scratch["v"], 0, trash))
-            yield ("gather", self.gather_fn,
-                   (pool, np.zeros((mb,), dtype=np.int32), scratch))
+                   (pool, scratch["k"], scratch["v"], a.offsets[:1],
+                    a.phys[0]))
+            yield ("gather", self.gather_fn, (pool, a.row, scratch))
             g = max(1, self.ecfg.admit_group_chunks)
             if g > 1:
-                offs = np.minimum(np.arange(g) * c,
-                                  self.ecfg.max_seq_len - c).astype(np.int32)
                 yield (("chunkgroup", g), lambda: self.chunk_group_fn(g),
-                       (params, pool, scratch, zeros(g, c), offs,
-                        np.full((g,), c - 1, dtype=np.int32),
-                        np.zeros((g, c // bs), dtype=np.int32)))
+                       (params, pool, scratch, a.toks[:g], a.offsets[:g],
+                        a.last_idx[:g], a.phys[:g]))
         else:
             for bucket in buckets:
                 pre = self.policy.init_kv_cache(self.cfg, 1, bucket)
@@ -568,6 +720,8 @@ class GraphFactory:
         timings: dict[str, float] = {}
         self.window.active.zero_()
         self.window.drafts.zero_()
+        if self.chunk:
+            self.admit.packed.zero_()
         for key, build, args in self.lowering_jobs(
                 params, kv_cache, pool, scratch, mb, buckets, spec_lens):
             t0 = time.perf_counter()
