@@ -1,5 +1,6 @@
-"""How ``correct`` is decided for a served model: the plain reference
-(``reference/decoder.py``, float32) runs once over each sampled prompt
+"""How ``correct`` is decided for a served model: the plain reference of
+the configuration's architecture (its module's ``forward_logits``, float32)
+runs once over each sampled prompt
 with its served tokens, and each served token's logit is read against the
 reference's best at its position. The statistics of those gaps that a
 configuration limits (its ``check``) are compared with their limits:
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference.decoder import as_f32, forward_logits, fp8_weight
+from .reference.shared import as_f32, fp8_weight
 
 # the statistics of a sample's gaps, by the name a configuration's
 # ``check`` limits them under
@@ -47,21 +48,23 @@ def sample(reqs: list, mix: dict, seed: int) -> list:
     return picked
 
 
-def token_gaps(m, weights: dict, picked: list, control: bool) -> dict:
+def token_gaps(arch, m, weights: dict, picked: list, control: bool) -> dict:
     """Per sampled request, the gap of each served token under the
-    reference; with ``control``, also the gap of the token the float8
-    reference puts first at the same positions."""
+    reference of ``arch`` (the configuration's module); with ``control``,
+    also the gap of the token the float8 reference puts first at the same
+    positions."""
     out = {"served": [], "control": []}
     for r in picked:
         seq = r.prompt + r.tokens[:-1]
         rows = slice(len(r.prompt) - 1, len(seq))
-        ref = forward_logits(m, weights, seq, as_f32, positions=rows)
+        ref = arch.forward_logits(m, weights, seq, as_f32, positions=rows)
         want = torch.as_tensor(r.tokens, device=ref.device)
         best = ref.max(dim=-1).values
         out["served"].append(
             (best - ref.gather(1, want[:, None])[:, 0]).tolist())
         if control:
-            low = forward_logits(m, weights, seq, fp8_weight, positions=rows)
+            low = arch.forward_logits(m, weights, seq, fp8_weight,
+                                      positions=rows)
             pick = low.argmax(dim=-1)
             out["control"].append(
                 (best - ref.gather(1, pick[:, None])[:, 0]).tolist())
@@ -122,7 +125,7 @@ def judge(per_request: list, failed: int, mix: dict, limits: dict,
     return {"correct": ok, "numbers": nums}
 
 
-def serving(m, weights: dict, counted: list, mix: dict, seed: int,
+def serving(arch, m, weights: dict, counted: list, mix: dict, seed: int,
             limits: dict, control: bool = False) -> dict:
     """The program's verdict: ``served_logit_gap`` limits the widest gap
     (in logits) by which a served greedy token lies below the reference's
@@ -134,7 +137,7 @@ def serving(m, weights: dict, counted: list, mix: dict, seed: int,
     same comparison is added under ``control``."""
     picked = sample(counted, mix, seed)
     failed = sum(1 for r in counted if not r.done)
-    gaps = token_gaps(m, weights, picked, control)
+    gaps = token_gaps(arch, m, weights, picked, control)
     out = judge(gaps["served"], failed, mix, limits, every_statistic=control)
     if control:
         out["control"] = judge(gaps["control"], failed, mix, limits,

@@ -3,8 +3,6 @@ differences over the window, and the traced slice's work."""
 
 from __future__ import annotations
 
-from . import yardstick as ys
-
 
 def ttft_s(run) -> list:
     """Each counted request's seconds from when it was due to its first
@@ -60,21 +58,14 @@ def traced_work(run) -> tuple:
 
 
 def served_flops(run) -> int:
-    """Model FLOPs of the traced slice: each decode window's live lanes'
-    steps (a lane of length L attends L + j + 1 positions at step j) and
-    each admission's uncached prompt tokens with its first token's head
-    row."""
-    shape = run.shape
+    """Model FLOPs of the traced slice, counted by the configuration's
+    architecture module: each decode window's live lanes' steps and each
+    admission's uncached prompt tokens with its first token's head row."""
+    arch, m = run.arch, run.model
     wins, adms = traced_work(run)
-    total = 0
-    for _, k, lens in wins:
-        attended = sum(ys.causal_pairs(n, k) for n in lens)
-        tokens = k * len(lens)
-        total += ys.serve_flops(shape, tokens, attended, tokens)
-    for _, _, n, cached in adms:
-        total += ys.serve_flops(shape, n - cached,
-                                ys.causal_pairs(cached, n - cached), 1)
-    return total
+    return (sum(arch.window_flops(m, k, lens) for _, k, lens in wins)
+            + sum(arch.admission_flops(m, n, cached)
+                  for _, _, n, cached in adms))
 
 
 def idle_pct(run):

@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from . import check, run as prun
+from . import arch as archs, check, run as prun
 
 
 def witness(conf, m, weights, counted, mix, seed) -> dict:
@@ -32,9 +32,8 @@ def witness(conf, m, weights, counted, mix, seed) -> dict:
     best (the serving path against the model at its own precision), and
     how far its best lies below the reference's."""
     from tpu9_torch.models.transformer import decoder_forward
-    from .reference.decoder import forward_logits
-    from .serve import decoder_config
-    cfg = decoder_config(conf, m)
+    arch = archs.of(conf)
+    cfg = arch.decoder_config(conf, m)
     own, ref_gap = [], []
     for r in check.sample(counted, mix, seed):
         seq = r.prompt + r.tokens[:-1]
@@ -44,7 +43,7 @@ def witness(conf, m, weights, counted, mix, seed) -> dict:
         want = torch.as_tensor(r.tokens, device=prog.device)
         own += (prog.max(-1).values
                 - prog.gather(1, want[:, None])[:, 0]).tolist()
-        ref = forward_logits(m, weights, seq, positions=rows)
+        ref = arch.forward_logits(m, weights, seq, positions=rows)
         pick = prog.argmax(-1)
         ref_gap += (ref.max(-1).values
                     - ref.gather(1, pick[:, None])[:, 0]).tolist()

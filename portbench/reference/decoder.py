@@ -12,42 +12,11 @@ Mixtral does."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
-Weight = Callable[[torch.Tensor], torch.Tensor]
-
-
-def as_f32(w: torch.Tensor) -> torch.Tensor:
-    return w.float()
-
-
-def fp8_weight(w: torch.Tensor) -> torch.Tensor:
-    """``w`` rounded to float8 e4m3 with one scale per output column (the
-    last axis), back in float32: the control's weights."""
-    wf = w.float()
-    scale = wf.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 448.0
-    return (wf / scale).to(torch.float8_e4m3fn).float() * scale
-
-
-class f32_products:
-    """Float32 products at float32: TF32 off for the reference's matmuls,
-    the settings restored on exit."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32,
-                      torch.backends.cudnn.allow_tf32,
-                      torch.get_float32_matmul_precision())
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-        return self
-
-    def __exit__(self, *exc):
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32, precision) = self.saved
-        torch.set_float32_matmul_precision(precision)
+from .shared import Weight, as_f32, f32_products
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -112,9 +81,9 @@ def experts_ffn(moe: dict, h: torch.Tensor, top_k: int,
 def forward_logits(m, w: dict, tokens: list, weight: Weight = as_f32,
                    positions: Optional[slice] = None) -> torch.Tensor:
     """f32 logits [T, V] of ``tokens`` (or of the rows ``positions``
-    selects) under the model ``m`` (``weights.Model``) with weights
+    selects) under the model ``m`` (``arch.decoder.Model``) with weights
     ``w``; ``weight`` maps each stored matrix to the f32 matrix used
-    (``fp8_weight`` for the control)."""
+    (``shared.fp8_weight`` for the control)."""
     dev = w["embed"].device
     ids = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     x = w["embed"][ids].float()

@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .decoder import Weight, as_f32, causal_attention, f32_products, \
-    rms_norm, rotary
+from .decoder import causal_attention, rms_norm, rotary
+from .shared import Weight, as_f32, f32_products, leaves
 
 
 def _layer(m, layer: dict, x: torch.Tensor, ad: dict, scale: float,
@@ -56,13 +56,6 @@ def loss(m, w: dict, adapters: dict, tokens: torch.Tensor, scale: float,
     logits = x[:, :-1] @ weight(w["lm_head"])
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, tokens[:, 1:].long()[..., None]).mean()
-
-
-def leaves(tree: dict) -> dict:
-    """``{"layers/<i>/<name>/<a|b>": tensor}`` of an adapter tree."""
-    return {f"layers/{i}/{n}/{p}": ad[n][p]
-            for i, ad in enumerate(tree["layers"]) for n in sorted(ad)
-            for p in ("a", "b")}
 
 
 def steps(m, w: dict, adapters: dict, batches: list, scale: float,

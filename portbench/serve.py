@@ -23,9 +23,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import check, traffic
+from . import arch as archs, check, traffic
 from .trace import Profiler
-from .weights import draw_weights, model_from_config
 
 
 @dataclass
@@ -46,22 +45,6 @@ class Recorder:
     stats_at: dict = field(default_factory=dict)
 
 
-def decoder_config(conf: dict, m):
-    from tpu9_torch.models.transformer import DecoderConfig
-    eng = conf["engine"]
-    extra = {}
-    if m.n_experts:
-        extra = dict(n_experts=m.n_experts, moe_top_k=m.top_k,
-                     moe_capacity_factor=eng["moe_capacity_factor"])
-    return DecoderConfig(
-        vocab_size=m.vocab_size, dim=m.dim, n_layers=m.n_layers,
-        n_heads=m.n_heads, n_kv_heads=m.n_kv_heads, head_dim=m.head_dim,
-        hidden_dim=m.hidden_dim, norm_eps=m.norm_eps,
-        rope_theta=m.rope_theta, max_seq_len=conf["max_position_embeddings"],
-        act="silu", norm_offset=0.0, embed_scale=False, logit_softcap=0.0,
-        tie_embeddings=False, dtype=torch.bfloat16, **extra)
-
-
 def with_mix_engine(conf: dict, mix: dict) -> dict:
     """The configuration with the mix's ``engine`` knobs laid over its
     own."""
@@ -71,15 +54,16 @@ def with_mix_engine(conf: dict, mix: dict) -> dict:
 
 
 def build_engine(conf: dict, m, weights, device):
-    """The engine as ``load_engine`` builds it: ``presets.engine_config``
-    over every knob of the configuration's ``engine`` but the decoder's
+    """The engine as ``load_engine`` builds it: the configuration's
+    architecture's ``DecoderConfig`` and ``presets.engine_config`` over
+    every knob of its ``engine`` but the decoder's
     ``moe_capacity_factor``."""
     from tpu9_torch.serving.engine import InferenceEngine
     from tpu9_torch.serving.presets import engine_config
     knobs = {k: tuple(v) if isinstance(v, list) else v
              for k, v in conf["engine"].items()
              if k != "moe_capacity_factor"}
-    return InferenceEngine(weights, decoder_config(conf, m),
+    return InferenceEngine(weights, archs.of(conf).decoder_config(conf, m),
                            engine_config(**knobs), device=device)
 
 
@@ -291,18 +275,20 @@ def run(cell: dict, conf: dict, mix: dict, args, t_start: float, *,
     readings' second witness)."""
     device = torch.device(device)
     conf = with_mix_engine(conf, mix)
-    m = model_from_config(conf)
-    weights = draw_weights(m, args.seed, device)
+    arch = archs.of(conf)
+    m = arch.model_from_config(conf)
+    weights = arch.draw_weights(m, args.seed, device)
     engine = build_engine(conf, m, weights, device)
     engine.warmup()
     reqs = traffic.requests(mix, args.seed, args.seconds, m.vocab_size,
                             rate=rate)
     rec = Recorder()
-    instrument(engine, rec)
     if args.trace:
         rec.prof = Profiler()
         rec.trace_s = mix["trace_s"]
         rec.prof.warm()
+    # after the profiler is set: the wrappers' host phases bind to it
+    instrument(engine, rec)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -319,14 +305,14 @@ def run(cell: dict, conf: dict, mix: dict, args, t_start: float, *,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = check.serving(m, weights, window["counted"], mix, args.seed,
-                           conf["check"], control=control)
+    checks = check.serving(arch, m, weights, window["counted"], mix,
+                           args.seed, conf["check"], control=control)
     if witness is not None:
         checks["witness"] = witness(conf, m, weights, window["counted"])
     return RunData(kind="serve", seed=args.seed, seconds=args.seconds,
-                   setup_s=setup_s, shape=m.shape, mix=mix, window=window,
-                   rec=rec, memory_peak_bytes=int(peak), checks=checks,
-                   compiles_in_window=compiles)
+                   setup_s=setup_s, arch=arch, model=m, mix=mix,
+                   window=window, rec=rec, memory_peak_bytes=int(peak),
+                   checks=checks, compiles_in_window=compiles)
 
 
 @dataclass
@@ -335,7 +321,8 @@ class RunData:
     seed: int
     seconds: float
     setup_s: float
-    shape: object
+    arch: object        # the configuration's module (``portbench/arch``)
+    model: object       # its ``model_from_config``
     mix: dict
     window: dict
     rec: Recorder

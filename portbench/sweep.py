@@ -17,8 +17,7 @@ import time
 
 import torch
 
-from . import readers, run as prun, serve, traffic, yardstick
-from .weights import draw_weights, model_from_config
+from . import arch as archs, readers, run as prun, serve, traffic, yardstick
 
 
 def main() -> None:
@@ -30,9 +29,10 @@ def main() -> None:
     args = p.parse_args()
     cell, conf, mix = prun.find_cell(prun.load_spec(), args.workload)
     conf = serve.with_mix_engine(conf, mix)
-    m = model_from_config(conf)
+    arch = archs.of(conf)
+    m = arch.model_from_config(conf)
     device = torch.device("cuda")
-    weights = draw_weights(m, args.seed, device)
+    weights = arch.draw_weights(m, args.seed, device)
     for rate in args.rates:
         engine = serve.build_engine(conf, m, weights, device)
         engine.warmup()
@@ -43,8 +43,8 @@ def main() -> None:
         window = asyncio.run(serve.drive(engine, mix, reqs, args.seconds,
                                          rec))
         run = serve.RunData(kind="serve", seed=args.seed,
-                            seconds=args.seconds, setup_s=0.0,
-                            shape=m.shape, mix=mix, window=window, rec=rec,
+                            seconds=args.seconds, setup_s=0.0, arch=arch,
+                            model=m, mix=mix, window=window, rec=rec,
                             memory_peak_bytes=0, checks={})
         ttft = readers.ttft_s(run)
         tpot = readers.tpot_s(run)

@@ -63,11 +63,10 @@ def test_sound_run_is_correct_and_control_is_not(name):
                if key.startswith("served_"))
 
 
-def greedy(m, weights, prompt, n):
-    from portbench.reference.decoder import forward_logits
+def greedy(arch, m, weights, prompt, n):
     toks = list(prompt)
     for _ in range(n):
-        toks.append(int(forward_logits(m, weights, toks)[-1].argmax()))
+        toks.append(int(arch.forward_logits(m, weights, toks)[-1].argmax()))
     return toks[len(prompt):]
 
 
@@ -77,27 +76,28 @@ def test_one_request_altered_is_not_correct(name):
     altered, as one slot reading a wrong page would: under a quarter of
     the sample's tokens, which the median over the sample lets pass."""
     import torch
-    from portbench import check, traffic
-    from portbench.weights import draw_weights, model_from_config
+    from portbench import arch as archs, check, traffic
     conf = tiny_conf(name)
-    m = model_from_config(conf)
-    weights = draw_weights(m, 2 ** 31 + 7, "cpu")
+    arch = archs.of(conf)
+    m = arch.model_from_config(conf)
+    weights = arch.draw_weights(m, 2 ** 31 + 7, "cpu")
     gen = torch.Generator().manual_seed(11)
     reqs = []
     for i, (p, n) in enumerate([(30, 12), (20, 9), (24, 8), (16, 10)]):
         prompt = torch.randint(0, m.vocab_size, (p,), generator=gen).tolist()
         reqs.append(traffic.Request(index=i, prompt=prompt, max_new=n,
-                                    tokens=greedy(m, weights, prompt, n),
+                                    tokens=greedy(arch, m, weights, prompt,
+                                                  n),
                                     done=True))
-    sound = check.serving(m, weights, reqs, {"check_tokens": 39}, 5,
+    sound = check.serving(arch, m, weights, reqs, {"check_tokens": 39}, 5,
                           conf["check"])
     assert sound["correct"], sound["numbers"]
     reqs[2].tokens = [(t + 1) % m.vocab_size for t in reqs[2].tokens]
-    out = check.serving(m, weights, reqs, {"check_tokens": 39}, 5,
+    out = check.serving(arch, m, weights, reqs, {"check_tokens": 39}, 5,
                         conf["check"])
     assert out["numbers"]["checked_tokens"]["value"] == 39
     assert not out["correct"], out["numbers"]
-    stats = check.statistics(check.token_gaps(m, weights, reqs,
+    stats = check.statistics(check.token_gaps(arch, m, weights, reqs,
                                               False)["served"])
     assert stats["served_logit_gap_median"] <= 1.0
 

@@ -9,9 +9,8 @@ import json
 import pytest
 import torch
 
-from portbench import run as prun
-from portbench.reference import decoder as ref
-from portbench.weights import draw_weights, model_from_config
+from portbench import arch as archs, run as prun
+from portbench.reference import shared
 
 
 def tiny_conf(name: str) -> dict:
@@ -31,35 +30,35 @@ def tiny_conf(name: str) -> dict:
 
 @pytest.mark.parametrize("name", ["mistral-7b", "mixtral-8x7b"])
 def test_reference_matches_port_f32(name):
-    from portbench import serve
     from tpu9_torch.models.transformer import decoder_forward
     conf = tiny_conf(name)
-    m = model_from_config(conf)
-    w = draw_weights(m, 2 ** 31 + 5, "cpu", dtype=torch.float32)
-    cfg = dataclasses.replace(serve.decoder_config(conf, m),
+    arch = archs.of(conf)
+    m = arch.model_from_config(conf)
+    w = arch.draw_weights(m, 2 ** 31 + 5, "cpu", dtype=torch.float32)
+    cfg = dataclasses.replace(arch.decoder_config(conf, m),
                               dtype=torch.float32)
     tokens = torch.randint(0, m.vocab_size, (1, 40),
                            generator=torch.Generator().manual_seed(3))
     port = decoder_forward(w, tokens, cfg)[0]
-    mine = ref.forward_logits(m, w, tokens[0].tolist())
+    mine = arch.forward_logits(m, w, tokens[0].tolist())
     assert torch.allclose(port, mine, rtol=1e-4, atol=1e-4), \
         (port - mine).abs().max()
-    rows = ref.forward_logits(m, w, tokens[0].tolist(),
-                              positions=slice(30, 40))
+    rows = arch.forward_logits(m, w, tokens[0].tolist(),
+                               positions=slice(30, 40))
     assert torch.allclose(rows, mine[30:40], rtol=1e-5, atol=1e-5)
 
 
 def test_fp8_weight_rounds():
     w = torch.randn(64, 32, generator=torch.Generator().manual_seed(1))
-    low = ref.fp8_weight(w)
+    low = shared.fp8_weight(w)
     rel = ((low - w).norm() / w.norm()).item()
     assert 0.005 < rel < 0.08
-    assert torch.equal(ref.fp8_weight(low), low) or \
-        (ref.fp8_weight(low) - low).abs().max() < 1e-6
+    assert torch.equal(shared.fp8_weight(low), low) or \
+        (shared.fp8_weight(low) - low).abs().max() < 1e-6
 
 
 def test_tf32_restored():
     before = torch.backends.cuda.matmul.allow_tf32
-    with ref.f32_products():
+    with shared.f32_products():
         assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32 == before

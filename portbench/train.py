@@ -9,8 +9,8 @@ kernel); the readings the check needs are taken from those steps: each
 step's loss, each adapter leaf's first gradient worked out from AdamW's
 first moment after step 1 (``mu / (1 - b1)``), and each leaf's change
 after the last set-up step. The same object then runs for the window.
-After it, the plain reference (``reference/lora.py``) follows the set-up
-steps from the same adapters on the same rows."""
+After it, the plain reference (the architecture module's ``lora_steps``)
+follows the set-up steps from the same adapters on the same rows."""
 
 from __future__ import annotations
 
@@ -20,40 +20,16 @@ from dataclasses import dataclass
 
 import torch
 
-from .serve import decoder_config
+from . import arch as archs
+from .reference.shared import fp8_weight, leaves
 from .trace import Profiler
-from .reference import lora as ref_lora
-from .weights import draw_weights, model_from_config
 
 B1 = 0.9   # optax's adamw default, which the program's adamw keeps
 
 
-def draw_adapters(m, targets, rank: int, seed: int, device) -> dict:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 1)
-    shapes = {"wq": (m.dim, m.n_heads * m.head_dim),
-              "wk": (m.dim, m.n_kv_heads * m.head_dim),
-              "wv": (m.dim, m.n_kv_heads * m.head_dim),
-              "wo": (m.n_heads * m.head_dim, m.dim)}
-    rows = sum(shapes[n][0] for n in targets) * m.n_layers
-    a_all = torch.empty((rows, rank), dtype=torch.float32, device=device)
-    a_all.normal_(0.0, 1.0 / rank, generator=gen)
-    layers, at = [], 0
-    for _ in range(m.n_layers):
-        entry = {}
-        for n in targets:
-            fan_in, out = shapes[n]
-            entry[n] = {"a": a_all[at:at + fan_in],
-                        "b": torch.zeros((rank, out), dtype=torch.float32,
-                                         device=device)}
-            at += fan_in
-        layers.append(entry)
-    return {"layers": layers}
-
-
 def leaf_norms(tree: dict, scale: float = 1.0) -> dict:
     return {k: float(v.float().norm()) * scale
-            for k, v in ref_lora.leaves(tree).items()}
+            for k, v in leaves(tree).items()}
 
 
 @dataclass
@@ -62,7 +38,8 @@ class TrainRun:
     seed: int
     seconds: float
     setup_s: float
-    shape: object
+    arch: object        # the configuration's module (``portbench/arch``)
+    model: object       # its ``model_from_config``
     mix: dict
     window: dict
     memory_peak_bytes: int
@@ -88,11 +65,13 @@ def run(cell: dict, conf: dict, mix: dict, args, t_start: float, *,
     ``fault`` wraps the program's step (the fault tests and readings)."""
     from tpu9_torch.train import build_lora_train_step, optim
     device = torch.device(device)
-    m = model_from_config(conf)
-    weights = draw_weights(m, args.seed, device)
-    cfg = decoder_config(conf, m)
+    arch = archs.of(conf)
+    m = arch.model_from_config(conf)
+    weights = arch.draw_weights(m, args.seed, device)
+    cfg = arch.decoder_config(conf, m)
     rank, scale = mix["rank"], mix["alpha"] / mix["rank"]
-    adapters0 = draw_adapters(m, mix["targets"], rank, args.seed, device)
+    adapters0 = arch.draw_adapters(m, mix["targets"], rank, args.seed,
+                                   device)
     opt = optim.adamw(mix["learning_rate"],
                       weight_decay=mix["weight_decay"])
     step = build_lora_train_step(cfg, opt, scale=scale, device=device)
@@ -120,8 +99,8 @@ def run(cell: dict, conf: dict, mix: dict, args, t_start: float, *,
         if i == 0:
             first_grad = leaf_norms({"layers": opt_state.mu["layers"]},
                                     1.0 / (1.0 - B1))
-    after = ref_lora.leaves(adapters)
-    before = ref_lora.leaves(adapters0)
+    after = leaves(adapters)
+    before = leaves(adapters0)
     delta = {k: float((after[k] - before[k]).norm()) for k in after}
     losses = [float(x) for x in losses]
     if device.type == "cuda":
@@ -160,13 +139,13 @@ def run(cell: dict, conf: dict, mix: dict, args, t_start: float, *,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = check_steps(m, weights, adapters0, batches, mix, scale, losses,
-                         first_grad, delta, conf["check"],
+    checks = check_steps(arch, m, weights, adapters0, batches, mix, scale,
+                         losses, first_grad, delta, conf["check"],
                          control=control)
     checks["finite"] = last_loss == last_loss
     checks["correct"] = checks["correct"] and checks["finite"]
     return TrainRun(kind="train", seed=args.seed, seconds=args.seconds,
-                    setup_s=setup_s, shape=m.shape, mix=mix,
+                    setup_s=setup_s, arch=arch, model=m, mix=mix,
                     window={"open": t_open, "close": close, "end": t_end,
                             "lateness": []},
                     memory_peak_bytes=int(peak), checks=checks, slice=sl,
@@ -221,21 +200,20 @@ def verdict(got: dict, limits: dict, readings: bool = False) -> dict:
     return {"correct": ok, "numbers": nums}
 
 
-def check_steps(m, weights, adapters0, batches, mix, scale, losses,
+def check_steps(arch, m, weights, adapters0, batches, mix, scale, losses,
                 first_grad, delta, limits: dict,
                 control: bool = False) -> dict:
     """The program's verdict (limits set from the program's and the
     control's readings on the card, PERF.md). With ``control``, the
     control's verdict by the same comparison is added under ``control``:
     the reference's steps with float8 weights in the program's place."""
-    ref = ref_lora.steps(m, weights, adapters0, batches, scale,
-                         mix["learning_rate"], mix["weight_decay"])
+    ref = arch.lora_steps(m, weights, adapters0, batches, scale,
+                          mix["learning_rate"], mix["weight_decay"])
     out = verdict(compare({"losses": losses, "first_grad": first_grad,
                            "delta": delta}, ref), limits, readings=control)
     if control:
-        from .reference.decoder import fp8_weight
-        low = ref_lora.steps(m, weights, adapters0, batches, scale,
-                             mix["learning_rate"], mix["weight_decay"],
-                             weight=fp8_weight)
+        low = arch.lora_steps(m, weights, adapters0, batches, scale,
+                              mix["learning_rate"], mix["weight_decay"],
+                              weight=fp8_weight)
         out["control"] = verdict(compare(low, ref), limits, readings=True)
     return out
